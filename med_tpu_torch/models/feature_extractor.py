@@ -1,0 +1,27 @@
+"""Video feature compressor: MLP 2048 -> 512 -> 256 -> video_dims (port of
+``med_tpu.models.feature_extractor``; reference models.py:6-47)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from .layers import Dense
+
+
+class FeatureExtractor(nn.Module):
+    def __init__(self, output_dim: int = 32, in_dim: int = 2048,
+                 hidden_dims: Sequence[int] = (512, 256)):
+        super().__init__()
+        dims = [in_dim, *hidden_dims]
+        for i in range(len(hidden_dims)):
+            self.add_module(f"dense{i}", Dense(dims[i], dims[i + 1]))
+        self.n_hidden = len(hidden_dims)
+        self.out = Dense(dims[-1], output_dim)
+
+    def forward(self, x):
+        for i in range(self.n_hidden):
+            x = torch.relu(getattr(self, f"dense{i}")(x))
+        return self.out(x)
