@@ -1,5 +1,6 @@
 """Experiment configuration: the fields of ``med_tpu.config.ExperimentConfig``
-that the frame-serving path reads, with the same names and defaults."""
+that the frame serving and training paths read, with the same names and
+defaults."""
 
 from __future__ import annotations
 
@@ -40,6 +41,16 @@ class ExperimentConfig:
     model_name: str = "SimpleCNN"
     data_type: str = "multimodal"     # 'multimodal' | 'video' | 'kinematics'
 
+    # --- optimization ---
+    n_epochs: int = 15
+    lr: float = 5e-4
+    weight_decay: float = 5e-3        # L2 added to the gradient (torch Adam)
+    lr_scheduler: bool = True         # cosine annealing to 1e-6 over n_epochs
+    pos_weight: bool = False          # CE class weights: not ported, True raises
+    loss_or_f1: str = "f1"            # best-checkpoint selection criterion
+    seed: int = 42
+    siamese: bool = False
+
     out_features: int = 1             # 2 for binary frame models
     video_dims: int = 32              # FeatureExtractor output dim (2048 = bypass)
 
@@ -54,7 +65,11 @@ class ExperimentConfig:
     use_all_gestures: bool = True
     use_skill_prompt: bool = False
     SRM: bool = False                 # skill-reasoning module
+    smooth_lambda: float = 0.15       # COG truncated-MSE smoothing weight
 
+    fused_epoch: bool = True          # frame folds: every trial padded to one
+                                      # common bucket (the per-trial loop runs)
+    trial_batch: int = 1              # frame families: trials per step
     max_frames: int = 4096            # frame-model padding bucket ceiling
 
     def __post_init__(self):
@@ -66,6 +81,17 @@ class ExperimentConfig:
             raise ValueError(f"unknown dataset_type {self.dataset_type!r}")
         if self.error_type not in ERROR_TYPE_TO_COLUMN and self.error_type != "sequential":
             raise ValueError(f"unknown error_type {self.error_type!r}")
+        if self.pos_weight:
+            raise NotImplementedError(
+                "pos_weight (class-count loss weights) is not ported yet: "
+                "ROADMAP.md Queue A5 (COG driver)")
+        if self.trial_batch > 1:
+            raise NotImplementedError(
+                "trial_batch > 1 is not ported yet: ROADMAP.md Queue A6 "
+                "(other frame families)")
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
 
     def in_features(self) -> int:
         """Model input width per data_type (reference ``in_features_dict``)."""

@@ -11,7 +11,9 @@
 //   z   = y @ w1 + b1     (times 2*mask when a uint8 dropout mask is given)
 //   out = h + z
 // Rows outside [0, T) read zero. h, out (T, C) row-major; w3 (3, C, C) and
-// w1 (C, C) are [in][out]; b3, b1 (C); mask (T, C) or null.
+// w1 (C, C) are [in][out]; b3, b1 (C); mask (T, C) or null. y_out (T, C) or
+// null: a training forward saves y there for the backward
+// (csrc/tcn_layer_bwd.cu), as the TPU kernels' save=True variant does.
 //
 // What bounds it on an H100: operations. A layer is 8*T*C*C flops against
 // ~2*T*C*4 bytes of activations plus 16*C*C bytes of weights: at C=64 that
@@ -27,7 +29,8 @@
 // sums in registers; a warp reads one input value by broadcast and 32
 // consecutive weights, so shared memory has no bank conflicts. The output
 // goes to a second buffer: an in-place update would race with the tap reads
-// of neighbouring blocks, so the host ping-pongs two buffers.
+// of neighbouring blocks, so the host ping-pongs two buffers when serving and
+// gives every layer a fresh slot of the saved activations when training.
 
 #include <cuda_runtime.h>
 
@@ -42,7 +45,8 @@ tcn_layer_kernel(const float* __restrict__ h, const float* __restrict__ w3,
                  const float* __restrict__ b3, const float* __restrict__ w1,
                  const float* __restrict__ b1,
                  const unsigned char* __restrict__ mask,
-                 float* __restrict__ out, int T, int s0, int s1, int s2) {
+                 float* __restrict__ out, float* __restrict__ y_out, int T,
+                 int s0, int s1, int s2) {
   constexpr int kGroups = kThreads / C;        // row groups
   constexpr int kRows = kTile / kGroups;       // rows per thread
   extern __shared__ float smem[];
@@ -81,7 +85,12 @@ tcn_layer_kernel(const float* __restrict__ h, const float* __restrict__ w3,
     }
   }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) ys[(g + i * kGroups) * C + o] = fmaxf(acc[i], 0.f);
+  for (int i = 0; i < kRows; ++i) {
+    const float y = fmaxf(acc[i], 0.f);
+    ys[(g + i * kGroups) * C + o] = y;
+    const int t = t0 + g + i * kGroups;
+    if (y_out != nullptr && t < T) y_out[(long long)t * C + o] = y;
+  }
   __syncthreads();
 
 #pragma unroll
@@ -107,7 +116,7 @@ tcn_layer_kernel(const float* __restrict__ h, const float* __restrict__ w3,
 template <int C>
 cudaError_t launch(const float* h, const float* w3, const float* b3,
                    const float* w1, const float* b1, const unsigned char* mask,
-                   float* out, int T, int s0, int s1, int s2,
+                   float* out, float* y_out, int T, int s0, int s1, int s2,
                    cudaStream_t stream) {
   constexpr size_t smem = (size_t)(4 * C * C + 4 * kTile * C) * sizeof(float);
   static bool attribute_set = false;
@@ -120,27 +129,28 @@ cudaError_t launch(const float* h, const float* w3, const float* b3,
   }
   const int blocks = (T + kTile - 1) / kTile;
   tcn_layer_kernel<C><<<blocks, kThreads, smem, stream>>>(
-      h, w3, b3, w1, b1, mask, out, T, s0, s1, s2);
+      h, w3, b3, w1, b1, mask, out, y_out, T, s0, s1, s2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted. mask may be
-// null. d is the layer's dilation.
+// Returns a cudaError_t code: 0 when the launch was accepted. mask and y_out
+// may be null. d is the layer's dilation.
 extern "C" int tcn_layer_fwd(const float* h, const float* w3, const float* b3,
                              const float* w1, const float* b1,
-                             const unsigned char* mask, float* out, int T,
-                             int C, int d, int causal, void* stream) {
+                             const unsigned char* mask, float* out,
+                             float* y_out, int T, int C, int d, int causal,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int s0 = causal ? 2 * d : d;
   const int s1 = causal ? d : 0;
   const int s2 = causal ? 0 : -d;
   switch (C) {
-    case 8: return launch<8>(h, w3, b3, w1, b1, mask, out, T, s0, s1, s2, s);
-    case 16: return launch<16>(h, w3, b3, w1, b1, mask, out, T, s0, s1, s2, s);
-    case 32: return launch<32>(h, w3, b3, w1, b1, mask, out, T, s0, s1, s2, s);
-    case 64: return launch<64>(h, w3, b3, w1, b1, mask, out, T, s0, s1, s2, s);
+    case 8: return launch<8>(h, w3, b3, w1, b1, mask, out, y_out, T, s0, s1, s2, s);
+    case 16: return launch<16>(h, w3, b3, w1, b1, mask, out, y_out, T, s0, s1, s2, s);
+    case 32: return launch<32>(h, w3, b3, w1, b1, mask, out, y_out, T, s0, s1, s2, s);
+    case 64: return launch<64>(h, w3, b3, w1, b1, mask, out, y_out, T, s0, s1, s2, s);
     default: return cudaErrorInvalidValue;
   }
 }

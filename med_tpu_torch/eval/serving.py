@@ -55,5 +55,7 @@ class FrameModelServer:
             e_powerset=np.zeros((T, 7), np.int32),
             skill=skill_one_hot("Needle_Passing_B000", T),
         )
-        m = self.exp.eval_step(frame_batch(trial, self.cfg))
+        batch = frame_batch(trial, self.cfg)
+        # inputs only: with labels, eval_step would also compute the loss
+        m = self.exp.eval_step({k: batch[k] for k in ("images", "kinematics")})
         return (m["preds"].cpu().numpy()[:T], m["probs"].cpu().numpy()[:T])

@@ -195,23 +195,43 @@ class ChainOfGestureTransformer(nn.Module):
 
 
 class COGStage(nn.Module):
-    """SingleStageModel1_COG: optional 1x1 input conv, dilated residual
-    stack, 1x1 class conv. Returns (features, logits). Eval only: the
-    channel dropout of training is not applied."""
+    """SingleStageModel1_COG: optional 1x1 input conv, optional channel
+    dropout, dilated residual stack, 1x1 class conv. Returns (features,
+    logits). A training forward takes its dropout masks from ``masks``
+    ({"channel": (B, 1, C) keep, "stack": (L, B, T, C) uint8}, as
+    :meth:`dropout_masks` draws them)."""
 
     def __init__(self, num_layers: int, in_dim: int, f_maps: int,
                  out_classes: int, causal: bool = True,
-                 use_input_conv: bool = True):
+                 use_input_conv: bool = True, channel_dropout: bool = False):
         super().__init__()
+        self.channel_dropout = channel_dropout
         self.conv_in = Conv1d(in_dim, f_maps) if use_input_conv else None
         self.stack = ResidualStack(num_layers, f_maps, causal=causal)
         self.conv_out = Conv1d(f_maps, out_classes)
 
-    def pre(self, x):
-        return self.conv_in(x) if self.conv_in is not None else x
+    def dropout_masks(self, B: int, T: int, generator: torch.Generator):
+        masks = {}
+        if self.channel_dropout:
+            # torch Dropout2d on (B, C, T, 1): whole channels kept or zeroed
+            C = self.stack.w3.shape[-1]
+            masks["channel"] = torch.randint(
+                0, 2, (B, 1, C), generator=generator, device=self.stack.w3.device
+            ).to(torch.float32)
+        masks["stack"] = self.stack.dropout_mask(B, T, generator)
+        return masks
 
-    def forward(self, x):
-        out = self.stack(self.pre(x))
+    def pre(self, x, train: bool = False, keep=None):
+        out = self.conv_in(x) if self.conv_in is not None else x
+        if self.channel_dropout and train:
+            out = out * keep * 2.0
+        return out
+
+    def forward(self, x, train: bool = False, masks=None):
+        if train:
+            out = self.stack(self.pre(x, True, masks.get("channel")), masks["stack"])
+        else:
+            out = self.stack(self.pre(x))
         return out, self.conv_out(out)
 
 
@@ -236,7 +256,7 @@ class COG(nn.Module):
         width = M * d_model
         self.slow_names = ["TCN"] + [f"R{r}" for r in range(num_r)]
         self.add_module("TCN", COGStage(num_layers_basic, width, f_maps,
-                                        out_classes, causal))
+                                        out_classes, causal, channel_dropout=True))
         for r in range(num_r):
             self.add_module(f"R{r}", COGStage(num_layers_r, f_maps, f_maps,
                                               out_classes, causal,
@@ -245,25 +265,48 @@ class COG(nn.Module):
         self.conv_out = Conv1d(f_maps, out_classes)
         self.fast_names = ["fast_stage1"] + [f"fast_R{r}" for r in range(num_r)]
         self.add_module("fast_stage1", COGStage(num_layers_basic, width, f_maps,
-                                                out_classes, causal))
+                                                out_classes, causal,
+                                                channel_dropout=True))
         for r in range(num_r):
             self.add_module(f"fast_R{r}", COGStage(num_layers_r, out_classes,
                                                    f_maps, out_classes, causal))
 
-    def forward(self, x) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    def dropout_masks(self, T: int, generator: torch.Generator):
+        """One training forward's dropout masks, by stage name (see
+        :class:`COGStage`), drawn from ``generator`` on the model's device:
+        channel dropout on the TCN and fast_stage1 stages, stack masks on all
+        eight stacks."""
+        Tf = T // self.fast_pool
+        return {name: getattr(self, name).dropout_masks(
+                    1, T if name in self.slow_names else Tf, generator)
+                for name in self.slow_names + self.fast_names}
+
+    def forward(self, x, train: bool = False, masks=None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """x (1, T, f_dim), one trial -> (out_list, f_list): 4 slow FPN logit
         tracks at T and 1 + num_r fast tracks at T // fast_pool, each
-        (1, T_i, out_classes)."""
+        (1, T_i, out_classes). ``train`` applies dropout with ``masks``
+        (:meth:`dropout_masks`' layout), or with masks drawn from
+        ``generator`` when none are given."""
         if x.shape[0] != 1:
             raise ValueError("COG processes one trial at a time (B=1)")
+        if train and masks is None:
+            if generator is None:
+                raise ValueError("a training forward needs masks or a generator")
+            masks = self.dropout_masks(x.shape[1], generator)
         xx = self.cot(self.gest_embed, x[0])[None]    # (1, T, M*d_model)
 
         # slow path: all stages back to back through the multi-stage kernel;
         # the stages' own class convs are dead here, as in the JAX package
         slow = [getattr(self, n) for n in self.slow_names]
+        keep = masks["TCN"].get("channel") if train else None
+        stack_masks = ([masks[n]["stack"][:, 0].contiguous() for n in self.slow_names]
+                       if train else None)
         hs = dilated_residual_multistack_stages(
-            slow[0].pre(xx)[0], [s.stack.weights() for s in slow],
-            self.num_layers_basic, self.num_layers_r, causal=self.causal)
+            slow[0].pre(xx, train, keep)[0], [s.stack.weights() for s in slow],
+            self.num_layers_basic, self.num_layers_r, causal=self.causal,
+            masks=stack_masks)
         f_list = [h[None] for h in hs]
 
         # FPN upsample-add with a single shared lateral conv
@@ -276,11 +319,13 @@ class COG(nn.Module):
 
         # fast path
         fast = F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
-        fast_f, fast_out = self.fast_stage1(fast)
+        fast_f, fast_out = self.fast_stage1(
+            fast, train, masks["fast_stage1"] if train else None)
         f_list.append(fast_f)
         out_list.append(fast_out)
-        for r in range(self.num_r):
-            fast_f, fast_out = getattr(self, f"fast_R{r}")(torch.softmax(fast_out, dim=-1))
+        for name in self.fast_names[1:]:
+            fast_f, fast_out = getattr(self, name)(
+                torch.softmax(fast_out, dim=-1), train, masks[name] if train else None)
             f_list.append(fast_f)
             out_list.append(fast_out)
         return out_list, f_list

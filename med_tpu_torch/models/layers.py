@@ -101,7 +101,8 @@ class Conv1d(nn.Module):
 class ResidualStack(nn.Module):
     """``num_layers`` dilated residual layers (dilation 2^i) over (B, T, C),
     weights stacked per stage: w3 (L, 3, C, C), b3 (L, C), w1 (L, C, C),
-    b1 (L, C) — the layout the TCN kernel takes. Eval only: no dropout."""
+    b1 (L, C) — the layout the TCN kernel takes. Training passes a dropout
+    keep-mask (rate 0.5, scale 2.0 in the kernel)."""
 
     flax_layout = "stack"
 
@@ -123,10 +124,25 @@ class ResidualStack(nn.Module):
     def weights(self):
         return self.w3, self.b3, self.w1, self.b1
 
-    def forward(self, x):
+    def dropout_mask(self, B: int, T: int, generator: torch.Generator) -> torch.Tensor:
+        """The (L, B, T, C) uint8 Bernoulli(0.5) keep-mask of one training
+        forward, drawn from ``generator`` (on the model's device). One random
+        bit per element, unpacked along T: element t takes bit t % 32 of word
+        t // 32, as med_tpu's ResidualStack.dropout_mask does."""
+        L, C = self.w3.shape[0], self.w3.shape[-1]
+        tw = (T + 31) // 32
+        words = torch.randint(0, 2 ** 32, (L, B, tw, 1, C), generator=generator,
+                              device=self.w3.device, dtype=torch.int64)
+        shifts = torch.arange(32, device=self.w3.device).reshape(1, 1, 1, 32, 1)
+        bits = ((words >> shifts) & 1).to(torch.uint8)
+        return bits.reshape(L, B, tw * 32, C)[:, :, :T].contiguous()
+
+    def forward(self, x, mask=None):
+        """x (B, T, C); ``mask`` the (L, B, T, C) keep-mask, or None (eval)."""
         return torch.stack([
-            dilated_residual_stack(xb, *self.weights(), causal=self.causal)
-            for xb in x
+            dilated_residual_stack(xb, *self.weights(), causal=self.causal,
+                                   mask=None if mask is None else mask[:, b].contiguous())
+            for b, xb in enumerate(x)
         ])
 
 

@@ -2,13 +2,21 @@
 PyTorch version; a wrapper launches the kernel for a CUDA tensor, runs the
 plain version for a CPU tensor, and counts its launches in ``.launches``."""
 
-from .attention import sliding_window_attention_packed
-from .tcn_fused import dilated_residual_multistack_stages, dilated_residual_stack
+from .attention import sliding_window_attention_packed, sliding_window_attention_packed_bwd
+from .tcn_fused import (
+    dilated_residual_multistack_stages,
+    dilated_residual_multistack_stages_bwd,
+    dilated_residual_stack,
+    dilated_residual_stack_bwd,
+)
 
 KERNEL_WRAPPERS = (
     sliding_window_attention_packed,
     dilated_residual_multistack_stages,
     dilated_residual_stack,
+    sliding_window_attention_packed_bwd,
+    dilated_residual_multistack_stages_bwd,
+    dilated_residual_stack_bwd,
 )
 
 

@@ -14,7 +14,11 @@ like with like:
 
 :func:`sliding_window_attention_packed` runs the hand-written CUDA kernel
 ``csrc/swa_packed_fwd.cu`` on a CUDA tensor and its plain PyTorch version
-:func:`sliding_window_attention_packed_plain` on a CPU tensor.
+:func:`sliding_window_attention_packed_plain` on a CPU tensor. Where autograd
+needs a gradient it runs through :class:`_PackedAttention`, whose backward
+:func:`sliding_window_attention_packed_bwd` is the CUDA kernel
+``csrc/swa_packed_bwd.cu`` on the card and
+:func:`sliding_window_attention_packed_bwd_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -109,6 +113,33 @@ def _packed_fwd_cuda(q, k, v, window: int, m: int):
     return out, stats
 
 
+def _packed_fwd(q, k, v, window: int, m: int):
+    if q.is_cuda:
+        return _packed_fwd_cuda(q, k, v, window, m)
+    if q.device.type == "cpu":
+        return sliding_window_attention_packed_plain(q, k, v, window, m)
+    raise ValueError(f"no packed attention for device {q.device}")
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Forward kernel K1 saving (q, k, v, out, stats), backward kernel K3 (as
+    med_tpu's _swa_packed_fwd_rule / _swa_packed_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, m: int):
+        out, stats = _packed_fwd(q, k, v, window, m)
+        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.window, ctx.m = window, m
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, stats = ctx.saved_tensors
+        dq, dk, dv = sliding_window_attention_packed_bwd(
+            q, k, v, g.contiguous(), out, stats, ctx.window, ctx.m)
+        return dq, dk, dv, None, None
+
+
 def sliding_window_attention_packed(q, k, v, window: int, m: int,
                                     return_stats: bool = False):
     """Banded local attention in the packed layout (module docstring).
@@ -116,14 +147,101 @@ def sliding_window_attention_packed(q, k, v, window: int, m: int,
     A CUDA tensor goes to the CUDA kernel (replacing
     med_tpu/ops/attention.py::_swa_packed_fwd_kernel) and a CPU tensor to
     the plain version; any other device raises. ``return_stats`` also
-    returns the (H, 2, N) per-query (logsumexp, 1/sum)."""
-    if q.is_cuda:
-        out, stats = _packed_fwd_cuda(q, k, v, window, m)
-    elif q.device.type == "cpu":
-        out, stats = sliding_window_attention_packed_plain(q, k, v, window, m)
-    else:
-        raise ValueError(f"no packed attention for device {q.device}")
+    returns the (H, 2, N) per-query (logsumexp, 1/sum). When autograd needs
+    a gradient of q, k or v, the call saves what the backward reads; under
+    ``no_grad`` it saves nothing."""
+    if (not return_stats and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _PackedAttention.apply(q, k, v, window, m)
+    out, stats = _packed_fwd(q, k, v, window, m)
     return (out, stats) if return_stats else out
 
 
 sliding_window_attention_packed.launches = 0
+
+
+def sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
+                                              window: int, m: int):
+    """Plain PyTorch version of the backward kernel -> (dq, dk, dv), same
+    shapes as (q, k, v). The arithmetic of the TPU kernel: q pre-scaled by
+    1/sqrt(dk), a = exp(scores - lse) from the saved stats, delta = out.g
+    (the flash-attention identity), ds = a * (g.v - delta); the keys'
+    gradients scatter back from the windows, and the zero halo's drop."""
+    H, dk, N = q.shape
+    T = N // m
+    W = window
+    scale = 1.0 / math.sqrt(dk)
+    q4 = (q * scale).permute(0, 2, 1).reshape(H, T, m, dk)
+    g4 = g.permute(0, 2, 1).reshape(H, T, m, -1)
+    lse = stats[:, 0].reshape(H, T, m, 1)
+    delta = (out * g).sum(dim=1).reshape(H, T, m, 1)
+    kwin = torch.stack([sliding_windows(x, W) for x in k.transpose(1, 2)])
+    vwin = torch.stack([sliding_windows(x, W) for x in v.transpose(1, 2)])
+    a = torch.exp(torch.einsum("htmd,htwd->htmw", q4, kwin) - lse)
+    ds = a * (torch.einsum("htmd,htwd->htmw", g4, vwin) - delta)
+    dq = torch.einsum("htmw,htwd->htmd", ds, kwin) * scale
+    dkwin = torch.einsum("htmw,htmd->htwd", ds, q4)
+    dvwin = torch.einsum("htmw,htmd->htwd", a, g4)
+    # slot w of frame t's window is row t + w of the left-padded keys
+    dk_p = q.new_zeros((H, T + W - 1, dk))
+    dv_p = q.new_zeros((H, T + W - 1, dvwin.shape[-1]))
+    for w in range(W):
+        dk_p[:, w:w + T] += dkwin[:, :, w]
+        dv_p[:, w:w + T] += dvwin[:, :, w]
+    return (dq.reshape(H, N, dk).permute(0, 2, 1),
+            dk_p[:, W - 1:].transpose(1, 2), dv_p[:, W - 1:].transpose(1, 2))
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _packed_bwd_cuda(q, k, v, g, out, stats, window: int, m: int):
+    H, dk, N = q.shape
+    T = k.shape[2]
+    if N != T * m or k.shape != (H, dk, T) or v.shape != (H, dk, T):
+        raise ValueError(f"packed attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} with m={m}: "
+                         f"the kernel takes q (H, d, T*m), k and v (H, d, T)")
+    if dk not in (4, 8, 16, 32):
+        raise ValueError(f"the CUDA kernel takes head widths 4, 8, 16, 32; got {dk}")
+    if m > 512:
+        raise ValueError(f"the backward kernel takes at most 512 queries a frame; got {m}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("g", g), ("out", out),
+                    ("stats", stats)):
+        cuda_build.check_operand(name, t, q.device, torch.float32)
+    if g.shape != q.shape or out.shape != q.shape or stats.shape != (H, 2, N):
+        raise ValueError(f"g {tuple(g.shape)}, out {tuple(out.shape)} and stats "
+                         f"{tuple(stats.shape)} do not match q {tuple(q.shape)}")
+    # delta = out.g per query, one elementwise product and one reduction (an
+    # einsum here becomes H*N batched 1x1 products)
+    delta = (out * g).sum(dim=1)
+    dq = torch.empty_like(q)
+    dkk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    fn = cuda_build.kernel_function("swa_packed_bwd", "swa_packed_bwd", _BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
+              dvv.data_ptr(), H, dk, T, m, window,
+              torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch("swa_packed_bwd", "swa_packed_bwd", code)
+    sliding_window_attention_packed_bwd.launches += 1
+    return dq, dkk, dvv
+
+
+def sliding_window_attention_packed_bwd(q, k, v, g, out, stats, window: int,
+                                        m: int):
+    """Backward of :func:`sliding_window_attention_packed` from the
+    forward's ``out`` and (H, 2, N) ``stats`` and the output cotangent g ->
+    (dq (H, dk, N), dk (H, dk, T), dv (H, dv, T)). A CUDA tensor runs the
+    CUDA kernel, one launch (replacing
+    med_tpu/ops/attention.py::_swa_packed_bwd_kernel); a CPU tensor the
+    plain version; any other device raises."""
+    if q.is_cuda:
+        return _packed_bwd_cuda(q, k, v, g, out, stats, window, m)
+    if q.device.type == "cpu":
+        return sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
+                                                         window, m)
+    raise ValueError(f"no packed attention backward for device {q.device}")
+
+
+sliding_window_attention_packed_bwd.launches = 0

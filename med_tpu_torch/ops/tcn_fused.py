@@ -9,15 +9,19 @@ with the mask only in training. Shapes:  x (T, C);  w3 (L, 3, C, C)
 (L, T, C) uint8 or None. Layer i of a stage uses dilation 2**i.
 
 On a CUDA tensor each layer is one launch of the hand-written kernel
-``csrc/tcn_layer.cu``, ping-ponging two activation buffers; on a CPU tensor
-the plain version :func:`dilated_stack_xla` runs. Forward only: the
-backward kernels belong to the training slice.
+``csrc/tcn_layer.cu``; on a CPU tensor the plain version
+:func:`dilated_stack_xla` runs. Serving ping-pongs two activation buffers.
+Where autograd needs a gradient, the forward also saves every layer's input
+h and post-relu y (the TPU kernels' ``save=True`` residuals) and the
+backward walks the layers in reverse: on the card two launches a layer of
+``csrc/tcn_layer_bwd.cu`` plus one that sums the weight gradients, on the
+CPU the plain loop :func:`_layer_bwd_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,38 +48,74 @@ def _shift_rows(h: torch.Tensor, s: int) -> torch.Tensor:
     return out
 
 
-def dilated_stack_xla(x, w3, b3, w1, b1, *, causal: bool = True, mask=None):
+def dilated_stack_xla(x, w3, b3, w1, b1, *, causal: bool = True, mask=None,
+                      saved: Optional[List] = None):
     """Plain PyTorch version of a stack, one layer at a time (named after the
-    JAX oracle it ports)."""
+    JAX oracle it ports). ``saved``, when given, collects each layer's
+    (input h, post-relu y)."""
     h = x.to(torch.float32)
     for i in range(w3.shape[0]):
         acc = b3[i][None, :]
         for j, s in enumerate(_shifts(2 ** i, causal)):
             acc = acc + _shift_rows(h, s) @ w3[i, j]
-        z = torch.relu(acc) @ w1[i] + b1[i][None, :]
+        y = torch.relu(acc)
+        if saved is not None:
+            saved.append((h, y))
+        z = y @ w1[i] + b1[i][None, :]
         if mask is not None:
             z = z * (mask[i].to(torch.float32) * 2.0)
         h = h + z
     return h
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _layer_bwd_plain(dh, h, y, w3, w1, mask, d: int, causal: bool):
+    """One layer's backward, the TPU kernel's arithmetic (tcn_fused.py
+    _bwd_kernel): returns (dh at the layer input, dw3, db3, dw1, db1)."""
+    dz = dh * (mask.to(torch.float32) * 2.0) if mask is not None else dh
+    dw1 = y.T @ dz
+    db1 = dz.sum(0)
+    da = torch.where(y > 0.0, dz @ w1.T, torch.zeros_like(dz))
+    db3 = da.sum(0)
+    shifts = _shifts(d, causal)
+    dw3 = torch.stack([_shift_rows(h, s).T @ da for s in shifts])
+    for j, s in enumerate(shifts):
+        dh = dh + _shift_rows(da, -s) @ w3[j].T
+    return dh, dw3, db3, dw1, db1
 
 
-def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
-                 counter) -> torch.Tensor:
-    """Run the stages back to back, one kernel launch per layer; returns the
-    (S, T, C) stage outputs. ``counter`` is the public wrapper whose launch
-    count each launch raises."""
-    T, C = x.shape
+def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool):
+    """Plain backward of stages run back to back: g (S, T, C) cotangents of
+    the stage outputs, entering at each stage's last layer; stage_weights
+    per stage (w3, w1)."""
+    dh = torch.zeros_like(g[0])
+    l = h_saved.shape[0]
+    dws = [None] * len(stage_weights)
+    for s in reversed(range(len(stage_weights))):
+        w3, w1 = stage_weights[s]
+        dh = dh + g[s]
+        per_layer = []
+        for i in reversed(range(w3.shape[0])):
+            l -= 1
+            dh, *dw = _layer_bwd_plain(dh, h_saved[l], y_saved[l], w3[i], w1[i],
+                                       None if masks is None else masks[s][i],
+                                       2 ** i, causal)
+            per_layer.append(dw)
+        dws[s] = tuple(torch.stack(t[::-1]) for t in zip(*per_layer))
+    return dh, dws
+
+
+def _check_stages(x_shape, stage_weights, masks, dev,
+                  names=("w3", "b3", "w1", "b1")) -> None:
+    """Raise unless each stage's tensors (named ``names``) and mask have the
+    kernels' types and shapes."""
+    T, C = x_shape
     if C not in (8, 16, 32, 64):
         raise ValueError(f"the CUDA kernel takes 8, 16, 32 or 64 channels; got {C}")
-    dev = x.device
-    cuda_build.check_operand("x", x, dev, torch.float32)
     for s, w in enumerate(stage_weights):
         L = w[0].shape[0]
-        shapes = ((L, 3, C, C), (L, C), (L, C, C), (L, C))
-        for name, t, shape in zip(("w3", "b3", "w1", "b1"), w, shapes):
+        shapes = {"w3": (L, 3, C, C), "b3": (L, C), "w1": (L, C, C), "b1": (L, C)}
+        for name, t in zip(names, w):
+            shape = shapes[name]
             cuda_build.check_operand(f"stage {s} {name}", t, dev, torch.float32)
             if tuple(t.shape) != shape:
                 raise ValueError(f"stage {s} {name} has shape {tuple(t.shape)}, "
@@ -85,45 +125,218 @@ def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
             if tuple(masks[s].shape) != (L, T, C):
                 raise ValueError(f"stage {s} mask has shape "
                                  f"{tuple(masks[s].shape)}, expected {(L, T, C)}")
+
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
+                 counter, save: bool = False):
+    """Run the stages back to back, one kernel launch per layer; returns the
+    (S, T, C) stage outputs, and with ``save`` also the (Lt, T, C) layer
+    inputs h and post-relu activations y. ``counter`` is the public wrapper
+    whose launch count each launch raises."""
+    T, C = x.shape
+    dev = x.device
+    cuda_build.check_operand("x", x, dev, torch.float32)
+    _check_stages(x.shape, stage_weights, masks, dev)
     fn = cuda_build.kernel_function("tcn_layer", "tcn_layer_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    hs = torch.empty((len(stage_weights), T, C), dtype=torch.float32, device=dev)
-    # an in-place layer would race with neighbouring blocks' tap reads, so
-    # each layer writes a buffer other than its input
-    scratch = (torch.empty_like(x), torch.empty_like(x))
-    src = x
+    Lt = sum(w[0].shape[0] for w in stage_weights)
+    if save:
+        # every layer writes a fresh slot: slot l is layer l's input
+        hbuf = torch.empty((Lt + 1, T, C), dtype=torch.float32, device=dev)
+        hbuf[0].copy_(x)
+        ybuf = torch.empty((Lt, T, C), dtype=torch.float32, device=dev)
+        ends = []
+    else:
+        hs = torch.empty((len(stage_weights), T, C), dtype=torch.float32, device=dev)
+        # an in-place layer would race with neighbouring blocks' tap reads,
+        # so each layer writes a buffer other than its input
+        scratch = (torch.empty_like(x), torch.empty_like(x))
+    src, l = x, 0
     for s, (w3, b3, w1, b1) in enumerate(stage_weights):
         L = w3.shape[0]
         for i in range(L):
-            if i == L - 1:
-                dst = hs[s]
+            if save:
+                src, dst, y_ptr = hbuf[l], hbuf[l + 1], ybuf[l].data_ptr()
             else:
-                dst = scratch[1] if src is scratch[0] else scratch[0]
+                y_ptr = None
+                if i == L - 1:
+                    dst = hs[s]
+                else:
+                    dst = scratch[1] if src is scratch[0] else scratch[0]
             mask_ptr = masks[s][i].data_ptr() if masks is not None else None
             code = fn(src.data_ptr(), w3[i].data_ptr(), b3[i].data_ptr(),
                       w1[i].data_ptr(), b1[i].data_ptr(), mask_ptr,
-                      dst.data_ptr(), T, C, 2 ** i, int(causal), stream)
+                      dst.data_ptr(), y_ptr, T, C, 2 ** i, int(causal), stream)
             cuda_build.check_launch("tcn_layer", "tcn_layer_fwd", code)
             counter.launches += 1
-            src = dst
+            src, l = dst, l + 1
+        if save:
+            ends.append(l)
+    if save:
+        return hbuf[ends], hbuf[:Lt], ybuf
     return hs
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+
+
+def _pointers(tensors):
+    """A ctypes array of the tensors' device addresses (kept alive by the
+    caller for the duration of the call)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
+                     counter):
+    """Backward of :func:`_stages_cuda` on the card, one call into
+    ``tcn_layer_bwd.cu``: per layer, in reverse, two launches; then one that
+    sums the weight-gradient partials in a fixed order. ``stage_weights``
+    holds each stage's (w3, w1). Returns (dx, per stage (dw3, db3, dw1,
+    db1))."""
+    S, T, C = g.shape
+    dev = g.device
+    Ls = [w[0].shape[0] for w in stage_weights]
+    Lt = sum(Ls)
+    for name, t, shape in (("g", g, (len(stage_weights), T, C)),
+                           ("h_saved", h_saved, (Lt, T, C)),
+                           ("y_saved", y_saved, (Lt, T, C))):
+        cuda_build.check_operand(name, t, dev, torch.float32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    _check_stages((T, C), stage_weights, masks, dev, names=("w3", "w1"))
+    fn = cuda_build.kernel_function("tcn_layer_bwd", "tcn_stages_bwd", _BWD_ARGTYPES)
+    chunks = cuda_build.kernel_function("tcn_layer_bwd", "tcn_wgrad_chunks",
+                                        [ctypes.c_int])(T)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dh = torch.zeros((T, C), **f32)
+    dz, da = torch.empty((T, C), **f32), torch.empty((T, C), **f32)
+    partial = torch.empty((Lt, chunks, 4 * C * C + 2 * C), **f32)
+    dw3, dw1 = torch.empty((Lt, 3, C, C), **f32), torch.empty((Lt, C, C), **f32)
+    db3, db1 = torch.empty((Lt, C), **f32), torch.empty((Lt, C), **f32)
+    w3s = _pointers([w[0] for w in stage_weights])
+    w1s = _pointers([w[1] for w in stage_weights])
+    mks = None if masks is None else _pointers(masks)
+    layers = (ctypes.c_int * S)(*Ls)
+    launched = ctypes.c_int(0)          # raised by the C loop at each launch
+    code = fn(dh.data_ptr(), g.data_ptr(), h_saved.data_ptr(), y_saved.data_ptr(),
+              ctypes.addressof(w3s), ctypes.addressof(w1s),
+              None if mks is None else ctypes.addressof(mks), ctypes.addressof(layers),
+              S, dz.data_ptr(), da.data_ptr(), partial.data_ptr(), dw3.data_ptr(),
+              db3.data_ptr(), dw1.data_ptr(), db1.data_ptr(), T, C, int(causal),
+              ctypes.byref(launched), torch.cuda.current_stream(dev).cuda_stream)
+    counter.launches += launched.value
+    cuda_build.check_launch("tcn_layer_bwd", "tcn_stages_bwd", code)
+    dws, a = [], 0
+    for L in Ls:
+        dws.append((dw3[a:a + L], db3[a:a + L], dw1[a:a + L], db1[a:a + L]))
+        a += L
+    return dh, dws
+
+
+def _stages_fwd(x, stage_weights, masks, causal: bool, counter, save: bool):
+    """(S, T, C) stage outputs, and with ``save`` the (Lt, T, C) saved h, y."""
+    if x.is_cuda:
+        return _stages_cuda(x, stage_weights, masks, causal, counter, save)
+    if x.device.type != "cpu":
+        raise ValueError(f"no TCN stack for device {x.device}")
+    outs, saved, h = [], [] if save else None, x
+    for s, (w3, b3, w1, b1) in enumerate(stage_weights):
+        h = dilated_stack_xla(h, w3, b3, w1, b1, causal=causal,
+                              mask=None if masks is None else masks[s],
+                              saved=saved)
+        outs.append(h)
+    if save:
+        return (torch.stack(outs), torch.stack([p[0] for p in saved]),
+                torch.stack([p[1] for p in saved]))
+    return torch.stack(outs)
+
+
+def _stages_bwd(g, h_saved, y_saved, stage_weights, masks, causal: bool, counter):
+    if g.is_cuda:
+        return _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks,
+                                causal, counter)
+    if g.device.type != "cpu":
+        raise ValueError(f"no TCN stack backward for device {g.device}")
+    return _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal)
+
+
+class _Stages(torch.autograd.Function):
+    """Stages back to back with a saving forward and the layer-reverse
+    backward (med_tpu's _fused_multis_train / _fused_train custom VJPs).
+    ``tensors`` holds the 4 weights of each stage, then one mask per stage
+    when there are masks; the masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, spec, *tensors):
+        n_stages, causal, fwd_counter, bwd_counter = spec
+        ws = [tuple(tensors[4 * s:4 * s + 4]) for s in range(n_stages)]
+        masks = list(tensors[4 * n_stages:]) or None
+        hs, h_saved, y_saved = _stages_fwd(x, ws, masks, causal, fwd_counter,
+                                           save=True)
+        ctx.spec = spec
+        ctx.save_for_backward(h_saved, y_saved, *tensors)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        n_stages, causal, _, bwd_counter = ctx.spec
+        h_saved, y_saved, *tensors = ctx.saved_tensors
+        ws = [(tensors[4 * s], tensors[4 * s + 2]) for s in range(n_stages)]
+        masks = list(tensors[4 * n_stages:]) or None
+        dx, dws = _stages_bwd(g.contiguous(), h_saved, y_saved, ws, masks,
+                              causal, bwd_counter)
+        n_masks = len(tensors) - 4 * n_stages
+        return (dx, None, *[d for dw in dws for d in dw], *([None] * n_masks))
+
+
+def _run_stages(x, stage_weights, masks, causal: bool, fwd_counter, bwd_counter):
+    """The saving autograd path when a gradient is needed, else the plain
+    forward (serving saves nothing)."""
+    flat = [t for w in stage_weights for t in w]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *flat]):
+        spec = (len(stage_weights), causal, fwd_counter, bwd_counter)
+        return _Stages.apply(x, spec, *flat, *(masks or []))
+    return _stages_fwd(x, stage_weights, masks, causal, fwd_counter, save=False)
 
 
 def dilated_residual_stack(x, w3, b3, w1, b1, *, causal: bool = True,
                            mask=None) -> torch.Tensor:
     """One stack, (T, C) -> (T, C). A CUDA tensor runs the CUDA kernel, one
     launch per layer (replacing med_tpu/ops/tcn_fused.py::_fwd_kernel); a
-    CPU tensor the plain version; any other device raises."""
-    if x.is_cuda:
-        masks = None if mask is None else [mask]
-        return _stages_cuda(x, [(w3, b3, w1, b1)], masks, causal,
-                            dilated_residual_stack)[0]
-    if x.device.type == "cpu":
-        return dilated_stack_xla(x, w3, b3, w1, b1, causal=causal, mask=mask)
-    raise ValueError(f"no TCN stack for device {x.device}")
+    CPU tensor the plain version; any other device raises. Differentiable
+    through :func:`dilated_residual_stack_bwd`."""
+    return _run_stages(x, [(w3, b3, w1, b1)], None if mask is None else [mask],
+                       causal, dilated_residual_stack, dilated_residual_stack_bwd)[0]
 
 
 dilated_residual_stack.launches = 0
+
+
+def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = True,
+                               mask=None):
+    """Backward of one stack from its saved layer inputs and post-relu
+    activations (L, T, C) and the output cotangent g (T, C) -> (dx, dw3,
+    db3, dw1, db1), as med_tpu's ``_bwd_call``. A CUDA tensor runs the CUDA
+    kernels, 2L + 1 launches (replacing
+    med_tpu/ops/tcn_fused.py::_bwd_kernel); a CPU tensor the plain loop."""
+    dx, dws = _stages_bwd(g[None].contiguous(), h_saved, y_saved, [(w3, w1)],
+                          None if mask is None else [mask], causal,
+                          dilated_residual_stack_bwd)
+    return (dx, *dws[0])
+
+
+dilated_residual_stack_bwd.launches = 0
+
+
+def _check_layer_counts(stage_weights, L0: int, Lr: int) -> None:
+    layers = [w[0].shape[0] for w in stage_weights]
+    if layers[0] != L0 or any(n != Lr for n in layers[1:]):
+        raise ValueError(f"stage layer counts {layers} do not match "
+                         f"L0={L0}, Lr={Lr}")
 
 
 def dilated_residual_multistack_stages(x, stage_weights: Sequence[StageWeights],
@@ -135,23 +348,31 @@ def dilated_residual_multistack_stages(x, stage_weights: Sequence[StageWeights],
     (w3, b3, w1, b1); ``masks`` a matching sequence of (L_s, T, C) uint8
     keep-masks, or None. A CUDA tensor runs the CUDA kernel, one launch per
     layer (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel_s); a CPU
-    tensor the plain version; any other device raises."""
-    layers = [w[0].shape[0] for w in stage_weights]
-    if layers[0] != L0 or any(n != Lr for n in layers[1:]):
-        raise ValueError(f"stage layer counts {layers} do not match "
-                         f"L0={L0}, Lr={Lr}")
-    if x.is_cuda:
-        return _stages_cuda(x, stage_weights, masks, causal,
-                            dilated_residual_multistack_stages)
-    if x.device.type != "cpu":
-        raise ValueError(f"no TCN stack for device {x.device}")
-    outs = []
-    h = x
-    for s, (w3, b3, w1, b1) in enumerate(stage_weights):
-        h = dilated_stack_xla(h, w3, b3, w1, b1, causal=causal,
-                              mask=None if masks is None else masks[s])
-        outs.append(h)
-    return torch.stack(outs)
+    tensor the plain version; any other device raises. Differentiable
+    through :func:`dilated_residual_multistack_stages_bwd`."""
+    _check_layer_counts(stage_weights, L0, Lr)
+    return _run_stages(x, stage_weights, masks, causal,
+                       dilated_residual_multistack_stages,
+                       dilated_residual_multistack_stages_bwd)
 
 
 dilated_residual_multistack_stages.launches = 0
+
+
+def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
+                                           L0: int, Lr: int, *,
+                                           causal: bool = True, masks=None):
+    """Backward of :func:`dilated_residual_multistack_stages` from the saved
+    (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
+    stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
+    per stage (dw3, db3, dw1, db1)), as med_tpu's ``_multi_bwd_call_s``. A
+    CUDA tensor runs the CUDA kernels, 2 Lt + 1 launches (replacing
+    med_tpu/ops/tcn_fused.py::_multi_bwd_kernel_s); a CPU tensor the plain
+    loop."""
+    _check_layer_counts(stage_weights, L0, Lr)
+    return _stages_bwd(g.contiguous(), h_saved, y_saved,
+                       [(w[0], w[2]) for w in stage_weights], masks, causal,
+                       dilated_residual_multistack_stages_bwd)
+
+
+dilated_residual_multistack_stages_bwd.launches = 0

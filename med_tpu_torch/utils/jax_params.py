@@ -108,13 +108,22 @@ def load_jax_params(tree: Dict, net: nn.Module):
     return state, constants
 
 
-def export_jax_params(net: nn.Module) -> Dict:
+def export_jax_params(net: nn.Module, grads: bool = False) -> Dict:
     """The inverse: ``net``'s parameters and frozen tables as a ``med_tpu``
-    checkpoint tree {"params": ..., "constants": ...} of numpy arrays."""
+    checkpoint tree {"params": ..., "constants": ...} of numpy arrays. With
+    ``grads``, the parameters' gradients instead, as {"params": ...} in the
+    same layout (zeros where a parameter has none), to compare leaf by leaf
+    with ``jax.grad``."""
     flat = {}
     state = net.state_dict()
+    params = dict(net.named_parameters())
     for key, (path, fn) in param_table(net).items():
-        flat[path] = np.ascontiguousarray(fn(state[key].detach().cpu().numpy()))
-    for name, path in _constant_table(net).items():
-        flat[path] = net.get_buffer(name).detach().cpu().numpy()
+        value = state[key]
+        if grads:
+            p = params[key]
+            value = p.grad if p.grad is not None else torch.zeros_like(p)
+        flat[path] = np.ascontiguousarray(fn(value.detach().cpu().numpy()))
+    if not grads:
+        for name, path in _constant_table(net).items():
+            flat[path] = net.get_buffer(name).detach().cpu().numpy()
     return unflatten_tree(flat)

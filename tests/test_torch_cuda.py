@@ -7,7 +7,9 @@ JAX, so it runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance: rtol 1e-4, atol 1e-5 for the attention (values O(1)); atol 1e-4
-for the TCN stacks, whose activations grow over the layers.
+for the TCN stacks, whose activations grow over the layers. Gradients:
+rtol 1e-4, atol 1e-5 * max|want| per tensor (weight gradients are sums over
+T, taken in another order).
 """
 
 import numpy as np
@@ -135,4 +137,155 @@ def test_small_cog_serves_the_same_on_card_and_cpu(cuda_device, rng):
                                   want_p[np.abs(want_pr - 0.5) > 1e-5])
     assert counts == {"sliding_window_attention_packed": 2,
                       "dilated_residual_multistack_stages": 4 + 2 * 3,
-                      "dilated_residual_stack": 4 + 2 * 3}
+                      "dilated_residual_stack": 4 + 2 * 3,
+                      "sliding_window_attention_packed_bwd": 0,
+                      "dilated_residual_multistack_stages_bwd": 0,
+                      "dilated_residual_stack_bwd": 0}
+
+
+def _close_grad(got, want):
+    atol = 1e-5 * max(want.abs().max().item(), 1e-30)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize("H,d,m,W,T", [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41),
+                                       (3, 16, 1, 7, 300), (1, 32, 300, 3, 5)])
+def test_attention_bwd_kernel_matches_plain(cuda_device, rng, H, d, m, W, T):
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m)))
+    out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    before = tatt.sliding_window_attention_packed_bwd.launches
+    got = tatt.sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)
+    torch.cuda.synchronize()
+    want = tatt.sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats, W, m)
+    for a, b in zip(got, want):
+        _close_grad(a, b)
+    assert tatt.sliding_window_attention_packed_bwd.launches == before + 1
+
+
+def _grads(fn, x, weights, g):
+    x = x.clone().requires_grad_()
+    ws = [[t.clone().requires_grad_() for t in w] for w in weights]
+    out = fn(x, ws)
+    out.backward(g)
+    return out.detach(), x.grad, [[t.grad for t in w] for w in ws]
+
+
+@pytest.mark.parametrize("C,L,T", [(64, 11, 1000), (64, 10, 20), (8, 5, 33),
+                                   (16, 3, 64), (32, 4, 300)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_tcn_stack_bwd_kernel_matches_plain(cuda_device, rng, C, L, T, causal, use_mask):
+    """Card (saving forward K2 + backward K5) against the CPU's plain saving
+    forward and plain backward, on the same inputs."""
+    x = rng.normal(size=(T, C)).astype(np.float32)
+    w3, b3, w1, b1, mask = _stack(rng, L, T, C, "cpu")
+    g = rng.normal(size=(T, C)).astype(np.float32)
+    m = mask if use_mask else None
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        fn = lambda xt, ws: ttcn.dilated_residual_stack(  # noqa: E731
+            xt, *ws[0], causal=causal, mask=None if m is None else m.to(dev))
+        before = ttcn.dilated_residual_stack_bwd.launches
+        results.append(_grads(fn, _dev(x, dev), [[t.to(dev) for t in (w3, b3, w1, b1)]],
+                              _dev(g, dev)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ttcn.dilated_residual_stack_bwd.launches == before + 2 * L + 1
+    (o, dx, (dws,)), (wo, wdx, (wdws,)) = results
+    torch.testing.assert_close(o.cpu(), wo, rtol=1e-4, atol=1e-4)
+    for a, b in zip([dx, *dws], [wdx, *wdws]):
+        _close_grad(a.cpu(), b)
+
+
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_tcn_multistack_bwd_kernel_matches_plain(cuda_device, rng, use_mask):
+    C, T, layers = 64, 257, (11, 10, 10, 10)
+    x = _dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device)
+    stages = [_stack(rng, L, T, C, cuda_device) for L in layers]
+    masks = [s[4] for s in stages] if use_mask else None
+    g = _dev(rng.normal(size=(len(layers), T, C)).astype(np.float32), cuda_device)
+    _, h_saved, y_saved = ttcn._stages_fwd(x, [s[:4] for s in stages], masks, True,
+                                           ttcn.dilated_residual_multistack_stages,
+                                           save=True)
+    p_out, p_h, p_y = ttcn._stages_fwd(x.cpu(), [[t.cpu() for t in s[:4]] for s in stages],
+                                       None if masks is None else [mk.cpu() for mk in masks],
+                                       True, ttcn.dilated_residual_multistack_stages,
+                                       save=True)
+    torch.testing.assert_close(h_saved.cpu(), p_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y_saved.cpu(), p_y, rtol=1e-4, atol=1e-4)
+    before = ttcn.dilated_residual_multistack_stages_bwd.launches
+    dx, dws = ttcn.dilated_residual_multistack_stages_bwd(
+        g, h_saved, y_saved, [s[:4] for s in stages], 11, 10, masks=masks)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack_stages_bwd.launches == before + 2 * sum(layers) + 1
+    want_dx, want_dws = ttcn._stages_bwd_plain(g, h_saved, y_saved,
+                                               [(s[0], s[2]) for s in stages], masks, True)
+    _close_grad(dx, want_dx)
+    for got, want in zip(dws, want_dws):
+        for a, b in zip(got, want):
+            _close_grad(a, b)
+
+
+def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
+    """One train step with the same weights and dropout masks on the card and
+    on the CPU: equal loss and gradients, and the designed kernel launches on
+    the card. Gradients, leaf by leaf: rtol 1e-4, atol 1e-5 of the leaf's
+    own largest value; 5e-4 for the encoder FFN's leaves, where float32
+    summed in another order flips a few relu derivatives, each of which
+    moves one token's term of Dense_0's weight gradient."""
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.data.datasets import FrameTrial, frame_batch
+    from med_tpu_torch.data.labels import skill_one_hot
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    cfg = ExperimentConfig(model_name="COG", dataset_type="frame", out_features=2,
+                           video_dims=32, num_layers_Basic=4, num_layers_R=3,
+                           num_R=2, mstcn_f_maps=32, d_model=32, d_q=4,
+                           sequence_length=5, weight_decay=0.0, lr_scheduler=False)
+    T, name = 300, "Needle_Passing_B001"
+    e = np.zeros((T, 7), np.int32)
+    e[:, -1] = rng.integers(0, 2, T)
+    trial = FrameTrial(name, rng.normal(size=(T, 2048)).astype(np.float32),
+                       rng.normal(size=(T, 26)).astype(np.float32),
+                       rng.integers(0, 15, T), e, skill_one_hot(name, T))
+    batch = frame_batch(trial, cfg)
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        batch["images"].shape[1], torch.Generator().manual_seed(1))
+    losses, grads = [], []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = Experiment(cfg, device=device)
+        exp.init_weights(5)
+        ops.reset_launch_counts()
+        loss, _ = exp.compute_gradients(
+            batch, masks={n: {k: v.to(device) for k, v in d.items()} for n, d in masks.items()})
+        counts = ops.launch_counts()
+        losses.append(loss.item())
+        grads.append(export_jax_params(exp.net, grads=True)["params"])
+    assert counts == {k: 0 for k in counts}
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    want = dict(leaves(grads[1]))
+    for path, got in leaves(grads[0]):
+        atol = (5e-4 if "/ffn/Dense_" in path else 1e-5) * np.abs(want[path]).max()
+        np.testing.assert_allclose(got, want[path], rtol=1e-4, atol=atol, err_msg=path)
+    exp = Experiment(cfg, device=cuda_device)
+    exp.init_weights(5)
+    ops.reset_launch_counts()
+    exp.train_step(batch)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {
+        "sliding_window_attention_packed": 2,
+        "dilated_residual_multistack_stages": 4 + 2 * 3,
+        "dilated_residual_stack": 4 + 2 * 3,
+        "sliding_window_attention_packed_bwd": 2,
+        "dilated_residual_multistack_stages_bwd": 2 * 10 + 1,
+        "dilated_residual_stack_bwd": 2 * 10 + 3}

@@ -29,8 +29,9 @@ def test_port_imports_no_jax_and_no_med_tpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "med_tpu_torch.eval.serving" in report["modules"]
-    assert "med_tpu_torch.utils.jax_params" in report["modules"]
+    for name in ("eval.serving", "utils.jax_params", "train.loop", "train.losses",
+                 "train.optim", "ops.metrics"):
+        assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
 
