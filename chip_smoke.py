@@ -32,7 +32,22 @@ non-zero and the last line is not printed:
    card and on the CPU with the same dropout masks: the loss compared, and
    every gradient leaf with the card's encoder FFN relu pattern pinned to
    the CPU's (the flips counted);
-6. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+6. pixels: a full-width ResNet-50 trunk (3, 4, 6, 3) at width 64 with
+   weights drawn from a seed and BatchNorm statistics measured on seeded
+   frames, saved as a ``med_tpu`` fine-tune checkpoint
+   (``resnet50_1Out.npz`` + meta) and loaded through
+   ``PixelFrontEnd.from_checkpoint``: K10 (the bottleneck-stage kernel)
+   against its plain version on stages 0 and 1 at B = 128 in bf16 and B = 8
+   in fp32, with its time, bound, launches and, as a yardstick, the same
+   blocks on the module path (cuDNN); ``resnet50_fused_apply`` (K10's
+   entry point, launches counted) against the module trunk at B = 128 in
+   bf16, and its time with the trunk folded once and folded every call;
+   the fp32 trunk and the ImageNet resize path (480x640 frames) on the
+   card against the CPU; then a T = 300 raw-frame request through
+   ``FrameModelServer.predict_trial_from_pixels`` (``PixelFrontEnd``'s
+   ``ResNet50`` trunk ahead of phase 4's COG), counting launches, against
+   ``predict_trial`` on the same features, and its latency;
+7. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
 """
@@ -53,8 +68,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Published H100 SXM peaks: fp32 outside the tensor cores, HBM3 bandwidth.
+# Published H100 SXM peaks: fp32 outside the tensor cores, bf16 on the
+# tensor cores (dense), HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 REQUEST_FRAMES = (300, 1000, 4096)
@@ -81,6 +98,26 @@ TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_layer/multistack": (1e-4, 1e-4),
 # call's largest |pre-activation|).
 TRAIN_TOL = {"loss": 1e-5, "grad_rtol": 1e-4, "grad_atol": 1e-5}
 FLIP_PRE = 1e-4
+# the pixel phase: the trunk of the reference's feature export (torchvision
+# resnet50 at 224x224), K10 at the serving batch, the JIGSAWS frame size
+TRUNK = {"stage_sizes": (3, 4, 6, 3), "width": 64, "frame": 224}
+TRUNK_BATCH, FP32_BATCH, CALIB_FRAMES = 128, 8, 32
+RESIDUAL_SCALE = 0.2
+JIGSAWS_FRAME, IMAGENET_FRAMES, PIXEL_FRAMES = (480, 640), 16, 300
+# K10 against its plain version: (relative L2, max |error| over the
+# tensor's largest |value|). float32: sums in another order. bfloat16: such a
+# sum may round a y1 or y2 value one bf16 step the other way.
+STAGE_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -5)}
+# pooled features, relative L2. fp32 (TF32 off): the fused trunk against
+# the module trunk on the card, and the module trunk on the card against the
+# CPU (sums over 53 convolutions taken in another order). bf16: each trunk
+# rounds ~50 times on the way, the fused one with BN folded before the
+# rounding instead of after (on an H100 each lands ~1% from the fp32 trunk);
+# each against the fp32 trunk, and the two against each other. ImageNet
+# preprocessing, card vs CPU: max |error| (values within +-2.7).
+TRUNK_TOL = {"fused_vs_module_fp32": 1e-5, "card_vs_cpu_fp32": 1e-5,
+             "fused_vs_module_bf16": 5e-2, "fused_vs_fp32": 5e-2, "module_vs_fp32": 5e-2,
+             "preprocess": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -103,8 +140,8 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -435,10 +472,11 @@ def _check_served(name: str, preds, probs, T: int) -> None:
 
 def forward_launches(n: int):
     """Forward launches of n COG passes: 2 attention layers, 41 slow-path
-    and 41 fast-path TCN layers."""
+    and 41 fast-path TCN layers; no trunk stage (COG reads features)."""
     return {"sliding_window_attention_packed": 2 * n,
             "dilated_residual_multistack_stages": 41 * n,
-            "dilated_residual_stack": 41 * n}
+            "dilated_residual_stack": 41 * n,
+            "fused_bottleneck_stage": 0}
 
 
 def backward_launches(n: int):
@@ -745,6 +783,297 @@ def phase_training(profile: bool):
     return launches
 
 
+def _seeded_trunk(directory: str, device="cuda", residual_scale: float = RESIDUAL_SCALE):
+    """A full-width trunk with weights from SEED, saved as ``med_tpu``'s
+    fine-tune CLI saves one: the trunk under params/trunk and
+    batch_stats/trunk, the fold's pixel mean/std in the meta. Returns the
+    checkpoint's path and the frames' mean/std.
+
+    BN scales and biases are perturbed around 1 and 0, and those of each
+    block's last BN (bn3) are scaled by ``residual_scale``, as a trained
+    ResNet's are small (torchvision's zero_init_residual starts them at 0);
+    the running statistics are measured layer by layer on seeded frames, so
+    activations are normalised as in a trained trunk. Without the small bn3
+    scales (``residual_scale=1``) the random trunk amplifies rounding far
+    more: ``trunk_gain.py`` measures both on the CPU. The phase prints the
+    trunk's gain: how far a 1e-6 relative change of its input moves its
+    features."""
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.models.resnet import BatchNorm, ResNet50
+    from med_tpu_torch.train.checkpoint import save_checkpoint
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    gen = torch.Generator().manual_seed(SEED)
+    net = init_weights(ResNet50(TRUNK["stage_sizes"], TRUNK["width"]), gen)
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    residual = {id(m) for name, m in net.named_modules() if name.endswith(".bn3")}
+    with torch.no_grad():
+        for m in norms:
+            m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=gen))
+            m.bias.add_(0.1 * torch.randn(m.bias.shape, generator=gen))
+            if id(m) in residual:
+                m.weight.mul_(residual_scale)
+                m.bias.mul_(residual_scale)
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, (CALIB_FRAMES, TRUNK["frame"], TRUNK["frame"], 3), np.uint8)
+    mean = (frames / 255.0).mean(axis=(0, 1, 2)).astype(np.float32)
+    std = (frames / 255.0).std(axis=(0, 1, 2)).astype(np.float32)
+
+    def measure(module, args):
+        h = args[0].to(torch.float32)
+        module.running_mean.copy_(h.mean(dim=(0, 2, 3)))
+        module.running_var.copy_(h.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(measure) for m in norms]
+    try:
+        x = (torch.from_numpy(frames).to(device).float() / 255.0
+             - torch.from_numpy(mean).to(device)) / torch.from_numpy(std).to(device)
+        with torch.no_grad():
+            net.to(device)(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    tree = export_jax_params(net.cpu())
+    path = str(Path(directory) / "resnet50_1Out.npz")
+    save_checkpoint(path, {"trunk": tree["params"]}, {"trunk": tree["batch_stats"]},
+                    meta={"mean": mean.tolist(), "std": std.tolist()})
+    return path, mean, std
+
+
+def _stage_inputs(net, x):
+    """The module trunk's input to each stage's first stride-1 block (stage
+    0: layer1_0, stage 1: layer2_1), as (B, H*W, C) rows."""
+    got = {}
+    blocks = {0: net.layer1_0, 1: net.layer2_1}
+
+    def keep(stage):
+        def hook(module, args):
+            y = args[0].permute(0, 2, 3, 1)
+            got[stage] = (y.reshape(y.shape[0], -1, y.shape[3]).contiguous(), y.shape[2])
+        return hook
+
+    hooks = [b.register_forward_pre_hook(keep(s)) for s, b in blocks.items()]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def _stage_case(stage: int, x, Wr: int, variables, net, dtype):
+    """K10 on one stage's stride-1 blocks: against the plain version, its
+    time, the plain version's, the module path's (cuDNN) on the same
+    blocks, and the bound for the work."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.ops.resnet_fused import (
+        fold_bottleneck_params, fused_bottleneck_stage, fused_bottleneck_stage_plain)
+
+    names = [f"layer{stage + 1}_{b}" for b in range(0 if stage == 0 else 1,
+                                                     TRUNK["stage_sizes"][stage])]
+    blocks = [{k: v.cuda() for k, v in fold_bottleneck_params(
+        variables["params"][n], variables["batch_stats"][n]).items()} for n in names]
+    x = x.to(dtype)
+    run = lambda: fused_bottleneck_stage(x, blocks, Wr=Wr, dtype=dtype)  # noqa: E731
+    plain = lambda: fused_bottleneck_stage_plain(x, blocks, Wr=Wr, dtype=dtype)  # noqa: E731
+    B, HW, _ = x.shape
+    ops.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    if ops.launch_counts()["fused_bottleneck_stage"] != 3 * len(blocks):
+        raise RuntimeError(f"stage {stage}: {ops.launch_counts()} launches, "
+                           f"expected 3 per block")
+    want = plain()
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    peak = (err.max() / want.abs().max()).item()
+    tol = STAGE_TOL[dtype]
+    if not (torch.isfinite(got).all() and rel <= tol[0] and peak <= tol[1]):
+        raise RuntimeError(f"K10 stage {stage} {dtype} B={B}: relative L2 {rel:.3e}, "
+                           f"max error {peak:.3e} of the largest value; tolerance {tol}")
+
+    img = x.view(B, HW // Wr, Wr, -1).permute(0, 3, 1, 2)   # NCHW, channels-last
+
+    def module():
+        y = img
+        for n in names:
+            y = getattr(net, n)(y)
+        return y
+
+    size = torch.finfo(dtype).bits // 8
+    flops = nbytes = 0
+    for blk in blocks:
+        (cin, f), proj = blk["w1"].shape, "wd" in blk
+        flops += 2 * B * HW * (cin * f + 9 * f * f + 4 * f * f + (cin * 4 * f if proj else 0))
+        nbytes += size * sum(v.numel() for k, v in blk.items() if k[0] == "w")
+        nbytes += 4 * sum(v.numel() for k, v in blk.items() if k[0] == "c")
+    nbytes += size * (x.numel() + got.numel())
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                       else PEAK_FP32_FLOPS)
+    with torch.no_grad():
+        cudnn_ms = cuda_ms(module, 10)
+    return dict(max_abs_err=err.max().item(), rel=rel, peak=peak, blocks=len(blocks),
+                ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 2), cudnn_ms=cudnn_ms,
+                bound_ms=b_ms, bound_by=b_by, flops=flops, nbytes=nbytes)
+
+
+def _tree_to(tree, device):
+    """A numpy variables tree as fp32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree, np.float32), device=device)
+
+
+def phase_pixels(profile: bool):
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.preprocessing import preprocess_frames
+    from med_tpu_torch.eval.serving import FrameModelServer, PixelFrontEnd
+    from med_tpu_torch.ops.resnet_fused import fold_trunk, resnet50_fused_apply
+    from med_tpu_torch.train.checkpoint import load_checkpoint
+
+    rng = np.random.default_rng(SEED + 1)
+    geometry = dict(stage_sizes=TRUNK["stage_sizes"], width=TRUNK["width"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path, mean, std = _seeded_trunk(tmp)
+        module = PixelFrontEnd.from_checkpoint(path, **geometry)
+        fp32 = PixelFrontEnd.from_checkpoint(path, dtype=torch.float32, **geometry)
+        fp32_cpu = PixelFrontEnd.from_checkpoint(path, dtype=torch.float32, device="cpu",
+                                                 **geometry)
+        ckpt = load_checkpoint(path)
+    tree = {"params": ckpt["params"]["trunk"], "batch_stats": ckpt["batch_stats"]["trunk"]}
+    bf16 = torch.bfloat16
+    folded = {dt: fold_trunk(tree, dtype=dt, device="cuda") for dt in (bf16, torch.float32)}
+    log(f"[pixels] trunk: ResNet-50 {TRUNK['stage_sizes']} width {TRUNK['width']}, "
+        f"{sum(p.numel() for p in module.net.parameters())} parameters; fold pixel "
+        f"mean {np.round(mean, 4).tolist()} std {np.round(std, 4).tolist()}")
+
+    side = TRUNK["frame"]
+    frames = rng.integers(0, 256, (TRUNK_BATCH, side, side, 3), np.uint8)
+    x = (torch.from_numpy(frames).cuda().float() / 255.0 - module.mean) / module.std
+    inputs = _stage_inputs(module.net, x)
+    cases = {}
+    for dtype, B in ((bf16, TRUNK_BATCH), (torch.float32, FP32_BATCH)):
+        net = module.net if dtype == bf16 else fp32.net
+        for stage, (xs, Wr) in inputs.items():
+            r = _stage_case(stage, xs[:B], Wr, tree, net, dtype)
+            cases[(dtype, stage)] = r
+            log(f"[pixels] K10 stage {stage} ({r['blocks']} blocks, {xs.shape[1]} pixels x "
+                f"{xs.shape[2]} channels) {str(dtype)[6:]} B={B}: relative L2 {r['rel']:.3e}, "
+                f"max error {r['peak']:.3e} of the largest value (tol {STAGE_TOL[dtype]}); "
+                f"kernel {r['ms']:.4f} ms ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), "
+                f"plain {r['plain_ms']:.4f} ms, module path (cuDNN) {r['cudnn_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['flops'] / 1e9:.1f} "
+                f"GFLOP, {r['nbytes'] / 1e6:.1f} MB), library none")
+
+    stage_sizes = TRUNK["stage_sizes"]
+    fused = lambda t, v: resnet50_fused_apply(v, t, stage_sizes=stage_sizes)  # noqa: E731
+    with torch.no_grad():
+        # K10's path: the fused-trunk entry point on one 128-frame batch
+        ops.reset_launch_counts()
+        got = fused(x, folded[bf16])
+        torch.cuda.synchronize()
+        apply_counts = ops.launch_counts()
+        # three a stride-1 block: all of stage 0's, all but the first of stage 1's
+        design = {**forward_launches(0), **backward_launches(0),
+                  "fused_bottleneck_stage": 3 * (stage_sizes[0] + stage_sizes[1] - 1)}
+        if apply_counts != design:
+            raise RuntimeError(f"resnet50_fused_apply launches {apply_counts} != {design}")
+        apply_launches = apply_counts["fused_bottleneck_stage"]
+        want, exact = module.net(x), fp32.net(x)
+        small = x[:FP32_BATCH]
+        exact_fused = resnet50_fused_apply(folded[torch.float32], small,
+                                           stage_sizes=stage_sizes, dtype=torch.float32)
+        cpu = fp32_cpu.net(small.cpu())
+        noise = torch.randn(small.shape, generator=torch.Generator().manual_seed(SEED)).cuda()
+        moved = fp32.net(small + 1e-6 * torch.linalg.norm(small) / torch.linalg.norm(noise)
+                         * noise)
+        tree_dev = _tree_to(tree, "cuda")
+        trunk_ms = {"module": cuda_ms(lambda: module.net(x), 5),
+                    "fused, folded once": cuda_ms(lambda: fused(x, folded[bf16]), 3),
+                    "fused, folded every call": cuda_ms(lambda: fused(x, tree_dev), 3)}
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        if not torch.isfinite(a).all():
+            raise RuntimeError("non-finite trunk features")
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+    errs = {"fused_vs_module_bf16": rel(got, want), "fused_vs_fp32": rel(got, exact),
+            "module_vs_fp32": rel(want, exact),
+            "fused_vs_module_fp32": rel(exact_fused, exact[:FP32_BATCH]),
+            "card_vs_cpu_fp32": rel(exact[:FP32_BATCH], cpu)}
+    log(f"[pixels] pooled features {tuple(got.shape)}, relative L2: bf16 B={TRUNK_BATCH} "
+        f"resnet50_fused_apply vs ResNet50 {errs['fused_vs_module_bf16']:.3e}, each vs the "
+        f"fp32 trunk: fused {errs['fused_vs_fp32']:.3e}, module {errs['module_vs_fp32']:.3e} "
+        f"(tol {TRUNK_TOL['fused_vs_module_bf16']} each); fp32 B={FP32_BATCH} fused vs "
+        f"module {errs['fused_vs_module_fp32']:.3e}, card (TF32 off) vs CPU "
+        f"{errs['card_vs_cpu_fp32']:.3e} (tol {TRUNK_TOL['card_vs_cpu_fp32']} each); "
+        f"{apply_launches} K10 launches a batch")
+    log(f"[pixels] trunk gain (fp32, B={FP32_BATCH}): a 1e-6 relative change of the input "
+        f"moves the pooled features by {rel(moved, exact[:FP32_BATCH]):.3e}")
+    for key, err in errs.items():
+        if err > TRUNK_TOL[key]:
+            raise RuntimeError(f"trunk {key}: relative L2 {err:.3e} > {TRUNK_TOL[key]}")
+    for name, ms in trunk_ms.items():
+        log(f"[pixels] trunk {name} bf16 B={TRUNK_BATCH}: {ms:.3f} ms a batch, "
+            f"{TRUNK_BATCH / ms * 1e3:.0f} frames/s (CUDA events over back-to-back calls)")
+    raw = rng.integers(0, 256, (IMAGENET_FRAMES, *JIGSAWS_FRAME, 3), np.uint8)
+    pre = preprocess_frames(torch.from_numpy(raw).cuda()).cpu()
+    err = (pre - preprocess_frames(torch.from_numpy(raw))).abs().max().item()
+    if err > TRUNK_TOL["preprocess"] or pre.shape != (IMAGENET_FRAMES, 224, 224, 3):
+        raise RuntimeError(f"ImageNet preprocessing card vs CPU: {err:.3e}, {pre.shape}")
+    log(f"[pixels] ImageNet resize path, {IMAGENET_FRAMES} frames of {JIGSAWS_FRAME}: "
+        f"card vs CPU max error {err:.3e} (tol {TRUNK_TOL['preprocess']})")
+
+    cfg = _serving_config(2048)
+    with tempfile.TemporaryDirectory() as tmp:
+        server = FrameModelServer(cfg, _seeded_checkpoint(cfg, tmp), stats={
+            "kinematics": {"mean": rng.standard_normal(26, dtype=np.float32),
+                           "std": rng.uniform(0.5, 2.0, 26).astype(np.float32)}})
+    request = (rng.integers(0, 256, (PIXEL_FRAMES, side, side, 3), np.uint8),
+               rng.standard_normal((PIXEL_FRAMES, 26), dtype=np.float32))
+    server.predict_trial_from_pixels(module, *request)         # warm-up, not counted
+    ops.reset_launch_counts()
+    preds, probs = server.predict_trial_from_pixels(module, *request)
+    launches = ops.launch_counts()
+    want = {**forward_launches(1), **backward_launches(0)}
+    log(f"[pixels] launches of one T={PIXEL_FRAMES} pixel request "
+        f"({-(-PIXEL_FRAMES // module.batch_size)} trunk batches): {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    _check_served("pixel request", preds, probs, PIXEL_FRAMES)
+    f_preds, f_probs = server.predict_trial(module.features(request[0]), request[1])
+    diff = float(np.abs(probs - f_probs).max())
+    if not (np.array_equal(preds, f_preds) and diff <= 1e-6):
+        raise RuntimeError(f"pixel request vs predict_trial on its features: "
+                           f"probabilities differ by {diff:.3e}")
+    log(f"[pixels] pixel request vs predict_trial on the same front end's features: "
+        f"predictions equal, max prob diff {diff:.3e} (tol 1e-6)")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server.predict_trial_from_pixels(module, *request)
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    log(f"[pixels] pixel request T={PIXEL_FRAMES}, bf16 trunk: median {med:.2f} ms of 5 "
+        f"(min {min(times):.2f}, max {max(times):.2f}), {PIXEL_FRAMES / med * 1e3:.0f} frames/s")
+    if profile:
+        _profile(f"pixel request T={PIXEL_FRAMES}",
+                 lambda: server.predict_trial_from_pixels(module, *request))
+        with torch.no_grad():
+            _profile(f"resnet50_fused_apply bf16 B={TRUNK_BATCH}, folded once",
+                     lambda: fused(x, folded[bf16]))
+    stages = [cases[(bf16, s)] for s in (0, 1)]
+    kernel = {k: sum(r[k] for r in stages) for k in ("ms", "plain_ms", "bound_ms", "cudnn_ms")}
+    kernel.update(max_abs_err=max(r["max_abs_err"] for r in stages),
+                  bound_by=stages[0]["bound_by"], library_ms=None,
+                  ms_fp32_b8=sum(cases[(torch.float32, s)]["ms"] for s in (0, 1)))
+    return apply_counts, launches, kernel
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -762,6 +1091,8 @@ def main(argv) -> int:
     kernels = phase_kernels("--profile" in argv)
     serving = phase_serving("--profile" in argv)
     training = phase_training("--profile" in argv)
+    fused_trunk, pixels, stage_kernel = phase_pixels("--profile" in argv)
+    kernels["resnet_stage"] = stage_kernel
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -780,12 +1111,18 @@ def main(argv) -> int:
                                             "dilated_residual_multistack_stages_bwd"),
                "tcn_layer_bwd/stack": ("med_tpu_torch/csrc/tcn_layer_bwd.cu",
                                        "med_tpu/ops/tcn_fused.py:193",
-                                       "dilated_residual_stack_bwd")}
-    # launches: the training run (this slice's path); the serving run's
-    # count beside it for the forward kernels
+                                       "dilated_residual_stack_bwd"),
+               "resnet_stage": ("med_tpu_torch/csrc/resnet_stage.cu",
+                                "med_tpu/ops/resnet_fused.py:113",
+                                "fused_bottleneck_stage")}
+    # launches: each kernel's own path, one 128-frame batch of
+    # resnet50_fused_apply for K10 and the training run for the others;
+    # every phase's count beside it (the pixel request's trunk is ResNet50)
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": training[wrapper], "launches_serving": serving[wrapper],
-             **kernels[name]}
+             "launches": (fused_trunk if name == "resnet_stage" else training)[wrapper],
+             "launches_serving": serving[wrapper], "launches_training": training[wrapper],
+             "launches_fused_trunk": fused_trunk[wrapper],
+             "launches_pixel_request": pixels[wrapper], **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ PyTorch version; a wrapper launches the kernel for a CUDA tensor, runs the
 plain version for a CPU tensor, and counts its launches in ``.launches``."""
 
 from .attention import sliding_window_attention_packed, sliding_window_attention_packed_bwd
+from .resnet_fused import fused_bottleneck_stage
 from .tcn_fused import (
     dilated_residual_multistack_stages,
     dilated_residual_multistack_stages_bwd,
@@ -17,6 +18,7 @@ KERNEL_WRAPPERS = (
     sliding_window_attention_packed_bwd,
     dilated_residual_multistack_stages_bwd,
     dilated_residual_stack_bwd,
+    fused_bottleneck_stage,
 )
 
 

@@ -20,7 +20,8 @@ from typing import Dict, Iterable, Sequence, Tuple
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-KERNELS = ("swa_packed_fwd", "swa_packed_bwd", "tcn_layer", "tcn_layer_bwd")
+KERNELS = ("swa_packed_fwd", "swa_packed_bwd", "tcn_layer", "tcn_layer_bwd",
+           "resnet_stage")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

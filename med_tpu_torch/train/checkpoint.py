@@ -68,6 +68,17 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return unflatten_tree(flat)
 
 
+def load_checkpoint_meta(path: str) -> Optional[Dict[str, Any]]:
+    """The JSON meta that :func:`save_checkpoint` wrote beside ``path``
+    (``<path>.json``, or ``<path>.npz.json`` when ``path`` was given without
+    its extension), or None when there is none."""
+    for meta_path in (path + ".json", path + ".npz.json"):
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                return json.load(f)
+    return None
+
+
 def load_best_checkpoint(ckpt_dir: str, setting: str, out: str) -> Dict[str, Any]:
     """Load ``best_model_{setting}_{out}.npz`` from a run's checkpoint dir."""
     base = os.path.join(ckpt_dir, f"best_model_{setting}_{out}")

@@ -6,15 +6,19 @@ maps leaf by leaf onto a port module's ``state_dict``. Each parameterised
 port module names its flax layout (``flax_layout``, see
 :mod:`med_tpu_torch.models.layers`):
 
-    dense  weight (out, in)    <-> kernel (in, out)
-    conv   weight (O, I, K)    <-> Conv_0/kernel (K, I, O);  bias <-> Conv_0/bias
-    norm   weight              <-> scale
-    stack  w3, b3, w1, b1      <-> the same, stacked per stage
+    dense      weight (out, in)        <-> kernel (in, out)
+    conv       weight (O, I, K)        <-> Conv_0/kernel (K, I, O);  bias <-> Conv_0/bias
+    conv2d     weight (O, I, kh, kw)   <-> kernel (kh, kw, I, O)
+    norm       weight                  <-> scale
+    batchnorm  weight, bias            <-> scale, bias;
+               running_mean, running_var (buffers) <-> batch_stats mean, var
+    stack      w3, b3, w1, b1          <-> the same, stacked per stage
 
 Module paths are the same on both sides ("model.cot.layer0.W_Q" is
-"params/model/cot/layer0/W_Q"); frozen tables such as ``gest_embed`` are
-buffers on the port side and ``constants`` on the JAX side. Each transform
-is its own inverse, so one table serves both directions.
+"params/model/cot/layer0/W_Q", "layer1_0.bn1.running_mean" is
+"batch_stats/layer1_0/bn1/mean"); frozen tables such as ``gest_embed`` are
+buffers on the port side and ``constants`` on the JAX side. Each rule has
+a transform into the port's layout and one back.
 """
 
 from __future__ import annotations
@@ -34,34 +38,54 @@ def _same(a: np.ndarray) -> np.ndarray:
     return a
 
 
-def _leaf_rule(layout: str, pname: str) -> Tuple[Tuple[str, ...], _Transform]:
-    """(flax path suffix, transform) of parameter ``pname`` of a module."""
+def _conv1d(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 1, 0)          # its own inverse
+
+
+# (collection, flax path suffix, flax -> port transform, port -> flax transform)
+_Rule = Tuple[str, Tuple[str, ...], _Transform, _Transform]
+_BATCHNORM = {"weight": ("params", ("scale",)), "bias": ("params", ("bias",)),
+              "running_mean": ("batch_stats", ("mean",)),
+              "running_var": ("batch_stats", ("var",))}
+
+
+def _leaf_rule(layout: str, pname: str) -> _Rule:
+    """How parameter (or buffer) ``pname`` of a module maps to flax."""
     if layout == "dense":
-        return ((("kernel",), np.transpose) if pname == "weight"
-                else (("bias",), _same))
+        return (("params", ("kernel",), np.transpose, np.transpose) if pname == "weight"
+                else ("params", ("bias",), _same, _same))
     if layout == "conv":
-        return ((("Conv_0", "kernel"), lambda a: a.transpose(2, 1, 0))
-                if pname == "weight" else (("Conv_0", "bias"), _same))
+        return (("params", ("Conv_0", "kernel"), _conv1d, _conv1d) if pname == "weight"
+                else ("params", ("Conv_0", "bias"), _same, _same))
+    if layout == "conv2d":
+        return ("params", ("kernel",), lambda a: a.transpose(3, 2, 0, 1),
+                lambda a: a.transpose(2, 3, 1, 0))
     if layout == "norm":
-        return (("scale",), _same) if pname == "weight" else (("bias",), _same)
+        return ("params", ("scale",) if pname == "weight" else ("bias",), _same, _same)
+    if layout == "batchnorm":
+        return (*_BATCHNORM[pname], _same, _same)
     if layout == "stack":
-        return (pname,), _same
+        return "params", (pname,), _same, _same
     raise ValueError(f"unknown flax layout {layout!r}")
 
 
-def param_table(net: nn.Module) -> Dict[str, Tuple[str, _Transform]]:
-    """port state_dict key -> (flax '/'-path, transform), for every entry of
-    ``net.state_dict()``; raises if a parameter has no flax counterpart."""
+def param_table(net: nn.Module) -> Dict[str, Tuple[str, _Transform, _Transform]]:
+    """port state_dict key -> (flax '/'-path, flax -> port transform, port ->
+    flax transform), for every entry of ``net.state_dict()``; raises if an
+    entry has no flax counterpart."""
     table = {}
     for mod_name, module in net.named_modules():
         layout = getattr(module, "flax_layout", None)
         if layout is None:
             continue
         prefix = mod_name.split(".") if mod_name else []
-        for pname, _ in module.named_parameters(recurse=False):
-            suffix, fn = _leaf_rule(layout, pname)
+        entries = list(module.named_parameters(recurse=False))
+        if layout == "batchnorm":
+            entries += list(module.named_buffers(recurse=False))
+        for pname, _ in entries:
+            collection, suffix, to_port, to_flax = _leaf_rule(layout, pname)
             key = ".".join((*prefix, pname))
-            table[key] = ("/".join(("params", *prefix, *suffix)), fn)
+            table[key] = ("/".join((collection, *prefix, *suffix)), to_port, to_flax)
     unmapped = set(net.state_dict()) - set(table)
     if unmapped:
         raise ValueError(f"port parameters with no flax layout: {sorted(unmapped)}")
@@ -82,7 +106,7 @@ def load_jax_params(tree: Dict, net: nn.Module):
     Raises unless every checkpoint leaf is consumed and every port
     parameter is filled with the right shape."""
     flat = flatten_tree(tree)
-    by_flax = {path: (key, fn) for key, (path, fn) in param_table(net).items()}
+    by_flax = {path: (key, to_port) for key, (path, to_port, _) in param_table(net).items()}
     consts = {path: name for name, path in _constant_table(net).items()}
     state, constants, unknown = {}, {}, []
     for path, value in flat.items():
@@ -109,20 +133,24 @@ def load_jax_params(tree: Dict, net: nn.Module):
 
 
 def export_jax_params(net: nn.Module, grads: bool = False) -> Dict:
-    """The inverse: ``net``'s parameters and frozen tables as a ``med_tpu``
-    checkpoint tree {"params": ..., "constants": ...} of numpy arrays. With
+    """The inverse: ``net``'s parameters, running statistics and frozen
+    tables as a ``med_tpu`` checkpoint tree {"params": ..., "batch_stats":
+    ..., "constants": ...} of numpy arrays (each present when ``net`` has
+    such entries). With
     ``grads``, the parameters' gradients instead, as {"params": ...} in the
     same layout (zeros where a parameter has none), to compare leaf by leaf
     with ``jax.grad``."""
     flat = {}
     state = net.state_dict()
     params = dict(net.named_parameters())
-    for key, (path, fn) in param_table(net).items():
+    for key, (path, _, to_flax) in param_table(net).items():
         value = state[key]
         if grads:
+            if key not in params:       # running statistics get no gradient
+                continue
             p = params[key]
             value = p.grad if p.grad is not None else torch.zeros_like(p)
-        flat[path] = np.ascontiguousarray(fn(value.detach().cpu().numpy()))
+        flat[path] = np.ascontiguousarray(to_flax(value.detach().cpu().numpy()))
     if not grads:
         for name, path in _constant_table(net).items():
             flat[path] = net.get_buffer(name).detach().cpu().numpy()

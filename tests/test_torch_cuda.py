@@ -1,13 +1,17 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 card, at awkward shapes (ragged tiles, dilations wider than the sequence,
-acausal taps, dropout masks), and the small COG served on the card against
-the CPU. They need an NVIDIA GPU and skip without one. This file imports no
+acausal taps, dropout masks, images narrower than a tile), the small COG
+served on the card against the CPU, and a small ResNet trunk and pixel
+front end on the card against the CPU. They need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance: rtol 1e-4, atol 1e-5 for the attention (values O(1)); atol 1e-4
-for the TCN stacks, whose activations grow over the layers. Gradients:
+for the TCN stacks, whose activations grow over the layers. The ResNet
+stage kernel: relative L2 and max error over the largest value within 1e-5
+in float32, and in bfloat16 within 2**-7 and 2**-5 (a sum taken in another
+order may round a y1 or y2 value the other way, one bf16 step). Gradients:
 rtol 1e-4, atol 1e-5 * max|want| per tensor (weight gradients are sums over
 T, taken in another order).
 """
@@ -18,6 +22,7 @@ import torch
 
 from med_tpu_torch import ops
 from med_tpu_torch.ops import attention as tatt
+from med_tpu_torch.ops import resnet_fused as trf
 from med_tpu_torch.ops import tcn_fused as ttcn
 
 pytestmark = pytest.mark.cuda
@@ -140,7 +145,8 @@ def test_small_cog_serves_the_same_on_card_and_cpu(cuda_device, rng):
                       "dilated_residual_stack": 4 + 2 * 3,
                       "sliding_window_attention_packed_bwd": 0,
                       "dilated_residual_multistack_stages_bwd": 0,
-                      "dilated_residual_stack_bwd": 0}
+                      "dilated_residual_stack_bwd": 0,
+                      "fused_bottleneck_stage": 0}
 
 
 def _close_grad(got, want):
@@ -288,4 +294,107 @@ def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
         "dilated_residual_stack": 4 + 2 * 3,
         "sliding_window_attention_packed_bwd": 2,
         "dilated_residual_multistack_stages_bwd": 2 * 10 + 1,
-        "dilated_residual_stack_bwd": 2 * 10 + 3}
+        "dilated_residual_stack_bwd": 2 * 10 + 3,
+        "fused_bottleneck_stage": 0}
+
+
+def _stage_blocks(rng, cin, f, n, proj, device):
+    """Folded operands of n stride-1 blocks at f, the first with the
+    projection when ``proj``; weights at He scale so activations stay O(1)."""
+    blocks = []
+    for b in range(n):
+        c_in = cin if b == 0 else 4 * f
+        blk = {"w1": rng.normal(size=(c_in, f)) * np.sqrt(2 / c_in),
+               "c1": rng.normal(size=(1, f)) * 0.1,
+               "w2": rng.normal(size=(9, f, f)) * np.sqrt(2 / (9 * f)),
+               "c2": rng.normal(size=(1, f)) * 0.1,
+               "w3": rng.normal(size=(f, 4 * f)) * np.sqrt(1 / f),
+               "c3": rng.normal(size=(1, 4 * f)) * 0.1}
+        if b == 0 and proj:
+            blk["wd"] = rng.normal(size=(c_in, 4 * f)) * np.sqrt(1 / c_in)
+            blk["cd"] = rng.normal(size=(1, 4 * f)) * 0.1
+        blocks.append({k: _dev(v.astype(np.float32), device) for k, v in blk.items()})
+    return blocks
+
+
+def _stage_errors(got, want):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return ((torch.linalg.norm(got - want) / torch.linalg.norm(want)).item(),
+            (err.max() / want.abs().max()).item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,cin,f,n,proj", [
+    (2, 16, 16, 8, 8, 2, True),        # stage 0 of a width-8 trunk
+    (3, 8, 8, 64, 16, 2, False),       # identity blocks only
+    (1, 7, 8, 24, 12, 1, True),        # f not a multiple of the k-step
+    (2, 56, 56, 64, 64, 3, True),      # full-width stage 0 shapes
+    (2, 28, 28, 512, 128, 1, False)])  # a full-width stage 1 block
+def test_resnet_stage_kernel_matches_plain(cuda_device, rng, dtype, B, H, W, cin, f, n, proj):
+    blocks = _stage_blocks(rng, cin, f, n, proj, cuda_device)
+    x = _dev(np.maximum(rng.normal(size=(B, H * W, cin)), 0).astype(np.float32),
+             cuda_device)
+    before = trf.fused_bottleneck_stage.launches
+    got = trf.fused_bottleneck_stage(x, blocks, Wr=W, dtype=dtype)
+    torch.cuda.synchronize()
+    assert trf.fused_bottleneck_stage.launches == before + 3 * n
+    want = trf.fused_bottleneck_stage_plain(x, blocks, Wr=W, dtype=dtype)
+    assert got.dtype == dtype and got.shape == (B, H * W, 4 * f)
+    rel, peak = _stage_errors(got, want)
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 2 ** -5)
+    assert rel <= tol[0] and peak <= tol[1], (rel, peak)
+
+
+def test_resnet_stage_kernel_rejects_what_it_does_not_take(cuda_device, rng):
+    blocks = _stage_blocks(rng, 8, 8, 1, True, cuda_device)
+    x = torch.zeros(1, 64, 8, device=cuda_device)
+    before = trf.fused_bottleneck_stage.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        trf.fused_bottleneck_stage(x, blocks, Wr=8, dtype=torch.float16)
+    cpu_blocks = [{k: v.cpu() for k, v in blk.items()} for blk in blocks]
+    with pytest.raises(ValueError, match="contiguous"):
+        trf.fused_bottleneck_stage(x, cpu_blocks, Wr=8, dtype=torch.float32)
+    bad = [dict(blocks[0], w2=blocks[0]["w2"][:4])]
+    with pytest.raises(ValueError, match="w2 has shape"):
+        trf.fused_bottleneck_stage(x, bad, Wr=8, dtype=torch.float32)
+    assert trf.fused_bottleneck_stage.launches == before
+
+
+def test_small_trunk_and_pixel_front_end_same_on_card_and_cpu(cuda_device, rng):
+    """A (2, 2, 1, 1) width-8 trunk with seeded weights and statistics: the
+    fused apply on the card (three launches for each of stage 0's two
+    blocks and stage 1's one stride-1 block) against the CPU's, the module
+    trunk on the card against the CPU, and PixelFrontEnd (ImageNet path) on
+    both. float32 with TF32 off: relative L2 within 1e-5."""
+    from med_tpu_torch.eval.serving import PixelFrontEnd
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.models.resnet import ResNet50
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    net = init_weights(ResNet50((2, 2, 1, 1), 8), torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            buf.add_(torch.rand(buf.shape, generator=torch.Generator().manual_seed(4)) * 0.1)
+    tree = export_jax_params(net)
+    x = rng.normal(size=(4, 64, 64, 3)).astype(np.float32)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        v = trf.fold_trunk(tree, dtype=torch.float32, device=dev)
+        before = trf.fused_bottleneck_stage.launches
+        fused = trf.resnet50_fused_apply(v, _dev(x, dev), stage_sizes=(2, 2, 1, 1),
+                                         dtype=torch.float32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert trf.fused_bottleneck_stage.launches == before + 3 * (2 + 1)
+        with torch.no_grad():
+            module = net.to(dev)(_dev(x, dev))
+        outs.append((fused.cpu(), module.cpu()))
+    for got, want in zip(*outs):
+        assert _stage_errors(got, want)[0] <= 1e-5
+    frames = rng.integers(0, 256, size=(5, 480, 640, 3)).astype(np.uint8)
+    feats = [PixelFrontEnd(tree["params"], tree["batch_stats"], dtype=torch.float32,
+                           stage_sizes=(2, 2, 1, 1), width=8, batch_size=4,
+                           device=dev).features(frames)
+             for dev in (cuda_device, "cpu")]
+    assert np.linalg.norm(feats[0] - feats[1]) <= 1e-5 * np.linalg.norm(feats[1])

@@ -1,6 +1,7 @@
-"""The port stands alone: med_tpu_torch and chip_smoke.py import neither JAX
-nor anything of the JAX package med_tpu. The import check runs in a fresh
-interpreter, since this test process (conftest.py) has imported JAX."""
+"""The port stands alone: med_tpu_torch, chip_smoke.py and trunk_gain.py
+import neither JAX nor anything of the JAX package med_tpu. The import check
+runs in a fresh interpreter, since this test process (conftest.py) has
+imported JAX."""
 
 import ast
 import json
@@ -19,6 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(med_tpu_torch.__path__, "med_tpu_
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import trunk_gain
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "med_tpu")]
 print(json.dumps({"modules": names, "forbidden": loaded}))
@@ -30,13 +32,14 @@ def test_port_imports_no_jax_and_no_med_tpu():
                          capture_output=True, text=True, timeout=120, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("eval.serving", "utils.jax_params", "train.loop", "train.losses",
-                 "train.optim", "ops.metrics"):
+                 "train.optim", "ops.metrics", "data.preprocessing", "models.resnet",
+                 "ops.resnet_fused"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
 
 def test_port_sources_name_no_jax_or_med_tpu_import():
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "trunk_gain.py"]
     assert len(sources) > 10
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
