@@ -16,7 +16,13 @@ non-zero and the last line is not printed:
    with its time, the plain version's, the card's bound for the same work
    and, for the attention, the time of ``scaled_dot_product_attention``
    (forward; autograd backward for K3) with a band mask as a yardstick (the
-   port never calls it);
+   port never calls it); the same for the public op entry points' kernels:
+   K6/K7, the multistack with the stacks' weights concatenated on the layer
+   axis (with and without dropout mask), and K8/K9, the head-major
+   attention and its backward that recomputes the softmax; then (``[ops]``
+   lines) ``torch.autograd.grad`` through ``dilated_residual_multistack``
+   and ``sliding_window_attention``, counting launches, equal to the direct
+   backward calls;
 4. serving: a full-width COG (the default of `med_tpu.cli.train_frame`,
    2048-d video features + 26-d kinematics) with weights drawn from a seed,
    saved in the JAX package's checkpoint layout, loaded back and served
@@ -47,7 +53,14 @@ non-zero and the last line is not printed:
    ``FrameModelServer.predict_trial_from_pixels`` (``PixelFrontEnd``'s
    ``ResNet50`` trunk ahead of phase 4's COG), counting launches, against
    ``predict_trial`` on the same features, and its latency;
-7. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+7. driver: two synthetic LOSO folds written with ``save_trial_npz`` (6
+   trials of 300-4096 frames, 2048-d features, 26-d kinematics, fold
+   statistics), then ``med_tpu_torch.cli.train_frame.main`` at full COG
+   width, multimodal, 2 epochs, on the card: every file of the run layout,
+   finite numbers in ``summary.json`` and ``windowed_metrics.json``, kernel
+   launches against the design; then the same command with ``--resume
+   --n-epochs 3``, which must train epoch 2 alone; wall time per fold;
+8. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
 """
@@ -57,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,7 +100,13 @@ CPU_TRAIN_FRAMES = 300
 # weight gradients are sums over T taken in another order.
 TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_layer/multistack": (1e-4, 1e-4),
        "tcn_layer/stack": (1e-4, 1e-4), "swa_packed_bwd": (1e-4, 1e-5),
-       "tcn_layer_bwd/multistack": (1e-4, 1e-5), "tcn_layer_bwd/stack": (1e-4, 1e-5)}
+       "tcn_layer_bwd/multistack": (1e-4, 1e-5), "tcn_layer_bwd/stack": (1e-4, 1e-5),
+       "tcn_multistack": (1e-4, 1e-4), "tcn_multistack_bwd": (1e-4, 1e-5),
+       "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5)}
+# the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
+# it; fold 2Out tests trials 0 and 3 and trains on the rest
+DRIVER_FRAMES = (300, 1000, 2000, 4096, 500, 1500)
+DRIVER_TEST = {"1Out": (4, 5), "2Out": (0, 3)}
 # card vs CPU train step: loss rtol; per gradient leaf rtol, and atol as a
 # fraction of that leaf's own largest |value|. float32 summed in another
 # order flips a few relu derivatives of the encoder FFNs (pre-activations
@@ -400,12 +420,150 @@ def _fast_stacks_bwd_case(T: int, gen: torch.Generator):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+COG_STACKS = dict(L0=11, Lr=10, S=4)      # the slow path: 11 + 3x10 layers, Lt = 41
+
+
+def _concatenated_stacks(T: int, gen: torch.Generator):
+    """COG's slow path with the stacks' weights concatenated on the layer
+    axis: x, (w3, b3, w1, b1) of 41 layers at C=64, a keep-mask, a cotangent
+    on every stage output."""
+    layers = (COG_STACKS["L0"],) + (COG_STACKS["Lr"],) * (COG_STACKS["S"] - 1)
+    ws = [torch.cat(t) for t in zip(*_stage_weights(gen, layers))]
+    mask = torch.randint(0, 2, (sum(layers), T, 64), generator=gen, dtype=torch.uint8).cuda()
+    x = torch.randn((T, 64), generator=gen).cuda()
+    g = torch.randn((len(layers), T, 64), generator=gen).cuda()
+    return layers, x, ws, mask, g
+
+
+def _concat_multistack_case(T: int, gen: torch.Generator):
+    """K6 at COG's slow-path shapes, causal, without mask (serving) and with
+    mask saving h and y (training); timed as K2a is, without mask."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    layers, x, ws, mask, _ = _concatenated_stacks(T, gen)
+    L0, Lr = COG_STACKS["L0"], COG_STACKS["Lr"]
+    run = lambda: tcn.dilated_residual_multistack(x, *ws, L0, Lr)  # noqa: E731
+    plain = lambda: tcn.dilated_residual_multistack_plain(x, *ws, L0, Lr)  # noqa: E731
+    saving = lambda: tcn._multistack_fwd(x, *ws, mask, L0, Lr, True, save=True)  # noqa: E731
+    tol = TOL["tcn_multistack"]
+    err = check_close(f"concatenated multistack T={T}", run(), plain(), *tol)
+    want = tcn.dilated_residual_multistack_plain(x, *ws, L0, Lr, mask=mask, save=True)
+    for n, a, b in zip(("stage outputs", "saved h", "saved y"), saving(), want):
+        err = max(err, check_close(f"concatenated multistack T={T}, mask, {n}", a, b, *tol))
+    nbytes, flops = _tcn_flops_bytes(T, 64, layers, 1, len(layers))
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
+                saving_ms=cuda_ms(saving, 20), bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def _concat_multistack_bwd_case(T: int, gen: torch.Generator):
+    """K7 at COG's slow-path shapes, causal, with and without mask; timed as
+    K4 is, with masks."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    layers, x, ws, mask, g = _concatenated_stacks(T, gen)
+    L0, Lr = COG_STACKS["L0"], COG_STACKS["Lr"]
+    w3, _, w1, _ = ws
+    rtol, atol = TOL["tcn_multistack_bwd"]
+    err = 0.0
+    for m in (None, mask):
+        _, h_saved, y_saved = tcn._multistack_fwd(x, *ws, m, L0, Lr, True, save=True)
+        run = lambda: tcn.dilated_residual_multistack_bwd(  # noqa: E731
+            g, h_saved, y_saved, w3, w1, L0, Lr, mask=m)
+        plain = lambda: tcn.dilated_residual_multistack_bwd_plain(  # noqa: E731
+            g, h_saved, y_saved, w3, w1, L0, Lr, mask=m)
+        for n, a, b in zip(("dx", "dw3", "db3", "dw1", "db1"), run(), plain()):
+            err = max(err, check_grads(
+                f"concatenated multistack bwd T={T} mask={m is not None} {n}",
+                [a], [b], rtol, atol))
+    nbytes, flops = _tcn_bwd_flops_bytes(T, 64, layers, len(layers), 1)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+COG_HEADS = dict(H=8, d=8, m=15, W=30)
+
+
+def _head_major_inputs(T: int, gen: torch.Generator):
+    H, d, m = COG_HEADS["H"], COG_HEADS["d"], COG_HEADS["m"]
+    return [torch.randn(s, generator=gen).cuda()
+            for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d))]
+
+
+def _band_mask(T: int):
+    """Head-major queries against the keys left-padded by W - 1 zero rows."""
+    m, W = COG_HEADS["m"], COG_HEADS["W"]
+    frame = torch.arange(T * m, device="cuda")[:, None] // m
+    col = torch.arange(T + W - 1, device="cuda")[None, :]
+    return (col >= frame) & (col < frame + W)
+
+
+def _head_major_case(T: int, gen: torch.Generator):
+    """K8 at COG's head-major shapes: 8 heads, d=8, 15 queries a frame,
+    window 30, T frames."""
+    from med_tpu_torch.ops import attention as att
+
+    H, d, m, W = (COG_HEADS[k] for k in "HdmW")
+    q, k, v, _ = _head_major_inputs(T, gen)
+    run = lambda: att.sliding_window_attention_pallas(q, k, v, W)  # noqa: E731
+    plain = lambda: att.sliding_window_attention_xla(q, k, v, W)  # noqa: E731
+    err = check_close(f"head-major attention T={T}", run(), plain(),
+                      *TOL["swa_headmajor_fwd"])
+    # yardstick: one library call computing the same function
+    qs = q.reshape(1, H, T * m, d)
+    ks, vs = (F.pad(t, (0, 0, W - 1, 0))[None] for t in (k, v))
+    band = _band_mask(T)
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band)  # noqa: E731
+    check_close(f"head-major attention T={T} library yardstick",
+                lib().reshape(H, T, m, d), run(), 5e-3, 5e-3)
+    nbytes = 4 * (2 * H * T * m * d + 2 * H * T * d)
+    flops = H * T * m * W * (2 * d + 2 * d + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+
+
+def _head_major_bwd_case(T: int, gen: torch.Generator):
+    """K9 at K8's shapes, a cotangent on every query; given q, k, v, g only."""
+    from med_tpu_torch.ops import attention as att
+
+    H, d, m, W = (COG_HEADS[k] for k in "HdmW")
+    q, k, v, g = _head_major_inputs(T, gen)
+    run = lambda: att.sliding_window_attention_bwd_pallas(q, k, v, g, W)  # noqa: E731
+    plain = lambda: att.sliding_window_attention_bwd_plain(q, k, v, g, W)  # noqa: E731
+    rtol, atol = TOL["swa_headmajor_bwd"]
+    err = max(check_grads(f"head-major attention bwd T={T} {n}", [a], [b], rtol, atol)
+              for n, a, b in zip(("dq", "dk", "dv"), run(), plain()))
+    # yardstick: autograd backward of one library call, same function
+    qs = q.reshape(1, H, T * m, d).detach().requires_grad_()
+    ks, vs = (F.pad(t, (0, 0, W - 1, 0))[None].detach().requires_grad_() for t in (k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=_band_mask(T))
+    gs = g.reshape(1, H, T * m, d)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), gs, retain_graph=True)  # noqa: E731
+    check_close(f"head-major attention bwd T={T} library yardstick dq",
+                lib()[0].reshape(H, T, m, d), run()[0], 5e-3, 5e-3)
+    # bytes: q, g read and dq written (per query); k, v read and dk, dv
+    # written (per key). Operations per (query, key) pair: score, g.v, dq,
+    # dk, dv (2d each) and ~4 for the softmax and ds
+    nbytes = 4 * (3 * H * T * m * d + 4 * H * T * d)
+    flops = H * T * m * W * (10 * d + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+
+
 KERNEL_CASES = (("swa_packed_fwd", _attention_case),
                 ("tcn_layer/multistack", _multistack_case),
                 ("tcn_layer/stack", _fast_stacks_case),
                 ("swa_packed_bwd", _attention_bwd_case),
                 ("tcn_layer_bwd/multistack", _multistack_bwd_case),
-                ("tcn_layer_bwd/stack", _fast_stacks_bwd_case))
+                ("tcn_layer_bwd/stack", _fast_stacks_bwd_case),
+                ("tcn_multistack", _concat_multistack_case),
+                ("tcn_multistack_bwd", _concat_multistack_bwd_case),
+                ("swa_headmajor_fwd", _head_major_case),
+                ("swa_headmajor_bwd", _head_major_bwd_case))
 
 
 def phase_kernels(profile: bool):
@@ -419,13 +577,75 @@ def phase_kernels(profile: bool):
             r.pop("run", None)
             results[name] = r
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            saving = (f", saving forward with mask {r['saving_ms']:.4f} ms"
+                      if "saving_ms" in r else "")
             rtol, atol = TOL[name]
             atol_txt = f"{atol} x max|want|" if "bwd" in name else f"{atol}"
             log(f"[kernels] {name} at T={T}: max_abs_err {r['max_abs_err']:.3e} "
                 f"(tol rtol {rtol}, atol {atol_txt}), "
                 f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms")
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms{saving}")
     return results
+
+
+def op_api_launches(n: int):
+    """Launches of n forward and backward passes through the two public op
+    entry points at COG's shapes: K6 one launch a layer and K7 two a layer
+    plus one reduction (41 layers), K8 and K9 one launch each."""
+    return {"dilated_residual_multistack": 41 * n,
+            "dilated_residual_multistack_bwd": (2 * 41 + 1) * n,
+            "sliding_window_attention_pallas": n,
+            "sliding_window_attention_bwd_pallas": n}
+
+
+def phase_op_api():
+    """The public differentiable ops (K6-K9's path): ``torch.autograd.grad``
+    through each at T = 4096, counting launches; then the same gradients
+    from the direct backward calls, which must be equal bit for bit."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.ops import attention as att
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    T = KERNEL_FRAMES[-1]
+    L0, Lr, W = COG_STACKS["L0"], COG_STACKS["Lr"], COG_HEADS["W"]
+    _, x, ws, mask, g = _concatenated_stacks(T, gen)
+    q, k, v, ga = _head_major_inputs(T, gen)
+    stack_leaves = [t.requires_grad_() for t in (x, *ws)]
+    att_leaves = [t.requires_grad_() for t in (q, k, v)]
+
+    ops.reset_launch_counts()
+    hs = tcn.dilated_residual_multistack(*stack_leaves, L0, Lr, mask=mask)
+    stack_grads = torch.autograd.grad(hs, stack_leaves, g)
+    out = att.sliding_window_attention(*att_leaves, W)
+    att_grads = torch.autograd.grad(out, att_leaves, ga)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {**forward_launches(0), **backward_launches(0), **op_api_launches(1)}
+    log(f"[ops] launches of one forward and backward through dilated_residual_multistack "
+        f"and sliding_window_attention at T={T}: {launches} (expected {want})")
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != {want}")
+    for name, t in (("stage outputs", hs), ("attention", out), *zip("x w3 b3 w1 b1".split(),
+                                                                   stack_grads)):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"non-finite {name} through the op entry points")
+
+    with torch.no_grad():
+        _, h_saved, y_saved = tcn._multistack_fwd(x, *ws, mask, L0, Lr, True, save=True)
+        direct = tcn.dilated_residual_multistack_bwd(g, h_saved, y_saved, ws[0], ws[2],
+                                                     L0, Lr, mask=mask)
+        direct_att = att.sliding_window_attention_bwd_pallas(q, k, v, ga, W)
+        plain_out = att.sliding_window_attention(q, k, v, W, use_pallas=False)
+    for name, a, b in (*zip(("dx", "dw3", "db3", "dw1", "db1"), stack_grads, direct),
+                       *zip(("dq", "dk", "dv"), att_grads, direct_att)):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"autograd {name} differs from the direct backward call")
+    err = check_close("sliding_window_attention vs use_pallas=False", out, plain_out,
+                      *TOL["swa_headmajor_fwd"])
+    log(f"[ops] autograd through both ops equals the direct backward calls bit for bit; "
+        f"use_pallas=True vs False: max abs diff {err:.3e}")
+    return launches
 
 
 def _serving_config(video_dims: int):
@@ -472,11 +692,15 @@ def _check_served(name: str, preds, probs, T: int) -> None:
 
 def forward_launches(n: int):
     """Forward launches of n COG passes: 2 attention layers, 41 slow-path
-    and 41 fast-path TCN layers; no trunk stage (COG reads features)."""
+    and 41 fast-path TCN layers; no trunk stage (COG reads features), and
+    none of the op entry points' kernels (COG uses the packed attention and
+    the per-stage multistack)."""
     return {"sliding_window_attention_packed": 2 * n,
             "dilated_residual_multistack_stages": 41 * n,
             "dilated_residual_stack": 41 * n,
-            "fused_bottleneck_stage": 0}
+            "fused_bottleneck_stage": 0,
+            "dilated_residual_multistack": 0,
+            "sliding_window_attention_pallas": 0}
 
 
 def backward_launches(n: int):
@@ -485,7 +709,9 @@ def backward_launches(n: int):
     path is one call of 41 layers, the fast path four of 11 + 3x10)."""
     return {"sliding_window_attention_packed_bwd": 2 * n,
             "dilated_residual_multistack_stages_bwd": (2 * 41 + 1) * n,
-            "dilated_residual_stack_bwd": (2 * 41 + 4) * n}
+            "dilated_residual_stack_bwd": (2 * 41 + 4) * n,
+            "dilated_residual_multistack_bwd": 0,
+            "sliding_window_attention_bwd_pallas": 0}
 
 
 def phase_serving(profile: bool):
@@ -514,8 +740,7 @@ def phase_serving(profile: bool):
         log(f"[serving] request T={T}: {ms:.2f} ms (first pass)")
     launches = ops.launch_counts()
     n = len(REQUEST_FRAMES)
-    want = {**forward_launches(n), "sliding_window_attention_packed_bwd": 0,
-            "dilated_residual_multistack_stages_bwd": 0, "dilated_residual_stack_bwd": 0}
+    want = {**forward_launches(n), **backward_launches(0)}
     log(f"[serving] launches over {n} requests: {launches} (expected {want})")
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != {want}")
@@ -1074,6 +1299,147 @@ def phase_pixels(profile: bool):
     return apply_counts, launches, kernel
 
 
+def _write_driver_folds(root: Path) -> dict:
+    """Two LOSO folds over 6 synthetic trials (DRIVER_FRAMES), as files: each
+    trial through ``save_trial_npz``, train.csv / test.csv and the fold's
+    statistics. Returns fold -> (train names, test names)."""
+    from med_tpu_torch.data.trials import (
+        Trial, compute_fold_stats, load_fold, save_fold_stats, save_trial_npz)
+
+    rng = np.random.default_rng(SEED + 3)
+    names = [f"Needle_Passing_{'BCDEFG'[i]}00{i + 1}" for i in range(len(DRIVER_FRAMES))]
+    first = root / next(iter(DRIVER_TEST))
+    for fold in DRIVER_TEST:
+        (root / fold).mkdir(parents=True)
+    for name, T in zip(names, DRIVER_FRAMES):
+        t = _trial(rng, T, name)
+        g = np.repeat(rng.integers(1, 9, T // 40 + 1), 40)[:T]     # gesture runs
+        e = np.zeros((T, 5), np.int64)
+        e[:, 4] = t.e_powerset[:, -1]
+        e[np.arange(T), rng.integers(0, 4, T)] = e[:, 4]           # one error kind a frame
+        save_trial_npz(str(first / f"{name}.npz"), Trial(name, t.images, t.kinematics, g, e))
+    splits = {}
+    for fold, test in DRIVER_TEST.items():
+        if root / fold != first:
+            for name in names:
+                shutil.copy(first / f"{name}.npz", root / fold / f"{name}.npz")
+        split = ([n for i, n in enumerate(names) if i not in test], [names[i] for i in test])
+        for csv, listed in zip(("train.csv", "test.csv"), split):
+            (root / fold / csv).write_text("\n".join(n + ".npz" for n in listed))
+        img, kin, _, _, _ = load_fold(str(root / fold), "train.csv")
+        save_fold_stats(str(root / fold), compute_fold_stats(img, kin))
+        splits[fold] = split
+    return splits
+
+
+def _finite_numbers(obj) -> int:
+    """The count of numbers in a JSON value ('0.512 ± 0.031' strings too);
+    raises on one that is not finite."""
+    if isinstance(obj, dict):
+        return sum(_finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return sum(_finite_numbers(v) for v in obj)
+    if isinstance(obj, str):
+        return _finite_numbers([float(x) for x in obj.replace("±", " ").split()])
+    if not math.isfinite(obj):
+        raise RuntimeError(f"non-finite number {obj} in a run artifact")
+    return 1
+
+
+def phase_driver():
+    """The COG fold driver's command line on the card (phase 7 of the module
+    docstring)."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import train_frame
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        splits = _write_driver_folds(root / "data")
+        log(f"[driver] {len(splits)} folds of {len(DRIVER_FRAMES)} trials "
+            f"({min(DRIVER_FRAMES)}-{max(DRIVER_FRAMES)} frames) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = ["--model-name", "COG", "--data-type", "multimodal",
+                "--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+                "--folds", ",".join(splits)]
+        n_train = sum(len(tr) for tr, _ in splits.values())
+        n_test = sum(len(te) for _, te in splits.values())
+
+        def drive(epochs_run: int, *extra):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            results, tracker = train_frame.main([*argv, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            steps, evals = epochs_run * n_train, epochs_run * n_test
+            want = {**forward_launches(steps + evals), **backward_launches(steps)}
+            log(f"[driver] launches over {steps} train steps and {evals} eval passes: "
+                f"{launches} (expected {want})")
+            if launches != want:
+                raise RuntimeError(f"kernel launches {launches} != {want}")
+            return results, tracker, wall, launches
+
+        results, tracker, wall, launches = drive(2, "--n-epochs", "2")
+        run = Path(tracker.dir)
+        if run.parent != root / "runs" / "COG_5Hz_multimodal":
+            raise RuntimeError(f"run directory {run} is not under COG_5Hz_multimodal")
+        want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json",
+                      "artifacts/windowed_metrics.json"}
+        for fold in splits:
+            want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
+                           f"checkpoints/best_model_LOSO_{fold}.npz",
+                           f"checkpoints/best_model_LOSO_{fold}.npz.json",
+                           f"checkpoints/last_state_LOSO_{fold}.npz"}
+        files = {str(f.relative_to(run)) for f in run.rglob("*") if f.is_file()}
+        if files != want_files:
+            raise RuntimeError(f"run layout: missing {sorted(want_files - files)}, "
+                               f"unexpected {sorted(files - want_files)}")
+        params = json.loads((run / "params.json").read_text())
+        width = {k: params[k] for k in ("model_name", "data_type", "video_dims", "d_model",
+                                        "d_q", "sequence_length", "num_layers_Basic",
+                                        "num_layers_R", "num_R", "mstcn_f_maps", "n_epochs")}
+        if width != {"model_name": "COG", "data_type": "multimodal", "video_dims": 2048,
+                     "d_model": 64, "d_q": 8, "sequence_length": 30, "num_layers_Basic": 11,
+                     "num_layers_R": 10, "num_R": 3, "mstcn_f_maps": 64, "n_epochs": 2}:
+            raise RuntimeError(f"the driver did not run full-width COG: {width}")
+        counted = {name: _finite_numbers(json.loads((run / "artifacts" / name).read_text()))
+                   for name in ("summary.json", "windowed_metrics.json")}
+        for fold, (_, test) in splits.items():
+            best = results[fold]
+            n = sum(DRIVER_FRAMES[int(t[-1]) - 1] for t in test)
+            _check_served(f"driver fold {fold}", best["preds"], best["probs"], n)
+            if not (math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
+                raise RuntimeError(f"driver fold {fold}: non-finite loss {best}")
+        log(f"[driver] run layout ok ({len(files)} files); summary.json holds "
+            f"{counted['summary.json']} finite numbers, windowed_metrics.json "
+            f"{counted['windowed_metrics.json']}; best test F1 "
+            f"{ {f: round(results[f]['test_f1'], 4) for f in splits} }")
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        train_s = sum(r["value"] for r in rows if r["key"] == "train_time")
+        # the eval rows come fold by fold, 2 epochs each, as ms per test frame
+        test_frames = [sum(DRIVER_FRAMES[i] for i in test) for test in DRIVER_TEST.values()]
+        per_frame = [r["value"] for r in rows if r["key"] == "test_inference_ms_per_frame"]
+        eval_s = sum(v * test_frames[j // 2] for j, v in enumerate(per_frame)) / 1e3
+        log(f"[driver] train_frame.main, {len(splits)} folds x 2 epochs: {wall:.2f} s of "
+            f"wall, {wall / len(splits):.2f} s a fold: train steps {train_s:.2f} s, eval "
+            f"passes {eval_s:.2f} s, the rest (loading the folds, snapshots, checkpoints "
+            f"and artifacts) {wall - train_s - eval_s:.2f} s")
+
+        _, resumed, wall_resume, _ = drive(1, "--n-epochs", "3", "--resume")
+        if resumed.dir != tracker.dir:
+            raise RuntimeError(f"--resume made a new run {resumed.dir}")
+        steps = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
+                 .splitlines() if json.loads(line)["key"] == "epoch"]
+        if sorted(steps) != sorted([0, 1, 2] * len(splits)):
+            raise RuntimeError(f"--resume --n-epochs 3 did not start at epoch 2: the run's "
+                               f"epoch rows are {steps}")
+        log(f"[driver] --resume --n-epochs 3 trained epoch 2 alone in every fold "
+            f"(epoch rows {steps}): {wall_resume:.2f} s of wall, "
+            f"{wall_resume / len(splits):.2f} s a fold")
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1089,10 +1455,12 @@ def main(argv) -> int:
     phase_device()
     phase_build()
     kernels = phase_kernels("--profile" in argv)
+    op_api = phase_op_api()
     serving = phase_serving("--profile" in argv)
     training = phase_training("--profile" in argv)
     fused_trunk, pixels, stage_kernel = phase_pixels("--profile" in argv)
     kernels["resnet_stage"] = stage_kernel
+    driver = phase_driver()
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -1114,16 +1482,38 @@ def main(argv) -> int:
                                        "dilated_residual_stack_bwd"),
                "resnet_stage": ("med_tpu_torch/csrc/resnet_stage.cu",
                                 "med_tpu/ops/resnet_fused.py:113",
-                                "fused_bottleneck_stage")}
-    # launches: each kernel's own path, one 128-frame batch of
-    # resnet50_fused_apply for K10 and the training run for the others;
-    # every phase's count beside it (the pixel request's trunk is ResNet50)
+                                "fused_bottleneck_stage"),
+               "tcn_multistack": ("med_tpu_torch/csrc/tcn_multistack.cu",
+                                  "med_tpu/ops/tcn_fused.py:415",
+                                  "dilated_residual_multistack"),
+               "tcn_multistack_bwd": ("med_tpu_torch/csrc/tcn_multistack_bwd.cu",
+                                      "med_tpu/ops/tcn_fused.py:508",
+                                      "dilated_residual_multistack_bwd"),
+               "swa_headmajor_fwd": ("med_tpu_torch/csrc/swa_headmajor_fwd.cu",
+                                     "med_tpu/ops/attention.py:128",
+                                     "sliding_window_attention_pallas"),
+               "swa_headmajor_bwd": ("med_tpu_torch/csrc/swa_headmajor_bwd.cu",
+                                     "med_tpu/ops/attention.py:212",
+                                     "sliding_window_attention_bwd_pallas")}
+    # launches: each kernel's own path: one 128-frame batch of
+    # resnet50_fused_apply for K10, one forward and backward through the
+    # public op entry points for K6-K9, and the training run for the others;
+    # every phase's count beside it (the pixel request's trunk is ResNet50;
+    # the driver's count is its first run, 2 folds x 2 epochs)
+    own_path = {"resnet_stage": fused_trunk, "tcn_multistack": op_api,
+                "tcn_multistack_bwd": op_api, "swa_headmajor_fwd": op_api,
+                "swa_headmajor_bwd": op_api}
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": (fused_trunk if name == "resnet_stage" else training)[wrapper],
+             "launches": own_path.get(name, training)[wrapper],
              "launches_serving": serving[wrapper], "launches_training": training[wrapper],
              "launches_fused_trunk": fused_trunk[wrapper],
-             "launches_pixel_request": pixels[wrapper], **kernels[name]}
+             "launches_pixel_request": pixels[wrapper],
+             "launches_op_api": op_api[wrapper], "launches_driver": driver[wrapper],
+             **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
+    idle = [k["name"] for k in line if k["launches"] < 1]
+    if idle:
+        raise RuntimeError(f"kernels never launched on their path: {idle}")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

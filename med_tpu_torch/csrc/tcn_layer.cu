@@ -21,23 +21,20 @@
 //
 // Design: the TPU kernel's layer-to-layer carry does not fit Hopper (one
 // (4096, 64) fp32 activation is 1 MB against 227 KB of shared memory, and
-// blocks run in no order), so this is one launch per layer. A block takes 32
-// rows and all C output channels. It stages the layer's weights (64 KB at
-// C=64, so dynamic shared memory above the 48 KB static limit) and the three
-// shifted input tiles in shared memory, writes relu(...) into shared memory,
-// then applies w1. Thread (row group, output channel o) keeps its rows'
-// sums in registers; a warp reads one input value by broadcast and 32
-// consecutive weights, so shared memory has no bank conflicts. The output
-// goes to a second buffer: an in-place update would race with the tap reads
-// of neighbouring blocks, so the host ping-pongs two buffers when serving and
-// gives every layer a fresh slot of the saved activations when training.
+// blocks run in no order), so this is one launch per layer; the layer's
+// arithmetic and its use of shared memory are in tcn_layer_body.cuh. The
+// output goes to a second buffer, so the host ping-pongs two buffers when
+// serving and gives every layer a fresh slot of the saved activations when
+// training.
 
 #include <cuda_runtime.h>
 
+#include "tcn_layer_body.cuh"
+
 namespace {
 
-constexpr int kTile = 32;      // rows of T per block
-constexpr int kThreads = 256;
+using tcn::kThreads;
+using tcn::kTile;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -47,70 +44,9 @@ tcn_layer_kernel(const float* __restrict__ h, const float* __restrict__ w3,
                  const unsigned char* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ y_out, int T,
                  int s0, int s1, int s2) {
-  constexpr int kGroups = kThreads / C;        // row groups
-  constexpr int kRows = kTile / kGroups;       // rows per thread
   extern __shared__ float smem[];
-  float* w3s = smem;                 // [3][C][C]
-  float* w1s = w3s + 3 * C * C;      // [C][C]
-  float* xs = w1s + C * C;           // [3][kTile][C] shifted input tiles
-  float* ys = xs + 3 * kTile * C;    // [kTile][C] post-relu activations
-
-  const int t0 = blockIdx.x * kTile;
-  for (int i = threadIdx.x; i < 3 * C * C; i += kThreads) w3s[i] = w3[i];
-  for (int i = threadIdx.x; i < C * C; i += kThreads) w1s[i] = w1[i];
-  const int shift[3] = {s0, s1, s2};
-  for (int i = threadIdx.x; i < 3 * kTile * C; i += kThreads) {
-    const int j = i / (kTile * C);
-    const int r = (i / C) % kTile;
-    const int c = i % C;
-    const int src = t0 + r - shift[j];
-    xs[i] = (src >= 0 && src < T) ? h[(long long)src * C + c] : 0.f;
-  }
-  __syncthreads();
-
-  const int o = threadIdx.x % C;
-  const int g = threadIdx.x / C;
-  float acc[kRows];
-  const float bias3 = b3[o];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = bias3;
-  for (int j = 0; j < 3; ++j) {
-    const float* xj = xs + j * kTile * C;
-    const float* wj = w3s + j * C * C;
-    for (int c = 0; c < C; ++c) {
-      const float w = wj[c * C + o];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        acc[i] = fmaf(xj[(g + i * kGroups) * C + c], w, acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float y = fmaxf(acc[i], 0.f);
-    ys[(g + i * kGroups) * C + o] = y;
-    const int t = t0 + g + i * kGroups;
-    if (y_out != nullptr && t < T) y_out[(long long)t * C + o] = y;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float w = w1s[c * C + o];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      acc[i] = fmaf(ys[(g + i * kGroups) * C + c], w, acc[i]);
-  }
-  const float bias1 = b1[o];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + g + i * kGroups;
-    if (t >= T) continue;
-    const long long at = (long long)t * C + o;
-    float z = acc[i] + bias1;
-    if (mask != nullptr) z *= (float)mask[at] * 2.f;
-    out[at] = h[at] + z;
-  }
+  tcn::tcn_layer_body<C>(h, w3, b3, w1, b1, mask, out, y_out, nullptr, T, s0, s1,
+                         s2, smem);
 }
 
 template <int C>
@@ -118,7 +54,7 @@ cudaError_t launch(const float* h, const float* w3, const float* b3,
                    const float* w1, const float* b1, const unsigned char* mask,
                    float* out, float* y_out, int T, int s0, int s1, int s2,
                    cudaStream_t stream) {
-  constexpr size_t smem = (size_t)(4 * C * C + 4 * kTile * C) * sizeof(float);
+  constexpr size_t smem = tcn::layer_smem<C>();
   static bool attribute_set = false;
   if (!attribute_set) {
     cudaError_t err = cudaFuncSetAttribute(

@@ -2,9 +2,17 @@
 PyTorch version; a wrapper launches the kernel for a CUDA tensor, runs the
 plain version for a CPU tensor, and counts its launches in ``.launches``."""
 
-from .attention import sliding_window_attention_packed, sliding_window_attention_packed_bwd
+from .attention import (
+    sliding_window_attention,
+    sliding_window_attention_bwd_pallas,
+    sliding_window_attention_packed,
+    sliding_window_attention_packed_bwd,
+    sliding_window_attention_pallas,
+)
 from .resnet_fused import fused_bottleneck_stage
 from .tcn_fused import (
+    dilated_residual_multistack,
+    dilated_residual_multistack_bwd,
     dilated_residual_multistack_stages,
     dilated_residual_multistack_stages_bwd,
     dilated_residual_stack,
@@ -19,6 +27,10 @@ KERNEL_WRAPPERS = (
     dilated_residual_multistack_stages_bwd,
     dilated_residual_stack_bwd,
     fused_bottleneck_stage,
+    dilated_residual_multistack,
+    dilated_residual_multistack_bwd,
+    sliding_window_attention_pallas,
+    sliding_window_attention_bwd_pallas,
 )
 
 

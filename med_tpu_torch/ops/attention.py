@@ -19,6 +19,15 @@ needs a gradient it runs through :class:`_PackedAttention`, whose backward
 :func:`sliding_window_attention_packed_bwd` is the CUDA kernel
 ``csrc/swa_packed_bwd.cu`` on the card and
 :func:`sliding_window_attention_packed_bwd_plain` on the CPU.
+
+The head-major layout, q (H, T, M, dk), k (H, T, dk), v (H, T, dv) -> out
+(H, T, M, dv), is the public op :func:`sliding_window_attention`:
+:func:`sliding_window_attention_pallas` runs ``csrc/swa_headmajor_fwd.cu``
+and :func:`sliding_window_attention_bwd_pallas` runs
+``csrc/swa_headmajor_bwd.cu``, which recomputes the softmax from q, k and v;
+their plain versions are :func:`sliding_window_attention_xla` and
+:func:`sliding_window_attention_bwd_plain`. (The names are the JAX package's,
+whose counterparts these are.)
 """
 
 from __future__ import annotations
@@ -245,3 +254,134 @@ def sliding_window_attention_packed_bwd(q, k, v, g, out, stats, window: int,
 
 
 sliding_window_attention_packed_bwd.launches = 0
+
+
+# --- head-major layout ---------------------------------------------------
+
+def sliding_window_attention_bwd_plain(q, k, v, g, window: int):
+    """Plain PyTorch version of the head-major backward -> (dq, dk, dv), the
+    arithmetic of the TPU kernel: the banded softmax a is recomputed from q,
+    k, v; da = g.v over the window, ds = a * (da - sum(da * a)) / sqrt(dk);
+    the keys' gradients scatter back from the windows and the zero halo's
+    drop."""
+    H, T, M, dk = q.shape
+    W = window
+    scale = 1.0 / math.sqrt(dk)
+    kwin = torch.stack([sliding_windows(x, W) for x in k])        # (H, T, W, dk)
+    vwin = torch.stack([sliding_windows(x, W) for x in v])
+    a = torch.softmax(torch.einsum("htmd,htwd->htmw", q, kwin) * scale, dim=-1)
+    da = torch.einsum("htmd,htwd->htmw", g, vwin)
+    ds = a * (da - (da * a).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.einsum("htmw,htwd->htmd", ds, kwin)
+    dkwin = torch.einsum("htmw,htmd->htwd", ds, q)
+    dvwin = torch.einsum("htmw,htmd->htwd", a, g)
+    # slot w of frame t's window is row t + w of the left-padded keys
+    dk_p = q.new_zeros((H, T + W - 1, dk))
+    dv_p = q.new_zeros((H, T + W - 1, v.shape[-1]))
+    for w in range(W):
+        dk_p[:, w:w + T] += dkwin[:, :, w]
+        dv_p[:, w:w + T] += dvwin[:, :, w]
+    return dq, dk_p[:, W - 1:], dv_p[:, W - 1:]
+
+
+def _check_head_major(q, k, v, g=None) -> None:
+    """Raise unless the tensors have the head-major kernels' shapes, type and
+    layout: the kernels read them where they lie."""
+    if q.dim() != 4 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"head-major attention takes q (H, T, M, d), k and v "
+                         f"(H, T, d); got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    H, T, M, d = q.shape
+    if k.shape != (H, T, d) or v.shape != (H, T, d):
+        raise ValueError(f"head-major attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}: the kernel "
+                         f"takes k and v (H, T, d) with q's head width")
+    if d not in (4, 8, 16, 32):
+        raise ValueError(f"the CUDA kernel takes head widths 4, 8, 16, 32; got {d}")
+    if M > 512:
+        raise ValueError(f"the kernel takes at most 512 queries a frame; got {M}")
+    named = [("q", q), ("k", k), ("v", v)] + ([] if g is None else [("g", g)])
+    for name, t in named:
+        cuda_build.check_operand(name, t, q.device, torch.float32)
+    if g is not None and g.shape != q.shape:
+        raise ValueError(f"g {tuple(g.shape)} does not match q {tuple(q.shape)}")
+
+
+_HM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_HM_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def sliding_window_attention_pallas(q, k, v, window: int) -> torch.Tensor:
+    """Banded local attention in the head-major layout, no gradient. A CUDA
+    tensor goes to the CUDA kernel, one launch that reads q, k, v where they
+    lie (replacing med_tpu/ops/attention.py::_swa_kernel); a CPU tensor to
+    :func:`sliding_window_attention_xla`; any other device raises."""
+    if q.device.type == "cpu":
+        return sliding_window_attention_xla(q, k, v, window)
+    if not q.is_cuda:
+        raise ValueError(f"no head-major attention for device {q.device}")
+    _check_head_major(q, k, v)
+    H, T, M, d = q.shape
+    out = torch.empty_like(q)
+    fn = cuda_build.kernel_function("swa_headmajor_fwd", "swa_headmajor_fwd",
+                                    _HM_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), H, d, T,
+              M, window, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch("swa_headmajor_fwd", "swa_headmajor_fwd", code)
+    sliding_window_attention_pallas.launches += 1
+    return out
+
+
+sliding_window_attention_pallas.launches = 0
+
+
+def sliding_window_attention_bwd_pallas(q, k, v, g, window: int):
+    """Backward of :func:`sliding_window_attention_pallas` from q, k, v and
+    the output cotangent g alone -> (dq, dk, dv), head-major. A CUDA tensor
+    runs the CUDA kernel, one launch, which recomputes the banded softmax
+    (replacing med_tpu/ops/attention.py::_swa_bwd_kernel); a CPU tensor
+    :func:`sliding_window_attention_bwd_plain`; any other device raises."""
+    if q.device.type == "cpu":
+        return sliding_window_attention_bwd_plain(q, k, v, g, window)
+    if not q.is_cuda:
+        raise ValueError(f"no head-major attention backward for device {q.device}")
+    _check_head_major(q, k, v, g)
+    H, T, M, d = q.shape
+    dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = cuda_build.kernel_function("swa_headmajor_bwd", "swa_headmajor_bwd",
+                                    _HM_BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), H, d, T, M, window,
+              torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch("swa_headmajor_bwd", "swa_headmajor_bwd", code)
+    sliding_window_attention_bwd_pallas.launches += 1
+    return dq, dkk, dvv
+
+
+sliding_window_attention_bwd_pallas.launches = 0
+
+
+class _HeadMajorAttention(torch.autograd.Function):
+    """Forward kernel K8 saving (q, k, v), backward kernel K9 (as med_tpu's
+    _swa_pallas_ad)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return sliding_window_attention_pallas(q, k, v, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv = sliding_window_attention_bwd_pallas(
+            *ctx.saved_tensors, g.contiguous(), ctx.window)
+        return dq, dk, dv, None
+
+
+def sliding_window_attention(q, k, v, window: int, use_pallas: bool = True):
+    """The differentiable head-major op: with ``use_pallas`` the hand-written
+    kernels, forward and backward (their plain versions for CPU tensors);
+    without, the gather form under PyTorch's own autograd."""
+    if use_pallas:
+        return _HeadMajorAttention.apply(q, k, v, window)
+    return sliding_window_attention_xla(q, k, v, window)

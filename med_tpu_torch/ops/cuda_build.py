@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
 for Hopper (``sm_90a``) into ``med_tpu_torch/build/lib<name>-<hash>.so`` at
-first use and loaded with ``ctypes``; the hash covers the source and the
-flags, so an edited source builds anew. Nothing here runs at import: the
+first use and loaded with ``ctypes``; the hash covers the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source builds anew. Nothing here runs at import: the
 CPU tests import every module, and the CPU has no ``nvcc``.
 """
 
@@ -21,7 +21,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
 KERNELS = ("swa_packed_fwd", "swa_packed_bwd", "tcn_layer", "tcn_layer_bwd",
-           "resnet_stage")
+           "resnet_stage", "tcn_multistack", "tcn_multistack_bwd",
+           "swa_headmajor_fwd", "swa_headmajor_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 

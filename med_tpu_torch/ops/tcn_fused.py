@@ -16,6 +16,12 @@ h and post-relu y (the TPU kernels' ``save=True`` residuals) and the
 backward walks the layers in reverse: on the card two launches a layer of
 ``csrc/tcn_layer_bwd.cu`` plus one that sums the weight gradients, on the
 CPU the plain loop :func:`_layer_bwd_plain`.
+
+:func:`dilated_residual_multistack` is the same sequence of stacks with the
+weights of all stacks concatenated on the layer axis (w3 (Lt, 3, C, C), ...,
+mask (Lt, T, C)): on the card ``csrc/tcn_multistack.cu`` and
+``csrc/tcn_multistack_bwd.cu`` walk the concatenated operands by offset, so
+nothing is split or joined on the host.
 """
 
 from __future__ import annotations
@@ -376,3 +382,203 @@ def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
 
 
 dilated_residual_multistack_stages_bwd.launches = 0
+
+
+# --- operands concatenated on the layer axis -----------------------------
+
+def _stage_lengths(Lt: int, L0: int, Lr: int) -> List[int]:
+    """Layer counts (L0, Lr, Lr, ...) of the stages that Lt layers make."""
+    if Lt == L0:
+        return [L0]
+    if L0 < 1 or Lr < 1 or Lt < L0 or (Lt - L0) % Lr:
+        raise ValueError(f"{Lt} layers are not stacks of L0={L0}, Lr={Lr}, "
+                         f"Lr, ... layers")
+    return [L0] + [Lr] * ((Lt - L0) // Lr)
+
+
+def _split(t, lengths):
+    return None if t is None else torch.split(t, lengths)
+
+
+def dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0: int, Lr: int, *,
+                                      causal: bool = True, mask=None,
+                                      save: bool = False):
+    """Plain PyTorch version of :func:`dilated_residual_multistack`, stage by
+    stage through :func:`dilated_stack_xla` -> the (S, T, C) stage outputs,
+    and with ``save`` also the (Lt, T, C) layer inputs h and post-relu y."""
+    lengths = _stage_lengths(w3.shape[0], L0, Lr)
+    masks = _split(mask, lengths)
+    ws = list(zip(*(_split(t, lengths) for t in (w3, b3, w1, b1))))
+    outs, saved, h = [], [] if save else None, x
+    for s, (sw3, sb3, sw1, sb1) in enumerate(ws):
+        h = dilated_stack_xla(h, sw3, sb3, sw1, sb1, causal=causal,
+                              mask=None if masks is None else masks[s],
+                              saved=saved)
+        outs.append(h)
+    if save:
+        return (torch.stack(outs), torch.stack([p[0] for p in saved]),
+                torch.stack([p[1] for p in saved]))
+    return torch.stack(outs)
+
+
+def dilated_residual_multistack_bwd_plain(g, h_saved, y_saved, w3, w1, L0: int,
+                                          Lr: int, *, causal: bool = True,
+                                          mask=None):
+    """Plain PyTorch version of :func:`dilated_residual_multistack_bwd`,
+    layer by layer through :func:`_layer_bwd_plain`."""
+    lengths = _stage_lengths(w3.shape[0], L0, Lr)
+    dx, dws = _stages_bwd_plain(g, h_saved, y_saved,
+                                list(zip(_split(w3, lengths), _split(w1, lengths))),
+                                _split(mask, lengths), causal)
+    return (dx, *(torch.cat(t) for t in zip(*dws)))
+
+
+def _check_multistack(T: int, C: int, dev, named, mask) -> int:
+    """Raise unless the concatenated operands (name -> tensor) and the mask
+    have the kernels' types and shapes; returns Lt."""
+    if C not in (8, 16, 32, 64):
+        raise ValueError(f"the CUDA kernel takes 8, 16, 32 or 64 channels; got {C}")
+    Lt = named["w3"].shape[0]
+    shapes = {"x": (T, C), "w3": (Lt, 3, C, C), "b3": (Lt, C), "w1": (Lt, C, C),
+              "b1": (Lt, C), "h_saved": (Lt, T, C), "y_saved": (Lt, T, C)}
+    for name, t in named.items():
+        cuda_build.check_operand(name, t, dev, torch.float32)
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+    if mask is not None:
+        cuda_build.check_operand("mask", mask, dev, torch.uint8)
+        if tuple(mask.shape) != (Lt, T, C):
+            raise ValueError(f"mask has shape {tuple(mask.shape)}, expected "
+                             f"{(Lt, T, C)}")
+    return Lt
+
+
+_MULTI_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+_MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+
+
+def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool,
+                         save: bool):
+    T, C = x.shape
+    dev = x.device
+    Lt = _check_multistack(T, C, dev, dict(x=x, w3=w3, b3=b3, w1=w1, b1=b1), mask)
+    S = len(_stage_lengths(Lt, L0, Lr))
+    f32 = dict(dtype=torch.float32, device=dev)
+    hs = torch.empty((S, T, C), **f32)
+    scratch = torch.empty((2, T, C), **f32)
+    h_saved = torch.empty((Lt, T, C), **f32) if save else None
+    y_saved = torch.empty((Lt, T, C), **f32) if save else None
+    fn = cuda_build.kernel_function("tcn_multistack", "tcn_multistack_fwd",
+                                    _MULTI_ARGTYPES)
+    launched = ctypes.c_int(0)          # raised by the C loop at each launch
+    code = fn(x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
+              b1.data_ptr(), None if mask is None else mask.data_ptr(),
+              hs.data_ptr(), None if not save else h_saved.data_ptr(),
+              None if not save else y_saved.data_ptr(), scratch.data_ptr(),
+              T, C, Lt, L0, max(Lr, 1), int(causal), ctypes.byref(launched),
+              torch.cuda.current_stream(dev).cuda_stream)
+    dilated_residual_multistack.launches += launched.value
+    cuda_build.check_launch("tcn_multistack", "tcn_multistack_fwd", code)
+    return (hs, h_saved, y_saved) if save else hs
+
+
+def _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save):
+    if x.is_cuda:
+        return _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0, Lr, causal, save)
+    if x.device.type != "cpu":
+        raise ValueError(f"no TCN multistack for device {x.device}")
+    return dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0, Lr,
+                                             causal=causal, mask=mask, save=save)
+
+
+def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
+                                    Lr: int, *, causal: bool = True, mask=None):
+    """Backward of :func:`dilated_residual_multistack` from the saved
+    (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
+    stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
+    dw3, db3, dw1, db1) in the concatenated layout, as med_tpu's
+    ``_multi_bwd_call``. A CUDA tensor runs the CUDA kernels, 2 Lt + 1
+    launches made by one C call (replacing
+    med_tpu/ops/tcn_fused.py::_multi_bwd_kernel); a CPU tensor the plain
+    version; any other device raises."""
+    if g.device.type == "cpu":
+        return dilated_residual_multistack_bwd_plain(
+            g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=mask)
+    if not g.is_cuda:
+        raise ValueError(f"no TCN multistack backward for device {g.device}")
+    S, T, C = g.shape
+    dev = g.device
+    Lt = _check_multistack(T, C, dev, dict(g=g, h_saved=h_saved, y_saved=y_saved,
+                                           w3=w3, w1=w1), mask)
+    if S != len(_stage_lengths(Lt, L0, Lr)):
+        raise ValueError(f"g holds {S} stage cotangents; {Lt} layers of "
+                         f"L0={L0}, Lr={Lr} make {len(_stage_lengths(Lt, L0, Lr))}")
+    name = "tcn_multistack_bwd"
+    fn = cuda_build.kernel_function(name, name, _MULTI_BWD_ARGTYPES)
+    chunks = cuda_build.kernel_function(name, "tcn_multistack_wgrad_chunks",
+                                        [ctypes.c_int])(T)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.zeros((T, C), **f32)
+    dz, da = torch.empty((T, C), **f32), torch.empty((T, C), **f32)
+    partial = torch.empty((Lt, chunks, 4 * C * C + 2 * C), **f32)
+    dw3, dw1 = torch.empty((Lt, 3, C, C), **f32), torch.empty((Lt, C, C), **f32)
+    db3, db1 = torch.empty((Lt, C), **f32), torch.empty((Lt, C), **f32)
+    launched = ctypes.c_int(0)
+    code = fn(dx.data_ptr(), g.data_ptr(), h_saved.data_ptr(), y_saved.data_ptr(),
+              w3.data_ptr(), w1.data_ptr(),
+              None if mask is None else mask.data_ptr(), dz.data_ptr(),
+              da.data_ptr(), partial.data_ptr(), dw3.data_ptr(), db3.data_ptr(),
+              dw1.data_ptr(), db1.data_ptr(), T, C, Lt, L0, max(Lr, 1),
+              int(causal), ctypes.byref(launched),
+              torch.cuda.current_stream(dev).cuda_stream)
+    dilated_residual_multistack_bwd.launches += launched.value
+    cuda_build.check_launch(name, name, code)
+    return dx, dw3, db3, dw1, db1
+
+
+dilated_residual_multistack_bwd.launches = 0
+
+
+class _Multistack(torch.autograd.Function):
+    """Saving forward and layer-reverse backward over the concatenated
+    operands (med_tpu's _fused_multi_train / _fused_multi_eval custom VJPs);
+    the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w3, b3, w1, b1, mask, L0, Lr, causal):
+        hs, h_saved, y_saved = _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr,
+                                               causal, save=True)
+        ctx.spec = (L0, Lr, causal)
+        ctx.save_for_backward(h_saved, y_saved, w3, w1, mask)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        L0, Lr, causal = ctx.spec
+        h_saved, y_saved, w3, w1, mask = ctx.saved_tensors
+        grads = dilated_residual_multistack_bwd(g.contiguous(), h_saved, y_saved,
+                                                w3, w1, L0, Lr, causal=causal,
+                                                mask=mask)
+        return (*grads, None, None, None, None)
+
+
+def dilated_residual_multistack(x, w3, b3, w1, b1, L0: int, Lr: int, *,
+                                causal: bool = True, mask=None) -> torch.Tensor:
+    """Stacks of L0, Lr, Lr, ... layers back to back, (T, C) -> the (S, T, C)
+    stage outputs, with the stacks' weights concatenated on the layer axis:
+    w3 (Lt, 3, C, C), b3 (Lt, C), w1 (Lt, C, C), b1 (Lt, C), ``mask`` the
+    (Lt, T, C) uint8 keep-mask or None; layer l uses dilation 2**(its index
+    within its stage). A CUDA tensor runs the CUDA kernel, Lt launches made
+    by one C call (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel); a
+    CPU tensor the plain version; any other device raises. Differentiable
+    through :func:`dilated_residual_multistack_bwd`."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, w3, b3, w1, b1)):
+        return _Multistack.apply(x, w3, b3, w1, b1, mask, L0, Lr, causal)
+    return _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save=False)
+
+
+dilated_residual_multistack.launches = 0

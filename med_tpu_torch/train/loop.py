@@ -10,6 +10,7 @@ frames for both splits (reference modeling_utils.py:1566-1574).
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -20,6 +21,7 @@ from ..config import ExperimentConfig
 from ..data.datasets import FrameTrial, bucket_length, frame_batch
 from ..ops.metrics import metrics_from_cm
 from ..utils.jax_params import export_jax_params
+from .checkpoint import load_train_state, save_train_state
 from .engine import Experiment
 from .optim import epoch_lr, set_lr
 
@@ -66,20 +68,46 @@ def _common_bucket(cfg: ExperimentConfig, trials: List[FrameTrial]) -> Optional[
 
 
 def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
-                     test_trials: List[FrameTrial], device=None) -> Dict[str, Any]:
+                     test_trials: List[FrameTrial], device=None, *, tracker=None,
+                     frozen=None, gates=None, tag: str = "",
+                     exp: Optional[Experiment] = None, resume: bool = False,
+                     mesh=None) -> Dict[str, Any]:
     """Frame-level training of one fold (COG, batch = one trial), on CUDA
     unless ``device="cpu"``. Weights are drawn from ``cfg.seed``; each epoch
     sets its learning rate, visits the training trials in the order of
     ``np.random.default_rng(cfg.seed + epoch)`` and evaluates the test
     trials. Returns {"best", "history", "checkpoint", "exp"}; the checkpoint
-    is the best epoch's tree in med_tpu's layout."""
-    exp = Experiment(cfg, device=device)
+    is the best epoch's tree in med_tpu's layout.
+
+    ``exp``: an :class:`Experiment` shared by all folds of a run (its
+    ``device`` then holds); it is drawn anew from ``cfg.seed`` here.
+    ``tracker``: every epoch's scalar columns are logged to it, and with a
+    ``tag`` the full training state is written to the run's
+    ``last_state_<tag>.npz`` after every epoch. ``resume``: restore that
+    snapshot and go on at the epoch after it; ``best`` starts empty again,
+    as in med_tpu. ``frozen``, ``gates`` and ``mesh`` belong to families and
+    layouts the port does not have yet."""
+    for name, value, item in (("frozen", frozen, "A6 (other frame families)"),
+                              ("gates", gates, "A6 (other frame families)"),
+                              ("mesh", mesh, "A12 (multi-GPU)")):
+        if value is not None:
+            raise NotImplementedError(
+                f"train_frame_fold({name}=...) is not ported yet: ROADMAP.md "
+                f"Queue {item}")
+    exp = exp or Experiment(cfg, device=device)
     exp.init_weights(cfg.seed)
     average = _average_for(cfg)
     bucket = _common_bucket(cfg, train_trials + test_trials) or 256
 
+    start_epoch = 0
+    resume_path = (tracker.checkpoint_path(f"last_state_{tag}.npz")
+                   if tracker and tag else None)
+    if resume and resume_path and os.path.exists(resume_path):
+        start_epoch = load_train_state(resume_path, exp)
+        print(f"[{tag}] resumed at epoch {start_epoch}")
+
     best, best_ckpt, history = None, None, []
-    for epoch in range(cfg.n_epochs):
+    for epoch in range(start_epoch, cfg.n_epochs):
         set_lr(exp.optimizer, epoch_lr(cfg, epoch))
         t0 = time.time()
         order = np.random.default_rng(cfg.seed + epoch).permutation(len(train_trials))
@@ -102,11 +130,16 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
             **{f"test_{k}": v for k, v in ev["metrics"].items()},
         }
         history.append(row)
+        if tracker:
+            tracker.log_metrics({k: v for k, v in row.items() if np.isscalar(v)},
+                                step=epoch)
         if _better(cfg, row, best):
             best = dict(row)
             best.update({k: ev[k] for k in ("preds", "probs", "labels", "raw_labels",
                                             "gestures", "subjects", "cm")})
             best_ckpt = {**export_jax_params(exp.net), "batch_stats": {}}
+        if resume_path:
+            save_train_state(resume_path, exp, epoch)
     return {"best": best, "history": history, "checkpoint": best_ckpt, "exp": exp}
 
 

@@ -150,8 +150,10 @@ def export_jax_params(net: nn.Module, grads: bool = False) -> Dict:
                 continue
             p = params[key]
             value = p.grad if p.grad is not None else torch.zeros_like(p)
-        flat[path] = np.ascontiguousarray(to_flax(value.detach().cpu().numpy()))
+        # a copy: on the CPU .numpy() shares the parameter's memory, which the
+        # optimiser's next step overwrites in place
+        flat[path] = np.array(to_flax(value.detach().cpu().numpy()), order="C")
     if not grads:
         for name, path in _constant_table(net).items():
-            flat[path] = net.get_buffer(name).detach().cpu().numpy()
+            flat[path] = net.get_buffer(name).detach().cpu().numpy().copy()
     return unflatten_tree(flat)

@@ -8,13 +8,16 @@ JAX, so it runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerance: rtol 1e-4, atol 1e-5 for the attention (values O(1)); atol 1e-4
-for the TCN stacks, whose activations grow over the layers. The ResNet
+for the TCN stacks, whose activations grow over the layers (the same for the
+concatenated multistack and the head-major attention). The ResNet
 stage kernel: relative L2 and max error over the largest value within 1e-5
 in float32, and in bfloat16 within 2**-7 and 2**-5 (a sum taken in another
 order may round a y1 or y2 value the other way, one bf16 step). Gradients:
 rtol 1e-4, atol 1e-5 * max|want| per tensor (weight gradients are sums over
 T, taken in another order).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,6 +47,13 @@ def rng():
 
 def _dev(a, device):
     return torch.as_tensor(a, device=device)
+
+
+# COG calls the packed attention and the per-stage multistack: the kernels of
+# the public op entry points stay idle on its path
+OP_API_IDLE = {"dilated_residual_multistack": 0, "dilated_residual_multistack_bwd": 0,
+               "sliding_window_attention_pallas": 0,
+               "sliding_window_attention_bwd_pallas": 0}
 
 
 @pytest.mark.parametrize("H,d,m,W,T", [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41),
@@ -140,7 +150,8 @@ def test_small_cog_serves_the_same_on_card_and_cpu(cuda_device, rng):
     np.testing.assert_allclose(got_pr, want_pr, rtol=0, atol=1e-5)
     np.testing.assert_array_equal(got_p[np.abs(want_pr - 0.5) > 1e-5],
                                   want_p[np.abs(want_pr - 0.5) > 1e-5])
-    assert counts == {"sliding_window_attention_packed": 2,
+    assert counts == {**OP_API_IDLE,
+                      "sliding_window_attention_packed": 2,
                       "dilated_residual_multistack_stages": 4 + 2 * 3,
                       "dilated_residual_stack": 4 + 2 * 3,
                       "sliding_window_attention_packed_bwd": 0,
@@ -289,6 +300,7 @@ def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
     exp.train_step(batch)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
+        **OP_API_IDLE,
         "sliding_window_attention_packed": 2,
         "dilated_residual_multistack_stages": 4 + 2 * 3,
         "dilated_residual_stack": 4 + 2 * 3,
@@ -398,3 +410,147 @@ def test_small_trunk_and_pixel_front_end_same_on_card_and_cpu(cuda_device, rng):
                            device=dev).features(frames)
              for dev in (cuda_device, "cpu")]
     assert np.linalg.norm(feats[0] - feats[1]) <= 1e-5 * np.linalg.norm(feats[1])
+
+
+# --- the concatenated multistack (K6, K7) and head-major attention (K8, K9) ---
+
+def _multistack_inputs(rng, C, T, L0, Lr, S, device):
+    Lt = L0 + Lr * (S - 1)
+    x = _dev(rng.normal(size=(T, C)).astype(np.float32), device)
+    return (x, *_stack(rng, Lt, T, C, device))
+
+
+@pytest.mark.parametrize("C,T,L0,Lr,S", [(64, 257, 11, 10, 4), (8, 33, 3, 2, 3),
+                                         (16, 64, 4, 4, 1), (32, 300, 2, 5, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_concatenated_multistack_kernels_match_plain(cuda_device, rng, C, T, L0, Lr,
+                                                     S, causal, use_mask):
+    """K6 (plain and saving) and K7 against their plain versions, and
+    autograd through the dispatcher equal to the direct backward call."""
+    x, w3, b3, w1, b1, mask = _multistack_inputs(rng, C, T, L0, Lr, S, cuda_device)
+    Lt = w3.shape[0]
+    m = mask if use_mask else None
+    fwd, bwd = ttcn.dilated_residual_multistack, ttcn.dilated_residual_multistack_bwd
+    before = fwd.launches
+    got = fwd(x, w3, b3, w1, b1, L0, Lr, causal=causal, mask=m)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + Lt
+    want, want_h, want_y = ttcn.dilated_residual_multistack_plain(
+        x, w3, b3, w1, b1, L0, Lr, causal=causal, mask=m, save=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    hs, h_saved, y_saved = ttcn._multistack_fwd(x, w3, b3, w1, b1, m, L0, Lr, causal,
+                                                save=True)
+    torch.testing.assert_close(hs, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h_saved, want_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y_saved, want_y, rtol=1e-4, atol=1e-4)
+    g = _dev(rng.normal(size=(S, T, C)).astype(np.float32), cuda_device)
+    before = bwd.launches
+    grads = bwd(g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=m)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2 * Lt + 1
+    want_grads = ttcn.dilated_residual_multistack_bwd_plain(
+        g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=m)
+    for a, b in zip(grads, want_grads):
+        _close_grad(a, b)
+    leaves = [t.clone().requires_grad_() for t in (x, w3, b3, w1, b1)]
+    auto = torch.autograd.grad(fwd(*leaves, L0, Lr, causal=causal, mask=m), leaves, g)
+    for a, b in zip(auto, grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("H,d,m,W,T", [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41),
+                                       (3, 16, 1, 7, 300), (1, 32, 300, 3, 5),
+                                       (8, 8, 15, 30, 1024)])
+def test_head_major_attention_kernels_match_plain(cuda_device, rng, H, d, m, W, T):
+    """K8 and K9 against their plain versions, and autograd through the
+    dispatcher equal to the direct calls."""
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d)))
+    fwd, bwd = tatt.sliding_window_attention_pallas, tatt.sliding_window_attention_bwd_pallas
+    counts = fwd.launches, bwd.launches
+    out = fwd(q, k, v, W)
+    grads = bwd(q, k, v, g, W)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    torch.testing.assert_close(out, tatt.sliding_window_attention_xla(q, k, v, W),
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(grads, tatt.sliding_window_attention_bwd_plain(q, k, v, g, W)):
+        _close_grad(a, b)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(tatt.sliding_window_attention(*leaves, W), leaves, g)
+    for a, b in zip(auto, grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    plain = torch.autograd.grad(
+        tatt.sliding_window_attention(*leaves, W, use_pallas=False), leaves, g)
+    for a, b in zip(auto, plain):
+        _close_grad(a, b)
+
+
+def test_new_kernels_reject_inputs_they_do_not_take(cuda_device, rng):
+    q = torch.zeros(2, 10, 3, 8, device=cuda_device)
+    k = torch.zeros(2, 10, 8, device=cuda_device)
+    with pytest.raises(ValueError):
+        tatt.sliding_window_attention_pallas(q, k[:, :9], k[:, :9], 5)      # T differs
+    with pytest.raises(ValueError):
+        tatt.sliding_window_attention_pallas(q.double(), k.double(), k.double(), 5)
+    with pytest.raises(ValueError):
+        tatt.sliding_window_attention_pallas(q, k.cpu(), k, 5)
+    with pytest.raises(ValueError):
+        tatt.sliding_window_attention_pallas(q.transpose(1, 2), k, k, 5)   # not contiguous
+    with pytest.raises(ValueError):
+        tatt.sliding_window_attention_bwd_pallas(q, k, k, q[:, :, :2], 5)  # g's shape
+    x, w3, b3, w1, b1, mask = _multistack_inputs(rng, 8, 16, 3, 2, 2, cuda_device)
+    with pytest.raises(ValueError):
+        ttcn.dilated_residual_multistack(x, w3, b3, w1, b1, 3, 3)          # 5 != 3 + 3n
+    with pytest.raises(ValueError):
+        ttcn.dilated_residual_multistack(x, w3, b3.cpu(), w1, b1, 3, 2)
+    with pytest.raises(ValueError):
+        ttcn.dilated_residual_multistack(x, w3, b3, w1, b1, 3, 2, mask=mask.float())
+    with pytest.raises(ValueError):
+        ttcn.dilated_residual_multistack(x, w3[:, :, :, :4], b3, w1, b1, 3, 2)
+
+
+def test_small_cli_run_on_the_card_equals_its_cpu_run(cuda_device, rng, tmp_path):
+    """The fold driver's command line at a small size, one epoch, on the card
+    and with --device cpu: the same files, test probabilities within 1e-4
+    (dropout masks are drawn on each device from its own generator, so only
+    the untrained forward is compared: lr 0)."""
+    from med_tpu_torch.cli import train_frame
+    from med_tpu_torch.data.trials import (Trial, compute_fold_stats, load_fold,
+                                           save_fold_stats, save_trial_npz)
+
+    fold = tmp_path / "data" / "1Out"
+    fold.mkdir(parents=True)
+    names = [f"Needle_Passing_{'BCD'[i]}00{i + 1}" for i in range(3)]
+    for name in names:
+        T = 140
+        e = np.zeros((T, 5), np.int64)
+        e[:, 4] = np.repeat(rng.integers(0, 2, T // 10), 10)
+        e[:, 2] = e[:, 4]
+        save_trial_npz(str(fold / f"{name}.npz"), Trial(
+            name, rng.normal(size=(T, 2048)).astype(np.float32),
+            rng.normal(size=(T, 26)).astype(np.float32),
+            np.repeat(rng.integers(1, 6, T // 20), 20), e))
+    (fold / "train.csv").write_text("\n".join(n + ".npz" for n in names[:2]))
+    (fold / "test.csv").write_text(names[2] + ".npz")
+    img, kin, _, _, _ = load_fold(str(fold), "train.csv")
+    save_fold_stats(str(fold), compute_fold_stats(img, kin))
+    argv = ["--model-name", "COG", "--data-type", "multimodal",
+            "--data-root", str(tmp_path / "data"), "--folds", "1Out",
+            "--num-layers-basic", "2", "--num-layers-r", "2", "--num-r", "1",
+            "--mstcn-f-maps", "32", "--d-model", "32", "--d-q", "4",
+            "--sequence-length", "6", "--n-epochs", "1", "--lr", "0"]
+    ops.reset_launch_counts()
+    card, card_run = train_frame.main([*argv, "--runs-root", str(tmp_path / "card")])
+    counts = ops.launch_counts()
+    cpu, cpu_run = train_frame.main([*argv, "--runs-root", str(tmp_path / "cpu"),
+                                     "--device", "cpu"])
+    assert ops.launch_counts() == counts           # the CPU run launched nothing
+    assert counts["sliding_window_attention_packed"] == 2 * 3
+    assert counts["sliding_window_attention_packed_bwd"] == 2 * 2
+    assert counts["dilated_residual_multistack_stages_bwd"] == 2 * (2 * 4 + 1)
+    np.testing.assert_allclose(card["1Out"]["probs"], cpu["1Out"]["probs"], rtol=0, atol=1e-4)
+    listing = [sorted(str(f.relative_to(r.dir)) for f in Path(r.dir).rglob("*")
+                      if f.is_file()) for r in (card_run, cpu_run)]
+    assert listing[0] == listing[1] and len(listing[0]) == 8

@@ -33,7 +33,9 @@ def test_port_imports_no_jax_and_no_med_tpu():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("eval.serving", "utils.jax_params", "train.loop", "train.losses",
                  "train.optim", "ops.metrics", "data.preprocessing", "models.resnet",
-                 "ops.resnet_fused"):
+                 "ops.resnet_fused", "cli.common", "cli.train_frame", "tracking",
+                 "data.trials", "data.windowing", "eval.summary", "eval.rollup",
+                 "utils.torch_port"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 

@@ -352,11 +352,37 @@ def test_training_entry_points_need_cuda_unless_asked_for_cpu(rng):
         train_frame_fold(cfg, [_trial(rng, 20)], [_trial(rng, 20)])
 
 
-@pytest.mark.parametrize("option, roadmap", [({"trial_batch": 2}, "A6"),
-                                             ({"pos_weight": True}, "A5")])
+@pytest.mark.parametrize("option, roadmap", [({"trial_batch": 2}, "A6")])
 def test_unported_training_options_raise(option, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         ExperimentConfig(**{**SMALL, **option})
+
+
+def test_pos_weight_changes_nothing_on_the_frame_path_as_in_jax(rng):
+    """med_tpu's frame driver never hands the loss its class counts, so with
+    pos_weight=True it trains the unweighted loss; the port takes the flag
+    and gives the same numbers: the JAX step with pos_weight=True, and its
+    own step with pos_weight=False bit for bit."""
+    cfg = ExperimentConfig(**{**SMALL, "pos_weight": True})
+    jcfg = JaxConfig(**{**SMALL, "pos_weight": True})
+    batch = frame_batch(_trial(rng, 40), cfg, bucket=64)
+    masks = _masks(rng, cfg, 64)
+    port_masks = {n: {k: torch.from_numpy(v) for k, v in d.items()} for n, d in masks.items()}
+    results = []
+    for c in (cfg, cfg.replace(pos_weight=False)):
+        exp = Experiment(c, device="cpu")
+        exp.init_weights(3)
+        tree = export_jax_params(exp.net)
+        m = exp.train_step(batch, masks=port_masks)
+        results.append((m["loss"], _leaves(export_jax_params(exp.net)["params"])))
+    want_loss, want_m, _, want_params = _jax_train_step(jcfg, tree, batch, masks)
+    (loss, params), (loss_off, params_off) = results
+    _close(loss, want_loss, "loss")
+    for path, w in _leaves(jax.device_get(want_params)).items():
+        np.testing.assert_allclose(params[path], w, rtol=0, atol=1e-2 * cfg.lr, err_msg=path)
+    assert loss.item() == loss_off.item()
+    for path, w in params_off.items():
+        np.testing.assert_array_equal(params[path], w, err_msg=path)
 
 
 def test_cpu_training_launches_no_kernel(rng):
