@@ -43,11 +43,15 @@ non-zero and the last line is not printed:
    frames, saved as a ``med_tpu`` fine-tune checkpoint
    (``resnet50_1Out.npz`` + meta) and loaded through
    ``PixelFrontEnd.from_checkpoint``: K10 (the bottleneck-stage kernel)
-   against its plain version on stages 0 and 1 at B = 128 in bf16 and B = 8
-   in fp32, with its time, bound, launches and, as a yardstick, the same
-   blocks on the module path (cuDNN); ``resnet50_fused_apply`` (K10's
-   entry point, launches counted) against the module trunk at B = 128 in
-   bf16, and its time with the trunk folded once and folded every call;
+   against its plain version on stages 0 and 1 at B = 128 in bf16 (tensor
+   cores) and B = 8 in fp32 (CUDA cores), per stage and in total: its time,
+   TFLOP/s, the ops bound and the three-launch bytes floor with the share
+   of each, launches by instance (16-byte or guarded) and, as a yardstick,
+   the same blocks on the module path (cuDNN); with ``--profile``, device
+   time by launch kind (reduce, 3x3, expand); ``resnet50_fused_apply``
+   (K10's entry point, launches counted) against the module trunk at B =
+   128 in bf16, the two timed in turns (A/B), the fp32 B = 8 pair beside
+   them, and the fused trunk folded every call;
    the fp32 trunk and the ImageNet resize path (480x640 frames) on the
    card against the CPU; then a T = 300 raw-frame request through
    ``FrameModelServer.predict_trial_from_pixels`` (``PixelFrontEnd``'s
@@ -1093,7 +1097,8 @@ def _stage_case(stage: int, x, Wr: int, variables, net, dtype):
     blocks, and the bound for the work."""
     from med_tpu_torch import ops
     from med_tpu_torch.ops.resnet_fused import (
-        fold_bottleneck_params, fused_bottleneck_stage, fused_bottleneck_stage_plain)
+        fold_bottleneck_params, fused_bottleneck_stage, fused_bottleneck_stage_plain,
+        stage_work)
 
     names = [f"layer{stage + 1}_{b}" for b in range(0 if stage == 0 else 1,
                                                      TRUNK["stage_sizes"][stage])]
@@ -1104,8 +1109,10 @@ def _stage_case(stage: int, x, Wr: int, variables, net, dtype):
     plain = lambda: fused_bottleneck_stage_plain(x, blocks, Wr=Wr, dtype=dtype)  # noqa: E731
     B, HW, _ = x.shape
     ops.reset_launch_counts()
+    before = dict(fused_bottleneck_stage.instances)
     got = run()
     torch.cuda.synchronize()
+    instances = _instances_since(before)
     if ops.launch_counts()["fused_bottleneck_stage"] != 3 * len(blocks):
         raise RuntimeError(f"stage {stage}: {ops.launch_counts()} launches, "
                            f"expected 3 per block")
@@ -1127,21 +1134,69 @@ def _stage_case(stage: int, x, Wr: int, variables, net, dtype):
             y = getattr(net, n)(y)
         return y
 
-    size = torch.finfo(dtype).bits // 8
-    flops = nbytes = 0
-    for blk in blocks:
-        (cin, f), proj = blk["w1"].shape, "wd" in blk
-        flops += 2 * B * HW * (cin * f + 9 * f * f + 4 * f * f + (cin * 4 * f if proj else 0))
-        nbytes += size * sum(v.numel() for k, v in blk.items() if k[0] == "w")
-        nbytes += 4 * sum(v.numel() for k, v in blk.items() if k[0] == "c")
-    nbytes += size * (x.numel() + got.numel())
-    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                       else PEAK_FP32_FLOPS)
+    work = stage_work(B, HW, [(*blk["w1"].shape, "wd" in blk) for blk in blocks],
+                      torch.finfo(dtype).bits // 8)
+    peak_flops = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    b_ms, b_by = bound(work["bytes"], work["flops"], peak_flops)
     with torch.no_grad():
         cudnn_ms = cuda_ms(module, 10)
     return dict(max_abs_err=err.max().item(), rel=rel, peak=peak, blocks=len(blocks),
                 ms=cuda_ms(run, 5), plain_ms=cuda_ms(plain, 2), cudnn_ms=cudnn_ms,
-                bound_ms=b_ms, bound_by=b_by, flops=flops, nbytes=nbytes)
+                bound_ms=b_ms, bound_by=b_by, floor_ms=work["floor_bytes"] / PEAK_BYTES * 1e3,
+                flops=work["flops"], nbytes=work["bytes"], work=work, run=run,
+                peak_flops=peak_flops, instances=instances)
+
+
+def _instances_since(before: dict) -> dict:
+    """K10 launches by instance (16-byte, guarded, fp32) since ``before``."""
+    from med_tpu_torch.ops.resnet_fused import fused_bottleneck_stage
+
+    now = fused_bottleneck_stage.instances
+    return {k: v - before.get(k, 0) for k, v in now.items() if v - before.get(k, 0)}
+
+
+def _k10_summary(label: str, ms: float, flops: float, bound_ms: float, floor_ms: float,
+                 peak_flops: float) -> str:
+    return (f"{label}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s; ops bound "
+            f"{flops / peak_flops * 1e3:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / ms:.1f}% of the time), three-launch bytes floor "
+            f"{floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%)")
+
+
+def _profile_k10_instances(cases) -> None:
+    """Device time of K10's bf16 launches by template instance (reduce, 3x3,
+    expand) over one run of each stage, beside each launch kind's bytes and
+    ops times: which launch sets the pace."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for r in cases:
+        r["run"]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in cases:
+            r["run"]()
+        torch.cuda.synchronize()
+    names = ("reduce", "conv3", "expand")
+    by_mode = {}
+    for e in prof.key_averages():
+        hit = re.search(r"stage_mma_kernel<(\d+), (\d+), (true|false)>", e.key)
+        if e.device_type != DeviceType.CUDA or hit is None:
+            continue
+        mode, bn, aligned = names[int(hit[1])], hit[2], hit[3] == "true"
+        log(f"[profile] K10 {mode} BN={bn} {'16-byte' if aligned else 'guarded'}: "
+            f"{e.self_device_time_total / 1e3:.4f} ms over x{e.count}")
+        by_mode[mode] = by_mode.get(mode, 0.0) + e.self_device_time_total / 1e3
+    for mode in names:
+        w = {k: sum(r["work"]["launches"][mode][k] for r in cases) for k in ("flops", "bytes")}
+        t_bytes, t_ops = w["bytes"] / PEAK_BYTES * 1e3, w["flops"] / PEAK_BF16_FLOPS * 1e3
+        ms = by_mode.get(mode, float("nan"))
+        log(f"[profile] K10 {mode} launches, stages 0+1: {ms:.4f} ms of device time; bytes "
+            f"{t_bytes:.4f} ms, ops {t_ops:.4f} ms: {'bytes' if t_bytes >= t_ops else 'ops'} "
+            f"side, {100 * max(t_bytes, t_ops) / ms:.1f}% of the time; "
+            f"{w['flops'] / ms / 1e9:.1f} TFLOP/s, {w['bytes'] / ms / 1e6:.1f} GB/s")
 
 
 def _tree_to(tree, device):
@@ -1155,7 +1210,8 @@ def phase_pixels(profile: bool):
     from med_tpu_torch import ops
     from med_tpu_torch.data.preprocessing import preprocess_frames
     from med_tpu_torch.eval.serving import FrameModelServer, PixelFrontEnd
-    from med_tpu_torch.ops.resnet_fused import fold_trunk, resnet50_fused_apply
+    from med_tpu_torch.ops.resnet_fused import (
+        fold_trunk, fused_bottleneck_stage, resnet50_fused_apply)
     from med_tpu_torch.train.checkpoint import load_checkpoint
 
     rng = np.random.default_rng(SEED + 1)
@@ -1187,19 +1243,29 @@ def phase_pixels(profile: bool):
             log(f"[pixels] K10 stage {stage} ({r['blocks']} blocks, {xs.shape[1]} pixels x "
                 f"{xs.shape[2]} channels) {str(dtype)[6:]} B={B}: relative L2 {r['rel']:.3e}, "
                 f"max error {r['peak']:.3e} of the largest value (tol {STAGE_TOL[dtype]}); "
-                f"kernel {r['ms']:.4f} ms ({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), "
-                f"plain {r['plain_ms']:.4f} ms, module path (cuDNN) {r['cudnn_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {r['flops'] / 1e9:.1f} "
-                f"GFLOP, {r['nbytes'] / 1e6:.1f} MB), library none")
+                f"launches by instance {r['instances']}; plain {r['plain_ms']:.4f} ms, module "
+                f"path (cuDNN) {r['cudnn_ms']:.4f} ms; bound by {r['bound_by']} "
+                f"({r['flops'] / 1e9:.1f} GFLOP, {r['nbytes'] / 1e6:.1f} MB; three-launch "
+                f"floor {r['work']['floor_bytes'] / 1e6:.1f} MB), library none")
+            log("[pixels]   " + _k10_summary("kernel", r["ms"], r["flops"], r["bound_ms"],
+                                              r["floor_ms"], r["peak_flops"]))
+        total = {k: sum(cases[(dtype, s)][k] for s in inputs)
+                 for k in ("ms", "flops", "bound_ms", "floor_ms", "cudnn_ms")}
+        log(f"[pixels] K10 stages 0+1 {str(dtype)[6:]} B={B}: " + _k10_summary(
+            "kernel", total["ms"], total["flops"], total["bound_ms"], total["floor_ms"],
+            cases[(dtype, 0)]["peak_flops"]) + f"; module path (cuDNN) {total['cudnn_ms']:.4f} "
+            f"ms, kernel / cuDNN {total['ms'] / total['cudnn_ms']:.3f}")
 
     stage_sizes = TRUNK["stage_sizes"]
     fused = lambda t, v: resnet50_fused_apply(v, t, stage_sizes=stage_sizes)  # noqa: E731
     with torch.no_grad():
         # K10's path: the fused-trunk entry point on one 128-frame batch
         ops.reset_launch_counts()
+        before = dict(fused_bottleneck_stage.instances)
         got = fused(x, folded[bf16])
         torch.cuda.synchronize()
         apply_counts = ops.launch_counts()
+        apply_instances = _instances_since(before)
         # three a stride-1 block: all of stage 0's, all but the first of stage 1's
         design = {**forward_launches(0), **backward_launches(0),
                   "fused_bottleneck_stage": 3 * (stage_sizes[0] + stage_sizes[1] - 1)}
@@ -1215,9 +1281,16 @@ def phase_pixels(profile: bool):
         moved = fp32.net(small + 1e-6 * torch.linalg.norm(small) / torch.linalg.norm(noise)
                          * noise)
         tree_dev = _tree_to(tree, "cuda")
-        trunk_ms = {"module": cuda_ms(lambda: module.net(x), 5),
-                    "fused, folded once": cuda_ms(lambda: fused(x, folded[bf16]), 3),
-                    "fused, folded every call": cuda_ms(lambda: fused(x, tree_dev), 3)}
+        # the A/B in turns (module, fused, fused, module), each mean of the two
+        ab = {"module": lambda: module.net(x), "fused, folded once": lambda: fused(x, folded[bf16])}
+        turns = [(k, cuda_ms(ab[k], 5)) for k in ("module", "fused, folded once",
+                                                  "fused, folded once", "module")]
+        trunk_ms = {k: statistics.mean(ms for name, ms in turns if name == k) for k in ab}
+        trunk_ms["fused, folded every call"] = cuda_ms(lambda: fused(x, tree_dev), 3)
+        fp32_ms = {"module": cuda_ms(lambda: fp32.net(small), 5),
+                   "fused, folded once": cuda_ms(lambda: resnet50_fused_apply(
+                       folded[torch.float32], small, stage_sizes=stage_sizes,
+                       dtype=torch.float32), 5)}
 
     def rel(a, b):
         a, b = a.float().cpu(), b.float().cpu()
@@ -1235,7 +1308,7 @@ def phase_pixels(profile: bool):
         f"(tol {TRUNK_TOL['fused_vs_module_bf16']} each); fp32 B={FP32_BATCH} fused vs "
         f"module {errs['fused_vs_module_fp32']:.3e}, card (TF32 off) vs CPU "
         f"{errs['card_vs_cpu_fp32']:.3e} (tol {TRUNK_TOL['card_vs_cpu_fp32']} each); "
-        f"{apply_launches} K10 launches a batch")
+        f"{apply_launches} K10 launches a batch, by instance {apply_instances}")
     log(f"[pixels] trunk gain (fp32, B={FP32_BATCH}): a 1e-6 relative change of the input "
         f"moves the pooled features by {rel(moved, exact[:FP32_BATCH]):.3e}")
     for key, err in errs.items():
@@ -1244,6 +1317,12 @@ def phase_pixels(profile: bool):
     for name, ms in trunk_ms.items():
         log(f"[pixels] trunk {name} bf16 B={TRUNK_BATCH}: {ms:.3f} ms a batch, "
             f"{TRUNK_BATCH / ms * 1e3:.0f} frames/s (CUDA events over back-to-back calls)")
+    diff = trunk_ms["fused, folded once"] - trunk_ms["module"]
+    log(f"[pixels] trunk A/B bf16 B={TRUNK_BATCH} (turns module, fused, fused, module: "
+        f"{', '.join(f'{ms:.3f}' for _, ms in turns)} ms): fused folded once minus module "
+        f"{diff:+.3f} ms ({trunk_ms['fused, folded once'] / trunk_ms['module']:.3f}x); fp32 "
+        f"B={FP32_BATCH}: fused folded once {fp32_ms['fused, folded once']:.3f} ms, module "
+        f"{fp32_ms['module']:.3f} ms")
     raw = rng.integers(0, 256, (IMAGENET_FRAMES, *JIGSAWS_FRAME, 3), np.uint8)
     pre = preprocess_frames(torch.from_numpy(raw).cuda()).cpu()
     err = (pre - preprocess_frames(torch.from_numpy(raw))).abs().max().item()
@@ -1291,11 +1370,14 @@ def phase_pixels(profile: bool):
         with torch.no_grad():
             _profile(f"resnet50_fused_apply bf16 B={TRUNK_BATCH}, folded once",
                      lambda: fused(x, folded[bf16]))
+            _profile_k10_instances([cases[(bf16, s)] for s in (0, 1)])
     stages = [cases[(bf16, s)] for s in (0, 1)]
-    kernel = {k: sum(r[k] for r in stages) for k in ("ms", "plain_ms", "bound_ms", "cudnn_ms")}
+    kernel = {k: sum(r[k] for r in stages)
+              for k in ("ms", "plain_ms", "bound_ms", "cudnn_ms")}
     kernel.update(max_abs_err=max(r["max_abs_err"] for r in stages),
                   bound_by=stages[0]["bound_by"], library_ms=None,
-                  ms_fp32_b8=sum(cases[(torch.float32, s)]["ms"] for s in (0, 1)))
+                  ms_fp32_b8=sum(cases[(torch.float32, s)]["ms"] for s in (0, 1)),
+                  instances_fused_trunk=apply_instances)
     return apply_counts, launches, kernel
 
 

@@ -10,9 +10,10 @@ activations NHWC, a stage's activation as (B, H*W, C) rows.
 
 :func:`fused_bottleneck_stage` runs a stage's stride-1 blocks. On a CUDA
 tensor it launches the hand-written kernel ``csrc/resnet_stage.cu`` three
-times a block (1x1 reduce, 3x3, 1x1 expand with the residual); on a CPU
-tensor it runs the plain version :func:`fused_bottleneck_stage_plain`, which
-rounds at the same points. :func:`resnet50_fused_apply` stitches the stem,
+times a block (1x1 reduce, 3x3, 1x1 expand with the residual; bf16 on the
+tensor cores, fp32 on the CUDA cores); on a CPU tensor it runs the plain
+version :func:`fused_bottleneck_stage_plain`, which rounds at the same
+points. :func:`stage_work` counts its work from shapes. :func:`resnet50_fused_apply` stitches the stem,
 the max-pool and the stride-2 blocks (``F.conv2d``; XLA convs in the JAX
 package) with the fused stages into the trunk's forward; it takes the tree
 or the tree folded once by :func:`fold_trunk`.
@@ -114,9 +115,17 @@ def fused_bottleneck_stage_plain(x, blocks: Sequence[Dict[str, Any]], *, Wr: int
 
 
 _ARGTYPES = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-    + [ctypes.c_void_p]
-_MAX_ROWS = 65535 * 128   # the kernel's grid covers 128 rows a block in y
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+# the instance codes resnet_stage_gemm reports: the float CUDA-core kernel,
+# the bf16 tensor-core kernel staging 16-byte cp.async copies, or guarded
+# 2-byte loads
+INSTANCES = ("fp32", "bf16 16-byte", "bf16 guarded")
+_FP32_MAX_ROWS = 65535 * 128   # the float kernel's grid covers 128 rows a block in y
 _REDUCE, _CONV3, _EXPAND = 0, 1, 2
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _stage_cuda(x, blocks, Wr: int, dtype, counter) -> torch.Tensor:
@@ -126,8 +135,8 @@ def _stage_cuda(x, blocks, Wr: int, dtype, counter) -> torch.Tensor:
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16; got {dtype}")
     B, HW, _ = x.shape
     M, H, dev = B * HW, HW // Wr, x.device
-    if M > _MAX_ROWS:
-        raise ValueError(f"{M} rows exceed the kernel's grid ({_MAX_ROWS})")
+    if dtype == torch.float32 and M > _FP32_MAX_ROWS:
+        raise ValueError(f"{M} rows exceed the float kernel's grid ({_FP32_MAX_ROWS})")
     x = x.to(dtype).contiguous()
     fn = cuda_build.kernel_function("resnet_stage", "resnet_stage_gemm", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -140,13 +149,13 @@ def _stage_cuda(x, blocks, Wr: int, dtype, counter) -> torch.Tensor:
             if t is not None:
                 cuda_build.check_operand(name, t, dev, want)
         N = out.shape[-1]
-        code = fn(mode, is_bf16, a0.data_ptr(), None if a1 is None else a1.data_ptr(),
-                  b0.data_ptr(), None if b1 is None else b1.data_ptr(), c0.data_ptr(),
-                  None if c1 is None else c1.data_ptr(),
-                  None if res is None else res.data_ptr(), out.data_ptr(),
-                  M, N, K0, K1, H, Wr, stream)
+        ptrs = [_ptr(t) for t in (a0, a1, b0, b1, c0, c1, res, out)]
+        taken = ctypes.c_int(-1)
+        code = fn(mode, is_bf16, *ptrs, M, N, K0, K1, H, Wr, ctypes.byref(taken), stream)
         cuda_build.check_launch("resnet_stage", "resnet_stage_gemm", code)
         counter.launches += 1
+        instance = INSTANCES[taken.value]
+        counter.instances[instance] = counter.instances.get(instance, 0) + 1
 
     for blk in blocks:
         cin, f = blk["w1"].shape
@@ -196,6 +205,37 @@ def fused_bottleneck_stage(x, blocks: Sequence[Dict[str, Any]], *, Wr: int,
 
 
 fused_bottleneck_stage.launches = 0
+fused_bottleneck_stage.instances = {}   # launches by INSTANCES name; read as a difference
+
+
+def stage_work(B: int, HW: int, blocks: Sequence, itemsize: int = 2) -> Dict[str, Any]:
+    """The work of :func:`fused_bottleneck_stage` on B images of HW pixels,
+    from shapes alone. ``blocks`` is one (Cin, f, projection) per block;
+    ``itemsize`` the working dtype's bytes (biases are fp32).
+
+    Returns ``flops`` (2 a multiply-add); ``bytes``, what the stage must move
+    at least: its input and output and every operand once (the ops bound's
+    bytes); ``floor_bytes``, what the kernel's three launches a block move
+    when each reads its inputs and writes its output once (y1 and y2 go
+    through device memory); and ``launches``: {"reduce", "conv3", "expand"}
+    -> {"flops", "bytes"} summed over the blocks."""
+    M = B * HW
+    launches = {k: {"flops": 0, "bytes": 0} for k in ("reduce", "conv3", "expand")}
+    operands = 0
+    for cin, f, proj in blocks:
+        n_out = 4 * f
+        w = {"reduce": cin * f, "conv3": 9 * f * f, "expand": f * n_out + (cin * n_out if proj else 0)}
+        bias = {"reduce": f, "conv3": f, "expand": n_out * (2 if proj else 1)}
+        acts = {"reduce": M * (cin + f), "conv3": M * 2 * f, "expand": M * (f + cin + n_out)}
+        for k in launches:
+            launches[k]["flops"] += 2 * M * w[k]
+            launches[k]["bytes"] += itemsize * (acts[k] + w[k]) + 4 * bias[k]
+            operands += itemsize * w[k] + 4 * bias[k]
+    stage_io = itemsize * M * (blocks[0][0] + 4 * blocks[-1][1])
+    return {"flops": sum(v["flops"] for v in launches.values()),
+            "bytes": stage_io + operands,
+            "floor_bytes": sum(v["bytes"] for v in launches.values()),
+            "launches": launches}
 
 
 def _conv_bn(x, kernel, c, stride: int, dtype):

@@ -12,7 +12,8 @@ for the TCN stacks, whose activations grow over the layers (the same for the
 concatenated multistack and the head-major attention). The ResNet
 stage kernel: relative L2 and max error over the largest value within 1e-5
 in float32, and in bfloat16 within 2**-7 and 2**-5 (a sum taken in another
-order may round a y1 or y2 value the other way, one bf16 step). Gradients:
+order may round a y1 or y2 value the other way, one bf16 step), at the
+tensor-core tiles' tails and through both bf16 instances. Gradients:
 rtol 1e-4, atol 1e-5 * max|want| per tensor (weight gradients are sums over
 T, taken in another order).
 """
@@ -348,14 +349,64 @@ def test_resnet_stage_kernel_matches_plain(cuda_device, rng, dtype, B, H, W, cin
     x = _dev(np.maximum(rng.normal(size=(B, H * W, cin)), 0).astype(np.float32),
              cuda_device)
     before = trf.fused_bottleneck_stage.launches
+    by_instance = dict(trf.fused_bottleneck_stage.instances)
     got = trf.fused_bottleneck_stage(x, blocks, Wr=W, dtype=dtype)
     torch.cuda.synchronize()
     assert trf.fused_bottleneck_stage.launches == before + 3 * n
+    instance = ("fp32" if dtype == torch.float32 else
+                "bf16 16-byte" if cin % 8 == 0 and f % 8 == 0 else "bf16 guarded")
+    assert _launches_by_instance(by_instance) == {instance: 3 * n}
     want = trf.fused_bottleneck_stage_plain(x, blocks, Wr=W, dtype=dtype)
     assert got.dtype == dtype and got.shape == (B, H * W, 4 * f)
     rel, peak = _stage_errors(got, want)
     tol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 2 ** -5)
     assert rel <= tol[0] and peak <= tol[1], (rel, peak)
+
+
+def _launches_by_instance(before):
+    now = trf.fused_bottleneck_stage.instances
+    return {k: v - before.get(k, 0) for k, v in now.items() if v - before.get(k, 0)}
+
+
+@pytest.mark.parametrize("B,H,W,cin,f,n,proj", [
+    (1, 12, 20, 32, 16, 2, True),      # M = 240: a ragged 128-row tile; W not a multiple of 8
+    (2, 8, 8, 64, 16, 1, True),        # Cin = 4f with the projection
+    (1, 28, 28, 256, 128, 1, True)])   # a stage-1 block with the projection
+def test_resnet_stage_bf16_tails_take_the_16_byte_instance(cuda_device, rng, B, H, W, cin, f,
+                                                           n, proj):
+    """The tensor-core instance at tile tails: ragged rows, image rows that
+    cut 8-row fragments, the projection's K-steps after y2's."""
+    blocks = _stage_blocks(rng, cin, f, n, proj, cuda_device)
+    x = _dev(np.maximum(rng.normal(size=(B, H * W, cin)), 0).astype(np.float32),
+             cuda_device)
+    before = dict(trf.fused_bottleneck_stage.instances)
+    got = trf.fused_bottleneck_stage(x, blocks, Wr=W, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _launches_by_instance(before) == {"bf16 16-byte": 3 * n}
+    want = trf.fused_bottleneck_stage_plain(x, blocks, Wr=W, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H * W, 4 * f)
+    rel, peak = _stage_errors(got, want)
+    assert rel <= 2 ** -7 and peak <= 2 ** -5, (rel, peak)
+
+
+def test_resnet_stage_bf16_unaligned_view_takes_the_guarded_instance(cuda_device, rng):
+    """x a view one element into its storage (2 bytes off 16): the launches
+    that read it (reduce, expand with the projection) take the guarded
+    instance, the others the 16-byte one, and all match the plain version."""
+    B, H, W, cin, f = 2, 8, 12, 24, 8
+    blocks = _stage_blocks(rng, cin, f, 2, True, cuda_device)
+    x = np.maximum(rng.normal(size=(B, H * W, cin)), 0).astype(np.float32)
+    flat = torch.zeros(x.size + 1, dtype=torch.bfloat16, device=cuda_device)
+    flat[1:] = _dev(x.reshape(-1), cuda_device).to(torch.bfloat16)
+    xv = flat[1:].view(B, H * W, cin)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 2
+    before = dict(trf.fused_bottleneck_stage.instances)
+    got = trf.fused_bottleneck_stage(xv, blocks, Wr=W, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _launches_by_instance(before) == {"bf16 guarded": 2, "bf16 16-byte": 4}
+    want = trf.fused_bottleneck_stage_plain(xv, blocks, Wr=W, dtype=torch.bfloat16)
+    rel, peak = _stage_errors(got, want)
+    assert rel <= 2 ** -7 and peak <= 2 ** -5, (rel, peak)
 
 
 def test_resnet_stage_kernel_rejects_what_it_does_not_take(cuda_device, rng):

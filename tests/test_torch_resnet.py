@@ -191,27 +191,57 @@ def _stage_blocks(params, stats, layer, idxs, fold):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("layer,idxs,hw,cin", [("layer1", (0, 1), 16, 8),
-                                               ("layer2", (1,), 8, 64)])
+                                               ("layer2", (1,), 8, 64),
+                                               ("layer1", (0,), (12, 20), 8),
+                                               ("layer2", (1,), (6, 12), 64)])
 def test_fused_stage_plain_matches_pallas_interpret(small, rng, dtype, layer, idxs, hw, cin):
     """The plain stage (CPU path of fused_bottleneck_stage) against the
     Pallas kernel in interpret mode: layer1 includes the stride-1
-    projection block, layer2 an identity block."""
+    projection block (Cin 8, 4f 32), layer2 an identity block; square
+    images, and images whose H*W is a multiple of 8 but whose row length
+    W is not (the CUDA kernel's 128-row tiles and 8-row fragments then cut
+    image rows)."""
     jdt, tdt = DTYPES[dtype]
     params, stats = small
-    x = rng.normal(size=(2, hw * hw, cin)).astype(np.float32)
+    H, W = (hw, hw) if isinstance(hw, int) else hw
+    x = rng.normal(size=(2, H * W, cin)).astype(np.float32)
     jblocks = _stage_blocks(params, stats, layer, idxs, jrf.fold_bottleneck_params)
     tblocks = _stage_blocks(params, stats, layer, idxs, trf.fold_bottleneck_params)
     for jb, tb in zip(jblocks, tblocks):
         assert set(jb) == set(tb)
         for k in jb:
             np.testing.assert_allclose(tb[k].numpy(), np.asarray(jb[k]), rtol=1e-6, atol=1e-7)
-    want = np.asarray(jrf.fused_bottleneck_stage(jnp.asarray(x), jblocks, Wr=hw, dtype=jdt,
+    want = np.asarray(jrf.fused_bottleneck_stage(jnp.asarray(x), jblocks, Wr=W, dtype=jdt,
                                                  interpret=True)).astype(np.float32)
     before = trf.fused_bottleneck_stage.launches
-    got = trf.fused_bottleneck_stage(torch.from_numpy(x), tblocks, Wr=hw, dtype=tdt)
+    got = trf.fused_bottleneck_stage(torch.from_numpy(x), tblocks, Wr=W, dtype=tdt)
     assert trf.fused_bottleneck_stage.launches == before      # the CPU runs no kernel
     assert got.dtype == tdt and got.shape == want.shape
     assert _rel(got.float(), want) <= (1e-5 if dtype == "float32" else BF16_REL)
+
+
+def test_stage_work_at_full_width():
+    """K10's work count from shapes, as chip_smoke.py prints it: stages 0
+    and 1 of the full-width trunk at B = 128 in bf16 come to 338.7 GFLOP
+    (0.3425 ms on an H100's bf16 tensor cores) and, through the three
+    launches a block, 3.39 GB (1.01 ms at 3.35 TB/s)."""
+    s0 = trf.stage_work(128, 56 * 56, [(64, 64, True), (256, 64, False), (256, 64, False)])
+    s1 = trf.stage_work(128, 28 * 28, [(512, 128, False)] * 3)
+    assert (s0["flops"], s1["flops"]) == (170_993_385_472, 167_705_051_136)
+    assert round((s0["flops"] + s1["flops"]) / 1e9, 1) == 338.7
+    floor = s0["floor_bytes"] + s1["floor_bytes"]
+    assert round(floor / 1e9, 2) == 3.39
+    # stage 0 block 0 alone: 514 MB of activations through its three launches
+    b0 = trf.stage_work(128, 56 * 56, [(64, 64, True)])
+    assert round(b0["floor_bytes"] / 1e6) == 514
+    for s in (s0, s1):
+        assert s["flops"] == sum(v["flops"] for v in s["launches"].values())
+        assert s["floor_bytes"] == sum(v["bytes"] for v in s["launches"].values())
+        assert s["bytes"] < s["floor_bytes"]
+    # the 3x3 launches sit above the bf16 ridge (~295 flop/byte), the others far below
+    ridge = {k: (s0["launches"][k]["flops"] + s1["launches"][k]["flops"])
+             / (s0["launches"][k]["bytes"] + s1["launches"][k]["bytes"]) for k in s0["launches"]}
+    assert ridge["conv3"] > 295 and ridge["reduce"] < 100 and ridge["expand"] < 100
 
 
 def test_fused_stage_rejects_what_the_tpu_kernel_rejects(small):
