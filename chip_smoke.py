@@ -10,10 +10,13 @@ non-zero and the last line is not printed:
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: every CUDA kernel of ``med_tpu_torch/csrc``, one ``nvcc`` each,
    started together;
-3. kernels: each forward kernel (K1 attention, K2 TCN layer) and each
+3. kernels: each forward kernel (K1 attention, K2 TCN stacks, one launch a
+   call) and each
    backward kernel (K3 attention, K4 slow-path TCN, K5 fast-path TCN)
    against its plain PyTorch version on the card at the COG path's shapes,
-   with its time, the plain version's, the card's bound for the same work
+   with its time, the plain version's, the card's bound for the same work,
+   for the TCN forward the barrier floor of its one-launch design (the same
+   grid running its grid barriers and no work) and its grid,
    and, for the attention, the time of ``scaled_dot_product_attention``
    (forward; autograd backward for K3) with a band mask as a yardstick (the
    port never calls it); the same for the public op entry points' kernels:
@@ -102,10 +105,10 @@ CPU_TRAIN_FRAMES = 300
 # another order; the TCN activations reach O(10) over 41 layers. For the
 # backward kernels atol is that factor times the tensor's largest |value|:
 # weight gradients are sums over T taken in another order.
-TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_layer/multistack": (1e-4, 1e-4),
-       "tcn_layer/stack": (1e-4, 1e-4), "swa_packed_bwd": (1e-4, 1e-5),
+TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
+       "tcn_stack_fwd/stack": (1e-4, 1e-4), "swa_packed_bwd": (1e-4, 1e-5),
        "tcn_layer_bwd/multistack": (1e-4, 1e-5), "tcn_layer_bwd/stack": (1e-4, 1e-5),
-       "tcn_multistack": (1e-4, 1e-4), "tcn_multistack_bwd": (1e-4, 1e-5),
+       "tcn_stack_fwd/concatenated": (1e-4, 1e-4), "tcn_multistack_bwd": (1e-4, 1e-5),
        "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5)}
 # the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
 # it; fold 2Out tests trials 0 and 3 and trains on the rest
@@ -265,8 +268,24 @@ def _tcn_flops_bytes(T: int, C: int, layers, n_in: int, n_out: int):
     return 4 * (weights + (n_in + n_out) * T * C), flops
 
 
+def _barrier_floor(wrapper, layers) -> dict:
+    """The one-launch TCN forward's floor for stacks of ``layers``, one call
+    a stack: the grid of ``wrapper``'s last launch at C=64, launched with
+    the barriers the calls make (one between layers) and no work. The
+    timed floor, and under ``floor_note`` (for the log only) the barriers
+    and the grid."""
+    from med_tpu_torch.ops.tcn_fused import forward_barriers
+
+    blocks, rows = launch = wrapper.last_launch
+    return dict(barrier_floor_ms=cuda_ms(
+        lambda: [forward_barriers(launch, 64, L - 1) for L in layers], 20),
+        floor_note=f"{sum(L - 1 for L in layers)} grid barriers, {blocks} blocks x "
+                   f"{rows} rows")
+
+
 def _multistack_case(T: int, gen: torch.Generator):
-    """COG's slow path at T frames: 11 + 3x10 layers at C=64, causal."""
+    """COG's slow path at T frames: 11 + 3x10 layers at C=64, causal, one
+    call (K2a)."""
     from med_tpu_torch.ops.tcn_fused import (
         dilated_residual_multistack_stages, dilated_stack_xla)
 
@@ -282,16 +301,17 @@ def _multistack_case(T: int, gen: torch.Generator):
             outs.append(h)
         return torch.stack(outs)
 
-    err = check_close(f"multistack T={T}", run(), plain(), *TOL["tcn_layer/multistack"])
+    err = check_close(f"multistack T={T}", run(), plain(), *TOL["tcn_stack_fwd/multistack"])
     nbytes, flops = _tcn_flops_bytes(T, 64, layers, 1, len(layers))
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_barrier_floor(dilated_residual_multistack_stages, [sum(layers)]))
 
 
 def _fast_stacks_case(T: int, gen: torch.Generator):
     """COG's fast path stacks at T // 16 frames: one of 11 layers and three of
-    10, each its own call."""
+    10, each its own call (K2b)."""
     from med_tpu_torch.ops.tcn_fused import dilated_residual_stack, dilated_stack_xla
 
     layers = (11, 10, 10, 10)
@@ -300,12 +320,13 @@ def _fast_stacks_case(T: int, gen: torch.Generator):
     xs = [torch.randn((Tf, 64), generator=gen).cuda() for _ in layers]
     run = lambda: [dilated_residual_stack(x, *w) for x, w in zip(xs, ws)]  # noqa: E731
     plain = lambda: [dilated_stack_xla(x, *w) for x, w in zip(xs, ws)]  # noqa: E731
-    err = max(check_close(f"fast stack {i} T={Tf}", g, w, *TOL["tcn_layer/stack"])
+    err = max(check_close(f"fast stack {i} T={Tf}", g, w, *TOL["tcn_stack_fwd/stack"])
               for i, (g, w) in enumerate(zip(run(), plain())))
     nbytes, flops = _tcn_flops_bytes(Tf, 64, layers, len(layers), len(layers))
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_barrier_floor(dilated_residual_stack, layers))
 
 
 def _attention_bwd_case(T: int, gen: torch.Generator):
@@ -449,7 +470,7 @@ def _concat_multistack_case(T: int, gen: torch.Generator):
     run = lambda: tcn.dilated_residual_multistack(x, *ws, L0, Lr)  # noqa: E731
     plain = lambda: tcn.dilated_residual_multistack_plain(x, *ws, L0, Lr)  # noqa: E731
     saving = lambda: tcn._multistack_fwd(x, *ws, mask, L0, Lr, True, save=True)  # noqa: E731
-    tol = TOL["tcn_multistack"]
+    tol = TOL["tcn_stack_fwd/concatenated"]
     err = check_close(f"concatenated multistack T={T}", run(), plain(), *tol)
     want = tcn.dilated_residual_multistack_plain(x, *ws, L0, Lr, mask=mask, save=True)
     for n, a, b in zip(("stage outputs", "saved h", "saved y"), saving(), want):
@@ -458,7 +479,8 @@ def _concat_multistack_case(T: int, gen: torch.Generator):
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
                 saving_ms=cuda_ms(saving, 20), bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None,
+                **_barrier_floor(tcn.dilated_residual_multistack, [sum(layers)]))
 
 
 def _concat_multistack_bwd_case(T: int, gen: torch.Generator):
@@ -559,12 +581,12 @@ def _head_major_bwd_case(T: int, gen: torch.Generator):
 
 
 KERNEL_CASES = (("swa_packed_fwd", _attention_case),
-                ("tcn_layer/multistack", _multistack_case),
-                ("tcn_layer/stack", _fast_stacks_case),
+                ("tcn_stack_fwd/multistack", _multistack_case),
+                ("tcn_stack_fwd/stack", _fast_stacks_case),
                 ("swa_packed_bwd", _attention_bwd_case),
                 ("tcn_layer_bwd/multistack", _multistack_bwd_case),
                 ("tcn_layer_bwd/stack", _fast_stacks_bwd_case),
-                ("tcn_multistack", _concat_multistack_case),
+                ("tcn_stack_fwd/concatenated", _concat_multistack_case),
                 ("tcn_multistack_bwd", _concat_multistack_bwd_case),
                 ("swa_headmajor_fwd", _head_major_case),
                 ("swa_headmajor_bwd", _head_major_bwd_case))
@@ -579,10 +601,13 @@ def phase_kernels(profile: bool):
             if profile and T == KERNEL_FRAMES[-1]:
                 _profile(f"{name} T={T}", r.pop("run"))
             r.pop("run", None)
+            floor_note = r.pop("floor_note", None)
             results[name] = r
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             saving = (f", saving forward with mask {r['saving_ms']:.4f} ms"
                       if "saving_ms" in r else "")
+            if floor_note is not None:
+                saving += f", barrier floor {r['barrier_floor_ms']:.4f} ms ({floor_note})"
             rtol, atol = TOL[name]
             atol_txt = f"{atol} x max|want|" if "bwd" in name else f"{atol}"
             log(f"[kernels] {name} at T={T}: max_abs_err {r['max_abs_err']:.3e} "
@@ -594,9 +619,9 @@ def phase_kernels(profile: bool):
 
 def op_api_launches(n: int):
     """Launches of n forward and backward passes through the two public op
-    entry points at COG's shapes: K6 one launch a layer and K7 two a layer
-    plus one reduction (41 layers), K8 and K9 one launch each."""
-    return {"dilated_residual_multistack": 41 * n,
+    entry points at COG's shapes: K6 one launch a call, K7 two a layer plus
+    one reduction (41 layers), K8 and K9 one launch each."""
+    return {"dilated_residual_multistack": n,
             "dilated_residual_multistack_bwd": (2 * 41 + 1) * n,
             "sliding_window_attention_pallas": n,
             "sliding_window_attention_bwd_pallas": n}
@@ -695,13 +720,14 @@ def _check_served(name: str, preds, probs, T: int) -> None:
 
 
 def forward_launches(n: int):
-    """Forward launches of n COG passes: 2 attention layers, 41 slow-path
-    and 41 fast-path TCN layers; no trunk stage (COG reads features), and
-    none of the op entry points' kernels (COG uses the packed attention and
-    the per-stage multistack)."""
+    """Forward launches of n COG passes: 2 attention layers, one launch for
+    the slow path's 41 TCN layers and one for each of the fast path's 4
+    stacks (the softmax and 1x1 convs between fast stages run in PyTorch);
+    no trunk stage (COG reads features), and none of the op entry points'
+    kernels (COG uses the packed attention and the per-stage multistack)."""
     return {"sliding_window_attention_packed": 2 * n,
-            "dilated_residual_multistack_stages": 41 * n,
-            "dilated_residual_stack": 41 * n,
+            "dilated_residual_multistack_stages": n,
+            "dilated_residual_stack": 4 * n,
             "fused_bottleneck_stage": 0,
             "dilated_residual_multistack": 0,
             "sliding_window_attention_pallas": 0}
@@ -1547,12 +1573,12 @@ def main(argv) -> int:
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
                                   "sliding_window_attention_packed"),
-               "tcn_layer/multistack": ("med_tpu_torch/csrc/tcn_layer.cu",
-                                        "med_tpu/ops/tcn_fused.py:750",
-                                        "dilated_residual_multistack_stages"),
-               "tcn_layer/stack": ("med_tpu_torch/csrc/tcn_layer.cu",
-                                   "med_tpu/ops/tcn_fused.py:91",
-                                   "dilated_residual_stack"),
+               "tcn_stack_fwd/multistack": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
+                                            "med_tpu/ops/tcn_fused.py:750",
+                                            "dilated_residual_multistack_stages"),
+               "tcn_stack_fwd/stack": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
+                                       "med_tpu/ops/tcn_fused.py:91",
+                                       "dilated_residual_stack"),
                "swa_packed_bwd": ("med_tpu_torch/csrc/swa_packed_bwd.cu",
                                   "med_tpu/ops/attention.py:506",
                                   "sliding_window_attention_packed_bwd"),
@@ -1565,9 +1591,9 @@ def main(argv) -> int:
                "resnet_stage": ("med_tpu_torch/csrc/resnet_stage.cu",
                                 "med_tpu/ops/resnet_fused.py:113",
                                 "fused_bottleneck_stage"),
-               "tcn_multistack": ("med_tpu_torch/csrc/tcn_multistack.cu",
-                                  "med_tpu/ops/tcn_fused.py:415",
-                                  "dilated_residual_multistack"),
+               "tcn_stack_fwd/concatenated": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
+                                              "med_tpu/ops/tcn_fused.py:415",
+                                              "dilated_residual_multistack"),
                "tcn_multistack_bwd": ("med_tpu_torch/csrc/tcn_multistack_bwd.cu",
                                       "med_tpu/ops/tcn_fused.py:508",
                                       "dilated_residual_multistack_bwd"),
@@ -1582,7 +1608,7 @@ def main(argv) -> int:
     # public op entry points for K6-K9, and the training run for the others;
     # every phase's count beside it (the pixel request's trunk is ResNet50;
     # the driver's count is its first run, 2 folds x 2 epochs)
-    own_path = {"resnet_stage": fused_trunk, "tcn_multistack": op_api,
+    own_path = {"resnet_stage": fused_trunk, "tcn_stack_fwd/concatenated": op_api,
                 "tcn_multistack_bwd": op_api, "swa_headmajor_fwd": op_api,
                 "swa_headmajor_bwd": op_api}
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

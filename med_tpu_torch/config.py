@@ -107,7 +107,8 @@ class ExperimentConfig:
     save_local: bool = False
 
     # --- the JAX package's device knobs, kept so both packages write the
-    # same params.json; the port reads fused_epoch, trial_batch, max_frames ---
+    # same params.json; the port reads fused_epoch, fused_run, trial_batch,
+    # max_frames, and build_model refuses compute_dtype="bfloat16" ---
     compute_dtype: str = "float32"
     mesh_shape: Optional[Tuple[int, ...]] = None
     use_pallas: bool = True

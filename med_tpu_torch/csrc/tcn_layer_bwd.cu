@@ -7,7 +7,7 @@
 // step, carrying the whole (T, C) gradient dh in VMEM.
 //
 // Per layer, from the forward's saved input h and post-relu y (the forward
-// in csrc/tcn_layer.cu writes y when training):
+// in csrc/tcn_stack_fwd.cu writes both when training):
 //   dz  = dh * 2*mask                       (dh when there is no mask)
 //   dW1 = y^T dz,  db1 = sum_t dz
 //   da  = (dz W1^T) * [y > 0],  db3 = sum_t da

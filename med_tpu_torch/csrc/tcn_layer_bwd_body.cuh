@@ -31,10 +31,10 @@
 
 #include <cuda_runtime.h>
 
-#include "tcn_layer_body.cuh"
-
 namespace tcn {
 
+constexpr int kTile = 32;      // rows of T per row block
+constexpr int kThreads = 256;
 constexpr int kChunk = 128;    // rows of T per weight-gradient partial
 
 __host__ __device__ constexpr int entries(int C) { return 4 * C * C + 2 * C; }

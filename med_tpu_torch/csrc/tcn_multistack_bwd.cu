@@ -2,8 +2,8 @@
 // concatenated on the layer axis, backward.
 //
 // Replaces med_tpu/ops/tcn_fused.py::_multi_bwd_kernel, the Pallas TPU
-// kernel behind _multi_bwd_call: the Lt layers of tcn_multistack.cu in
-// reverse. Layer l belongs to stage l < L0 ? 0 : 1 + (l - L0) / Lr at local
+// kernel behind _multi_bwd_call: the Lt layers of tcn_stack_fwd.cu's
+// tcn_multistack_fwd in reverse. Layer l belongs to stage l < L0 ? 0 : 1 + (l - L0) / Lr at local
 // index l < L0 ? l : (l - L0) % Lr (dilation 2^local); the cotangent g[stage]
 // of a stage's output joins dh at the stage's last layer, and dx is dh after
 // layer 0.

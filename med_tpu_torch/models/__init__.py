@@ -31,6 +31,10 @@ def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> COG
         raise NotImplementedError(
             "COG's SRM, skill-prompt and observed-gesture variants are not "
             "ported yet: ROADMAP.md Queue A6 (other frame families)")
+    if cfg.compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' (bf16 matmuls) is not ported yet: the "
+            "port trains and serves in float32; ROADMAP.md Queue A6")
     return COG(
         num_layers_basic=cfg.num_layers_Basic,
         num_layers_r=cfg.num_layers_R,

@@ -20,9 +20,9 @@ from typing import Dict, Iterable, Sequence, Tuple
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD = PACKAGE / "build"
-KERNELS = ("swa_packed_fwd", "swa_packed_bwd", "tcn_layer", "tcn_layer_bwd",
-           "resnet_stage", "tcn_multistack", "tcn_multistack_bwd",
-           "swa_headmajor_fwd", "swa_headmajor_bwd")
+KERNELS = ("swa_packed_fwd", "swa_packed_bwd", "tcn_stack_fwd", "tcn_layer_bwd",
+           "resnet_stage", "tcn_multistack_bwd", "swa_headmajor_fwd",
+           "swa_headmajor_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

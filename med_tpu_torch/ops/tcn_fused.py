@@ -8,19 +8,19 @@ with the mask only in training. Shapes:  x (T, C);  w3 (L, 3, C, C)
 [tap, in, out];  b3 (L, C);  w1 (L, C, C) [in, out];  b1 (L, C);  mask
 (L, T, C) uint8 or None. Layer i of a stage uses dilation 2**i.
 
-On a CUDA tensor each layer is one launch of the hand-written kernel
-``csrc/tcn_layer.cu``; on a CPU tensor the plain version
-:func:`dilated_stack_xla` runs. Serving ping-pongs two activation buffers.
-Where autograd needs a gradient, the forward also saves every layer's input
-h and post-relu y (the TPU kernels' ``save=True`` residuals) and the
+On a CUDA tensor every layer of a call's stacks runs in one persistent
+launch of the hand-written kernel ``csrc/tcn_stack_fwd.cu`` (a grid barrier
+between layers; one launch for every 16 stacks); on a CPU tensor the plain version :func:`dilated_stack_xla`
+runs. Where autograd needs a gradient, the forward also saves every layer's
+input h and post-relu y (the TPU kernels' ``save=True`` residuals) and the
 backward walks the layers in reverse: on the card two launches a layer of
 ``csrc/tcn_layer_bwd.cu`` plus one that sums the weight gradients, on the
 CPU the plain loop :func:`_layer_bwd_plain`.
 
 :func:`dilated_residual_multistack` is the same sequence of stacks with the
 weights of all stacks concatenated on the layer axis (w3 (Lt, 3, C, C), ...,
-mask (Lt, T, C)): on the card ``csrc/tcn_multistack.cu`` and
-``csrc/tcn_multistack_bwd.cu`` walk the concatenated operands by offset, so
+mask (Lt, T, C)): on the card the same forward kernel and
+``csrc/tcn_multistack_bwd.cu`` find each stage's slices by offset, so
 nothing is split or joined on the host.
 """
 
@@ -110,6 +110,9 @@ def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool):
     return dh, dws
 
 
+MAX_LAYERS = 30      # layers of a stack: the widest tap, 2 * 2**29, is an int
+
+
 def _check_stages(x_shape, stage_weights, masks, dev,
                   names=("w3", "b3", "w1", "b1")) -> None:
     """Raise unless each stage's tensors (named ``names``) and mask have the
@@ -133,57 +136,84 @@ def _check_stages(x_shape, stage_weights, masks, dev,
                                  f"{tuple(masks[s].shape)}, expected {(L, T, C)}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _check_fwd_counts(T: int, layers: Sequence[int]) -> None:
+    """Raise unless the forward kernel takes T rows and stacks of these
+    layer counts."""
+    if T < 1:
+        raise ValueError(f"the CUDA kernel takes at least one row; got T={T}")
+    if not all(1 <= n <= MAX_LAYERS for n in layers):
+        raise ValueError(f"the CUDA kernel takes stacks of 1 to {MAX_LAYERS} layers; "
+                         f"got {list(layers)}")
+
+
+def _fwd_buffers(T: int, C: int, S: int, Lt: int, dev, save: bool):
+    """The forward's outputs (S, T, C), its (2, T, C) ping-pong scratch
+    (a layer never writes the buffer it reads: neighbouring blocks read its
+    rows) and, with ``save``, the (Lt, T, C) saved h and y."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    saved = [torch.empty((Lt, T, C), **f32) for _ in range(2)] if save else [None, None]
+    return torch.empty((S, T, C), **f32), torch.empty((2, T, C), **f32), *saved
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+_FWD = "tcn_stack_fwd"
+_STAGES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
+
+
+def _launch_fwd(entry: str, argtypes, counter, *args) -> None:
+    """Call the forward C entry ``entry`` with ``args`` and then its launch
+    count, grid and tile-height out-parameters and the current stream;
+    raise ``counter.launches`` by the launches the runtime accepted and set
+    ``counter.last_launch`` to the (blocks, rows a tile) they ran with."""
+    launched, blocks, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    fn = cuda_build.kernel_function(_FWD, entry, argtypes)
+    code = fn(*args, ctypes.byref(launched), ctypes.byref(blocks), ctypes.byref(rows),
+              torch.cuda.current_stream().cuda_stream)
+    counter.launches += launched.value
+    cuda_build.check_launch(_FWD, _FWD, code)
+    counter.last_launch = (blocks.value, rows.value)
 
 
 def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
                  counter, save: bool = False):
-    """Run the stages back to back, one kernel launch per layer; returns the
-    (S, T, C) stage outputs, and with ``save`` also the (Lt, T, C) layer
-    inputs h and post-relu activations y. ``counter`` is the public wrapper
-    whose launch count each launch raises."""
+    """Run the stages back to back, one launch for every 16; returns the (S, T, C) stage
+    outputs, and with ``save`` also the (Lt, T, C) layer inputs h and
+    post-relu activations y. ``counter`` is the public wrapper whose launch
+    count the launch raises."""
     T, C = x.shape
     dev = x.device
     cuda_build.check_operand("x", x, dev, torch.float32)
     _check_stages(x.shape, stage_weights, masks, dev)
-    fn = cuda_build.kernel_function("tcn_layer", "tcn_layer_fwd", _ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    Lt = sum(w[0].shape[0] for w in stage_weights)
-    if save:
-        # every layer writes a fresh slot: slot l is layer l's input
-        hbuf = torch.empty((Lt + 1, T, C), dtype=torch.float32, device=dev)
-        hbuf[0].copy_(x)
-        ybuf = torch.empty((Lt, T, C), dtype=torch.float32, device=dev)
-        ends = []
-    else:
-        hs = torch.empty((len(stage_weights), T, C), dtype=torch.float32, device=dev)
-        # an in-place layer would race with neighbouring blocks' tap reads,
-        # so each layer writes a buffer other than its input
-        scratch = (torch.empty_like(x), torch.empty_like(x))
-    src, l = x, 0
-    for s, (w3, b3, w1, b1) in enumerate(stage_weights):
-        L = w3.shape[0]
-        for i in range(L):
-            if save:
-                src, dst, y_ptr = hbuf[l], hbuf[l + 1], ybuf[l].data_ptr()
-            else:
-                y_ptr = None
-                if i == L - 1:
-                    dst = hs[s]
-                else:
-                    dst = scratch[1] if src is scratch[0] else scratch[0]
-            mask_ptr = masks[s][i].data_ptr() if masks is not None else None
-            code = fn(src.data_ptr(), w3[i].data_ptr(), b3[i].data_ptr(),
-                      w1[i].data_ptr(), b1[i].data_ptr(), mask_ptr,
-                      dst.data_ptr(), y_ptr, T, C, 2 ** i, int(causal), stream)
-            cuda_build.check_launch("tcn_layer", "tcn_layer_fwd", code)
-            counter.launches += 1
-            src, l = dst, l + 1
-        if save:
-            ends.append(l)
-    if save:
-        return hbuf[ends], hbuf[:Lt], ybuf
-    return hs
+    Ls = [w[0].shape[0] for w in stage_weights]
+    _check_fwd_counts(T, Ls)
+    S = len(Ls)
+    hs, scratch, h_saved, y_saved = _fwd_buffers(T, C, S, sum(Ls), dev, save)
+    w3s, b3s, w1s, b1s = (_pointers([w[k] for w in stage_weights]) for k in range(4))
+    mks = None if masks is None else _pointers(masks)
+    layers = (ctypes.c_int * S)(*Ls)
+    with torch.cuda.device(dev):
+        _launch_fwd("tcn_stages_fwd", _STAGES_ARGTYPES, counter, x.data_ptr(),
+                    ctypes.addressof(w3s), ctypes.addressof(b3s), ctypes.addressof(w1s),
+                    ctypes.addressof(b1s), None if mks is None else ctypes.addressof(mks),
+                    ctypes.addressof(layers), S, hs.data_ptr(), _ptr(h_saved),
+                    _ptr(y_saved), scratch.data_ptr(), T, C, int(causal))
+    return (hs, h_saved, y_saved) if save else hs
+
+
+def forward_barriers(launch: Tuple[int, int], C: int, n: int, device=None) -> None:
+    """Launch the grid of a forward launch, ``launch`` = (blocks, rows a
+    tile) as a wrapper's ``last_launch`` gives it, at C channels, running
+    ``n`` grid barriers and nothing else: the floor of the one-launch
+    design, for measurement. Counts no launch."""
+    fn = cuda_build.kernel_function(_FWD, "tcn_stack_barriers",
+                                    [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = fn(*launch, C, n, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(_FWD, _FWD, code)
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
@@ -312,7 +342,7 @@ def _run_stages(x, stage_weights, masks, causal: bool, fwd_counter, bwd_counter)
 def dilated_residual_stack(x, w3, b3, w1, b1, *, causal: bool = True,
                            mask=None) -> torch.Tensor:
     """One stack, (T, C) -> (T, C). A CUDA tensor runs the CUDA kernel, one
-    launch per layer (replacing med_tpu/ops/tcn_fused.py::_fwd_kernel); a
+    launch, whose (blocks, rows a tile) ``.last_launch`` keeps (replacing med_tpu/ops/tcn_fused.py::_fwd_kernel); a
     CPU tensor the plain version; any other device raises. Differentiable
     through :func:`dilated_residual_stack_bwd`."""
     return _run_stages(x, [(w3, b3, w1, b1)], None if mask is None else [mask],
@@ -320,6 +350,7 @@ def dilated_residual_stack(x, w3, b3, w1, b1, *, causal: bool = True,
 
 
 dilated_residual_stack.launches = 0
+dilated_residual_stack.last_launch = None
 
 
 def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = True,
@@ -352,8 +383,9 @@ def dilated_residual_multistack_stages(x, stage_weights: Sequence[StageWeights],
     """Stacks of L0, Lr, Lr, ... layers back to back, (T, C) -> the (S, T, C)
     stage outputs. ``stage_weights`` is a sequence of per-stage
     (w3, b3, w1, b1); ``masks`` a matching sequence of (L_s, T, C) uint8
-    keep-masks, or None. A CUDA tensor runs the CUDA kernel, one launch per
-    layer (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel_s); a CPU
+    keep-masks, or None. A CUDA tensor runs the CUDA kernel, one launch for
+    every 16 stacks, whose (blocks, rows a tile) ``.last_launch`` keeps
+    (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel_s); a CPU
     tensor the plain version; any other device raises. Differentiable
     through :func:`dilated_residual_multistack_stages_bwd`."""
     _check_layer_counts(stage_weights, L0, Lr)
@@ -363,6 +395,7 @@ def dilated_residual_multistack_stages(x, stage_weights: Sequence[StageWeights],
 
 
 dilated_residual_multistack_stages.launches = 0
+dilated_residual_multistack_stages.last_launch = None
 
 
 def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
@@ -455,7 +488,7 @@ def _check_multistack(T: int, C: int, dev, named, mask) -> int:
 
 
 _MULTI_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
 _MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
 
@@ -465,23 +498,15 @@ def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool
     T, C = x.shape
     dev = x.device
     Lt = _check_multistack(T, C, dev, dict(x=x, w3=w3, b3=b3, w1=w1, b1=b1), mask)
-    S = len(_stage_lengths(Lt, L0, Lr))
-    f32 = dict(dtype=torch.float32, device=dev)
-    hs = torch.empty((S, T, C), **f32)
-    scratch = torch.empty((2, T, C), **f32)
-    h_saved = torch.empty((Lt, T, C), **f32) if save else None
-    y_saved = torch.empty((Lt, T, C), **f32) if save else None
-    fn = cuda_build.kernel_function("tcn_multistack", "tcn_multistack_fwd",
-                                    _MULTI_ARGTYPES)
-    launched = ctypes.c_int(0)          # raised by the C loop at each launch
-    code = fn(x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
-              b1.data_ptr(), None if mask is None else mask.data_ptr(),
-              hs.data_ptr(), None if not save else h_saved.data_ptr(),
-              None if not save else y_saved.data_ptr(), scratch.data_ptr(),
-              T, C, Lt, L0, max(Lr, 1), int(causal), ctypes.byref(launched),
-              torch.cuda.current_stream(dev).cuda_stream)
-    dilated_residual_multistack.launches += launched.value
-    cuda_build.check_launch("tcn_multistack", "tcn_multistack_fwd", code)
+    lengths = _stage_lengths(Lt, L0, Lr)
+    _check_fwd_counts(T, lengths)
+    hs, scratch, h_saved, y_saved = _fwd_buffers(T, C, len(lengths), Lt, dev, save)
+    with torch.cuda.device(dev):
+        _launch_fwd("tcn_multistack_fwd", _MULTI_ARGTYPES, dilated_residual_multistack,
+                    x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
+                    b1.data_ptr(), _ptr(mask), hs.data_ptr(), _ptr(h_saved),
+                    _ptr(y_saved), scratch.data_ptr(), T, C, Lt, L0, max(Lr, 1),
+                    int(causal))
     return (hs, h_saved, y_saved) if save else hs
 
 
@@ -571,8 +596,9 @@ def dilated_residual_multistack(x, w3, b3, w1, b1, L0: int, Lr: int, *,
     stage outputs, with the stacks' weights concatenated on the layer axis:
     w3 (Lt, 3, C, C), b3 (Lt, C), w1 (Lt, C, C), b1 (Lt, C), ``mask`` the
     (Lt, T, C) uint8 keep-mask or None; layer l uses dilation 2**(its index
-    within its stage). A CUDA tensor runs the CUDA kernel, Lt launches made
-    by one C call (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel); a
+    within its stage). A CUDA tensor runs the CUDA kernel, one launch for
+    every 16 stacks, whose (blocks, rows a tile) ``.last_launch`` keeps
+    (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel); a
     CPU tensor the plain version; any other device raises. Differentiable
     through :func:`dilated_residual_multistack_bwd`."""
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -582,3 +608,4 @@ def dilated_residual_multistack(x, w3, b3, w1, b1, L0: int, Lr: int, *,
 
 
 dilated_residual_multistack.launches = 0
+dilated_residual_multistack.last_launch = None

@@ -49,13 +49,20 @@ def _average_for(cfg: ExperimentConfig) -> str:
     return "macro"
 
 
+def _score(cfg: ExperimentConfig, row: Dict) -> float:
+    """The selection score of an epoch's row: test loss, or test weighted-F1."""
+    if cfg.loss_or_f1 == "loss":
+        return row["test_loss"]
+    return row.get("test_f1_weighted", row["test_f1"])
+
+
 def _better(cfg: ExperimentConfig, candidate: Dict, best: Optional[Dict]) -> bool:
+    """med_tpu's per-epoch selection: the first epoch always wins."""
     if best is None:
         return True
     if cfg.loss_or_f1 == "loss":
-        return candidate["test_loss"] < best["test_loss"]
-    return candidate.get("test_f1_weighted", candidate["test_f1"]) > best.get(
-        "test_f1_weighted", best["test_f1"])
+        return _score(cfg, candidate) < _score(cfg, best)
+    return _score(cfg, candidate) > _score(cfg, best)
 
 
 def _common_bucket(cfg: ExperimentConfig, trials: List[FrameTrial]) -> Optional[int]:
@@ -78,6 +85,15 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
     ``np.random.default_rng(cfg.seed + epoch)`` and evaluates the test
     trials. Returns {"best", "history", "checkpoint", "exp"}; the checkpoint
     is the best epoch's tree in med_tpu's layout.
+
+    Selection follows med_tpu's frame driver. With ``fused_epoch`` and
+    ``fused_run`` (the defaults) it is its whole-run rule (the fused run's
+    on-device scan, replayed by ``_fused_run_history``): the score starts
+    at +inf for the loss and -inf for F1, and an epoch wins only by strict
+    improvement, so a non-finite score never wins; when no epoch wins, the
+    fold returns the parameters from before its first epoch with that
+    epoch's row, and ``best["all_epochs_non_finite"]`` is set. Otherwise it
+    is the per-epoch ``_better``, under which the first epoch always wins.
 
     ``exp``: an :class:`Experiment` shared by all folds of a run (its
     ``device`` then holds); it is drawn anew from ``cfg.seed`` here.
@@ -106,7 +122,13 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
         start_epoch = load_train_state(resume_path, exp)
         print(f"[{tag}] resumed at epoch {start_epoch}")
 
-    best, best_ckpt, history = None, None, []
+    # med_tpu runs its whole-run program, and its selection, only with fused
+    # epochs (med_tpu/train/loop.py::train_frame_fold)
+    whole_run = cfg.fused_epoch and cfg.fused_run
+    use_loss = cfg.loss_or_f1 == "loss"
+    run_best = np.inf if use_loss else -np.inf
+    initial = {**export_jax_params(exp.net), "batch_stats": {}} if whole_run else None
+    best, best_ckpt, history, first = None, None, [], None
     for epoch in range(start_epoch, cfg.n_epochs):
         set_lr(exp.optimizer, epoch_lr(cfg, epoch))
         t0 = time.time()
@@ -133,13 +155,25 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
         if tracker:
             tracker.log_metrics({k: v for k, v in row.items() if np.isscalar(v)},
                                 step=epoch)
-        if _better(cfg, row, best):
-            best = dict(row)
-            best.update({k: ev[k] for k in ("preds", "probs", "labels", "raw_labels",
-                                            "gestures", "subjects", "cm")})
+        dump = {k: ev[k] for k in ("preds", "probs", "labels", "raw_labels",
+                                   "gestures", "subjects", "cm")}
+        first = first or {**row, **dump}
+        if whole_run:
+            score = _score(cfg, row)
+            won = score < run_best if use_loss else score > run_best
+            run_best = score if won else run_best
+        else:
+            won = _better(cfg, row, best)
+        if won:
+            best = {**row, **dump}
             best_ckpt = {**export_jax_params(exp.net), "batch_stats": {}}
         if resume_path:
             save_train_state(resume_path, exp, epoch)
+    if whole_run and history and best is None:
+        print(f"[{tag}] every epoch score non-finite: returned checkpoint is "
+              "the initial params; prediction dump marked degenerate")
+        best = {**first, "all_epochs_non_finite": True}
+        best_ckpt = initial
     return {"best": best, "history": history, "checkpoint": best_ckpt, "exp": exp}
 
 

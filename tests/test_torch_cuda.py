@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
 card, at awkward shapes (ragged tiles, dilations wider than the sequence,
-acausal taps, dropout masks, images narrower than a tile), the small COG
+acausal taps, dropout masks, images narrower than a tile; for the one-launch
+TCN forward also T = 1 and 5, where every block but one has no rows, and
+the 300-frame request's 18 and 300 rows), the small COG
 served on the card against the CPU, and a small ResNet trunk and pixel
 front end on the card against the CPU. They need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -81,8 +83,13 @@ def _stack(rng, L, T, C, device):
         rng.integers(0, 2, size=(L, T, C)).astype(np.uint8))]
 
 
+# T = 1 and 5: every dilation but the first reaches past the sequence; 18
+# and 300: a 300-frame request's fast and slow paths; 4097: a ragged last
+# tile; 4096: the grid at its fullest
 @pytest.mark.parametrize("C,L,T", [(64, 11, 1000), (64, 10, 20), (8, 5, 33),
-                                   (16, 3, 64), (32, 4, 31)])
+                                   (16, 3, 64), (32, 4, 31), (64, 11, 1), (64, 11, 5),
+                                   (64, 11, 18), (64, 10, 300), (64, 11, 4097),
+                                   (8, 4, 1), (16, 6, 5), (32, 11, 4097)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_tcn_stack_kernel_matches_plain(cuda_device, rng, C, L, T, causal, use_mask):
@@ -94,12 +101,14 @@ def test_tcn_stack_kernel_matches_plain(cuda_device, rng, C, L, T, causal, use_m
     torch.cuda.synchronize()
     want = ttcn.dilated_stack_xla(x, w3, b3, w1, b1, causal=causal, mask=m)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    assert ttcn.dilated_residual_stack.launches == before + L
+    assert ttcn.dilated_residual_stack.launches == before + 1
 
 
+@pytest.mark.parametrize("T", [257, 1, 5, 18, 300, 4096, 4097])
 @pytest.mark.parametrize("use_mask", [False, True])
-def test_tcn_multistack_kernel_matches_plain(cuda_device, rng, use_mask):
-    C, T, layers = 64, 257, (11, 10, 10, 10)
+def test_tcn_multistack_kernel_matches_plain(cuda_device, rng, use_mask, T):
+    """COG's 41 layers (11 + 3 x 10) at C=64 in one launch."""
+    C, layers = 64, (11, 10, 10, 10)
     x = _dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device)
     stages = [_stack(rng, L, T, C, cuda_device) for L in layers]
     masks = [s[4] for s in stages] if use_mask else None
@@ -112,7 +121,93 @@ def test_tcn_multistack_kernel_matches_plain(cuda_device, rng, use_mask):
         h = ttcn.dilated_stack_xla(h, *st[:4], mask=None if masks is None else masks[s])
         want.append(h)
     torch.testing.assert_close(got, torch.stack(want), rtol=1e-4, atol=1e-4)
-    assert ttcn.dilated_residual_multistack_stages.launches == before + sum(layers)
+    assert ttcn.dilated_residual_multistack_stages.launches == before + 1
+
+
+@pytest.mark.parametrize("C,T,layers", [(64, 1, (11, 10)), (64, 5, (11, 10, 10, 10)),
+                                        (64, 18, (11,)), (64, 300, (11, 10, 10, 10)),
+                                        (64, 4097, (11, 10)), (8, 33, (3, 2, 2)),
+                                        (16, 64, (4,)), (32, 300, (2, 5))])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tcn_saving_forward_matches_plain_and_feeds_the_backward(cuda_device, rng, C, T,
+                                                                 layers, causal):
+    """The training forward's stage outputs and saved (Lt, T, C) h and y
+    against the plain saving forward, then the backward kernels (K4) on them
+    against the plain backward, on the same saved tensors."""
+    x = _dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device)
+    stages = [_stack(rng, L, T, C, cuda_device) for L in layers]
+    ws, masks = [s[:4] for s in stages], [s[4] for s in stages]
+    before = ttcn.dilated_residual_multistack_stages.launches
+    got = ttcn._stages_fwd(x, ws, masks, causal, ttcn.dilated_residual_multistack_stages,
+                           save=True)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack_stages.launches == before + 1
+    want = ttcn._stages_fwd(x.cpu(), [[t.cpu() for t in w] for w in ws],
+                            [mk.cpu() for mk in masks], causal,
+                            ttcn.dilated_residual_multistack_stages, save=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    _, h_saved, y_saved = got
+    g = _dev(rng.normal(size=(len(layers), T, C)).astype(np.float32), cuda_device)
+    dx, dws = ttcn._stages_bwd(g, h_saved, y_saved, [(w[0], w[2]) for w in ws], masks,
+                               causal, ttcn.dilated_residual_multistack_stages_bwd)
+    want_dx, want_dws = ttcn._stages_bwd_plain(g, h_saved, y_saved,
+                                               [(w[0], w[2]) for w in ws], masks, causal)
+    _close_grad(dx, want_dx)
+    for got_w, want_w in zip(dws, want_dws):
+        for a, b in zip(got_w, want_w):
+            _close_grad(a, b)
+
+
+def test_tcn_forward_launch_fills_the_card_and_its_barrier_floor_runs(cuda_device, rng):
+    """The one-launch forward's grid, as the launch reports it: at most one
+    block a tile and no more than the card runs at once; the barrier-only
+    launch on the same grid."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    grids = {}
+    for T, C in ((1, 64), (18, 64), (300, 64), (1024, 64), (4096, 64), (4097, 8)):
+        x = _dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device)
+        ttcn.dilated_residual_stack(x, *_stack(rng, 2, T, C, cuda_device)[:4])
+        blocks, rows = grids[T, C] = ttcn.dilated_residual_stack.last_launch
+        assert 1 <= blocks <= -(-T // rows)
+        assert blocks <= sms * (1 if C == 64 else 8)
+    if sms == 132:          # an H100 SXM: one block an SM at C=64
+        assert grids[4096, 64] == (128, 32)
+        assert grids[1024, 64] == (64, 16)
+    ttcn.forward_barriers(grids[4096, 64], 64, 40)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):        # no instance has 7-row tiles
+        ttcn.forward_barriers((4, 7), 64, 1)
+
+
+@pytest.mark.parametrize("S", [17, 33])
+@pytest.mark.parametrize("T", [5, 300])
+def test_tcn_forward_takes_more_than_16_stacks(cuda_device, rng, S, T):
+    """More stacks than one launch carries: one launch for every 16, the
+    stage outputs and saved h, y continuing across launches, per-stage and
+    concatenated operands alike."""
+    C, layers = 16, (2,) + (1,) * (S - 1)
+    x = _dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device)
+    stages = [_stack(rng, L, T, C, cuda_device) for L in layers]
+    ws, masks = [s[:4] for s in stages], [s[4] for s in stages]
+    launches = -(-S // 16)
+    before = ttcn.dilated_residual_multistack_stages.launches
+    got = ttcn._stages_fwd(x, ws, masks, True, ttcn.dilated_residual_multistack_stages,
+                           save=True)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack_stages.launches == before + launches
+    want = ttcn._stages_fwd(x.cpu(), [[t.cpu() for t in w] for w in ws],
+                            [mk.cpu() for mk in masks], True,
+                            ttcn.dilated_residual_multistack_stages, save=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    cat = [torch.cat(t) for t in zip(*ws)]
+    before = ttcn.dilated_residual_multistack.launches
+    got = ttcn._multistack_fwd(x, *cat, torch.cat(masks), 2, 1, True, save=True)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack.launches == before + launches
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 def test_kernels_reject_inputs_they_do_not_take(cuda_device):
@@ -127,6 +222,16 @@ def test_kernels_reject_inputs_they_do_not_take(cuda_device):
          torch.zeros(2, 48, 48, device=cuda_device), torch.zeros(2, 48, device=cuda_device))
     with pytest.raises(ValueError):
         ttcn.dilated_residual_stack(x, *w)                           # C=48
+    x = torch.zeros(0, 8, device=cuda_device)
+    w = [t[..., :8, :8] if t.dim() > 2 else t[:, :8] for t in w]
+    w = [t.contiguous() for t in w]
+    before = ttcn.dilated_residual_stack.launches
+    with pytest.raises(ValueError, match="at least one row"):
+        ttcn.dilated_residual_stack(x, *w)                           # T=0
+    long = [torch.zeros((31, *t.shape[1:]), device=cuda_device) for t in w]
+    with pytest.raises(ValueError, match="1 to 30 layers"):
+        ttcn.dilated_residual_stack(torch.zeros(4, 8, device=cuda_device), *long)
+    assert ttcn.dilated_residual_stack.launches == before
 
 
 def test_small_cog_serves_the_same_on_card_and_cpu(cuda_device, rng):
@@ -153,8 +258,8 @@ def test_small_cog_serves_the_same_on_card_and_cpu(cuda_device, rng):
                                   want_p[np.abs(want_pr - 0.5) > 1e-5])
     assert counts == {**OP_API_IDLE,
                       "sliding_window_attention_packed": 2,
-                      "dilated_residual_multistack_stages": 4 + 2 * 3,
-                      "dilated_residual_stack": 4 + 2 * 3,
+                      "dilated_residual_multistack_stages": 1,
+                      "dilated_residual_stack": 1 + 2,
                       "sliding_window_attention_packed_bwd": 0,
                       "dilated_residual_multistack_stages_bwd": 0,
                       "dilated_residual_stack_bwd": 0,
@@ -303,8 +408,8 @@ def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
     assert ops.launch_counts() == {
         **OP_API_IDLE,
         "sliding_window_attention_packed": 2,
-        "dilated_residual_multistack_stages": 4 + 2 * 3,
-        "dilated_residual_stack": 4 + 2 * 3,
+        "dilated_residual_multistack_stages": 1,
+        "dilated_residual_stack": 1 + 2,
         "sliding_window_attention_packed_bwd": 2,
         "dilated_residual_multistack_stages_bwd": 2 * 10 + 1,
         "dilated_residual_stack_bwd": 2 * 10 + 3,
@@ -472,7 +577,9 @@ def _multistack_inputs(rng, C, T, L0, Lr, S, device):
 
 
 @pytest.mark.parametrize("C,T,L0,Lr,S", [(64, 257, 11, 10, 4), (8, 33, 3, 2, 3),
-                                         (16, 64, 4, 4, 1), (32, 300, 2, 5, 2)])
+                                         (16, 64, 4, 4, 1), (32, 300, 2, 5, 2),
+                                         (64, 1, 11, 10, 4), (64, 5, 11, 10, 2),
+                                         (64, 4097, 11, 10, 4)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_concatenated_multistack_kernels_match_plain(cuda_device, rng, C, T, L0, Lr,
@@ -486,7 +593,7 @@ def test_concatenated_multistack_kernels_match_plain(cuda_device, rng, C, T, L0,
     before = fwd.launches
     got = fwd(x, w3, b3, w1, b1, L0, Lr, causal=causal, mask=m)
     torch.cuda.synchronize()
-    assert fwd.launches == before + Lt
+    assert fwd.launches == before + 1
     want, want_h, want_y = ttcn.dilated_residual_multistack_plain(
         x, w3, b3, w1, b1, L0, Lr, causal=causal, mask=m, save=True)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
