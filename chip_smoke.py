@@ -15,8 +15,9 @@ non-zero and the last line is not printed:
    backward kernel (K3 attention, K4 slow-path TCN, K5 fast-path TCN)
    against its plain PyTorch version on the card at the COG path's shapes,
    with its time, the plain version's, the card's bound for the same work,
-   for the TCN forward the barrier floor of its one-launch design (the same
-   grid running its grid barriers and no work) and its grid,
+   for the TCN forward and backward the barrier floor of their one-launch
+   design (the same grid running its grid barriers and no work) and the
+   grid, for the TCN backward also two runs equal bit for bit,
    and, for the attention, the time of ``scaled_dot_product_attention``
    (forward; autograd backward for K3) with a band mask as a yardstick (the
    port never calls it); the same for the public op entry points' kernels:
@@ -107,8 +108,8 @@ CPU_TRAIN_FRAMES = 300
 # weight gradients are sums over T taken in another order.
 TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
        "tcn_stack_fwd/stack": (1e-4, 1e-4), "swa_packed_bwd": (1e-4, 1e-5),
-       "tcn_layer_bwd/multistack": (1e-4, 1e-5), "tcn_layer_bwd/stack": (1e-4, 1e-5),
-       "tcn_stack_fwd/concatenated": (1e-4, 1e-4), "tcn_multistack_bwd": (1e-4, 1e-5),
+       "tcn_stack_bwd/multistack": (1e-4, 1e-5), "tcn_stack_bwd/stack": (1e-4, 1e-5),
+       "tcn_stack_fwd/concatenated": (1e-4, 1e-4), "tcn_stack_bwd/concatenated": (1e-4, 1e-5),
        "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5)}
 # the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
 # it; fold 2Out tests trials 0 and 3 and trains on the rest
@@ -383,6 +384,31 @@ def _tcn_bwd_flops_bytes(T: int, C: int, layers, n_g: int, n_dx: int):
     return nbytes, flops
 
 
+def _bwd_barrier_floor(wrapper, calls) -> dict:
+    """The one-launch TCN backward's floor for ``calls``, the (layers, T) of
+    each backward call: the grid of ``wrapper``'s last launch at C=64,
+    launched with the barriers each call makes and no work. The timed
+    floor, and under ``floor_note`` (for the log only) the barriers and the
+    grid."""
+    from med_tpu_torch.ops.tcn_fused import backward_barrier_count, backward_barriers
+
+    blocks, rows = launch = wrapper.last_launch
+    counts = [backward_barrier_count(L, T) for L, T in calls]
+    return dict(barrier_floor_ms=cuda_ms(
+        lambda: [backward_barriers(launch, 64, n) for n in counts], 20),
+        floor_note=f"{sum(counts)} grid barriers, {blocks} blocks x {rows} rows; "
+                   f"two runs equal bit for bit")
+
+
+def _same_bits(name: str, run) -> None:
+    """Raise unless two calls of ``run`` return equal tensors bit for bit."""
+    def flat(x):
+        return [t for y in x for t in flat(y)] if isinstance(x, (list, tuple)) else [x]
+    for i, (a, b) in enumerate(zip(flat(run()), flat(run()))):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: two runs differ in output {i}")
+
+
 def _multistack_bwd_case(T: int, gen: torch.Generator):
     """K4: the slow path's backward at T frames, 11 + 3x10 layers at C=64,
     causal, with dropout masks and a cotangent on every stage output."""
@@ -400,17 +426,42 @@ def _multistack_bwd_case(T: int, gen: torch.Generator):
         g, h_saved, y_saved, ws, 11, 10, masks=masks)
     plain = lambda: tcn._stages_bwd_plain(  # noqa: E731
         g, h_saved, y_saved, [(w[0], w[2]) for w in ws], masks, True)
-    rtol, atol = TOL["tcn_layer_bwd/multistack"]
+    rtol, atol = TOL["tcn_stack_bwd/multistack"]
     (dx, dws), (p_dx, p_dws) = run(), plain()
     err = check_grads(f"multistack bwd T={T} dx", [dx], [p_dx], rtol, atol)
     for s, (got, want) in enumerate(zip(dws, p_dws)):
         for n, a, b in zip(("dw3", "db3", "dw1", "db1"), got, want):
             err = max(err, check_grads(f"multistack bwd T={T} stage {s} {n}",
                                        [a], [b], rtol, atol))
+    _same_bits(f"multistack bwd T={T}", run)
     nbytes, flops = _tcn_bwd_flops_bytes(T, 64, layers, len(layers), 1)
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                phase_note=_bwd_phases(g, h_saved, y_saved, ws, masks),
+                **_bwd_barrier_floor(tcn.dilated_residual_multistack_stages_bwd,
+                                     [(sum(layers), T)]))
+
+
+def _bwd_phases(g, h_saved, y_saved, ws, masks, runs: int = 5) -> str:
+    """Where one K4 launch spends its time, from block 0's device clock:
+    the layer chain, the weight-gradient items (until the last block ends
+    its items) and the sum of their partials; medians of ``runs`` launches,
+    for the log."""
+    from types import SimpleNamespace
+
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    marks = torch.zeros(4, dtype=torch.int64, device="cuda")
+    spans = []
+    for _ in range(runs):
+        tcn._stages_bwd_cuda(g, h_saved, y_saved, [(w[0], w[2]) for w in ws], masks, True,
+                             SimpleNamespace(launches=0, last_launch=None), marks=marks)
+        m = marks.tolist()
+        spans.append([(b - a) / 1e6 for a, b in zip(m, m[1:])])
+    chain, items, total = (statistics.median(x) for x in zip(*spans))
+    return (f"chain {chain:.4f} ms, weight-gradient items {items:.4f} ms, "
+            f"their sum {total:.4f} ms (block 0's clock)")
 
 
 def _fast_stacks_bwd_case(T: int, gen: torch.Generator):
@@ -433,16 +484,19 @@ def _fast_stacks_bwd_case(T: int, gen: torch.Generator):
         g, h, y, w[0], w[2], mask=mk) for g, h, y, w, mk in cases]
     plain = lambda: [tcn._stages_bwd_plain(  # noqa: E731
         g[None], h, y, [(w[0], w[2])], [mk], True) for g, h, y, w, mk in cases]
-    rtol, atol = TOL["tcn_layer_bwd/stack"]
+    rtol, atol = TOL["tcn_stack_bwd/stack"]
     err = 0.0
     for i, (got, (p_dx, (p_dw,))) in enumerate(zip(run(), plain())):
         for n, a, b in zip(("dx", "dw3", "db3", "dw1", "db1"), got, (p_dx, *p_dw)):
             err = max(err, check_grads(f"fast stack {i} bwd T={Tf} {n}", [a], [b],
                                        rtol, atol))
+    _same_bits(f"fast stacks bwd T={Tf}", run)
     nbytes, flops = _tcn_bwd_flops_bytes(Tf, 64, layers, len(layers), len(layers))
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_bwd_barrier_floor(tcn.dilated_residual_stack_bwd,
+                                     [(L, Tf) for L in layers]))
 
 
 COG_STACKS = dict(L0=11, Lr=10, S=4)      # the slow path: 11 + 3x10 layers, Lt = 41
@@ -491,7 +545,7 @@ def _concat_multistack_bwd_case(T: int, gen: torch.Generator):
     layers, x, ws, mask, g = _concatenated_stacks(T, gen)
     L0, Lr = COG_STACKS["L0"], COG_STACKS["Lr"]
     w3, _, w1, _ = ws
-    rtol, atol = TOL["tcn_multistack_bwd"]
+    rtol, atol = TOL["tcn_stack_bwd/concatenated"]
     err = 0.0
     for m in (None, mask):
         _, h_saved, y_saved = tcn._multistack_fwd(x, *ws, m, L0, Lr, True, save=True)
@@ -503,10 +557,13 @@ def _concat_multistack_bwd_case(T: int, gen: torch.Generator):
             err = max(err, check_grads(
                 f"concatenated multistack bwd T={T} mask={m is not None} {n}",
                 [a], [b], rtol, atol))
+    _same_bits(f"concatenated multistack bwd T={T}", run)
     nbytes, flops = _tcn_bwd_flops_bytes(T, 64, layers, len(layers), 1)
     b_ms, b_by = bound(nbytes, flops)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_bwd_barrier_floor(tcn.dilated_residual_multistack_bwd,
+                                     [(sum(layers), T)]))
 
 
 COG_HEADS = dict(H=8, d=8, m=15, W=30)
@@ -584,10 +641,10 @@ KERNEL_CASES = (("swa_packed_fwd", _attention_case),
                 ("tcn_stack_fwd/multistack", _multistack_case),
                 ("tcn_stack_fwd/stack", _fast_stacks_case),
                 ("swa_packed_bwd", _attention_bwd_case),
-                ("tcn_layer_bwd/multistack", _multistack_bwd_case),
-                ("tcn_layer_bwd/stack", _fast_stacks_bwd_case),
+                ("tcn_stack_bwd/multistack", _multistack_bwd_case),
+                ("tcn_stack_bwd/stack", _fast_stacks_bwd_case),
                 ("tcn_stack_fwd/concatenated", _concat_multistack_case),
-                ("tcn_multistack_bwd", _concat_multistack_bwd_case),
+                ("tcn_stack_bwd/concatenated", _concat_multistack_bwd_case),
                 ("swa_headmajor_fwd", _head_major_case),
                 ("swa_headmajor_bwd", _head_major_bwd_case))
 
@@ -602,12 +659,15 @@ def phase_kernels(profile: bool):
                 _profile(f"{name} T={T}", r.pop("run"))
             r.pop("run", None)
             floor_note = r.pop("floor_note", None)
+            phase_note = r.pop("phase_note", None)
             results[name] = r
             lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             saving = (f", saving forward with mask {r['saving_ms']:.4f} ms"
                       if "saving_ms" in r else "")
             if floor_note is not None:
                 saving += f", barrier floor {r['barrier_floor_ms']:.4f} ms ({floor_note})"
+            if phase_note is not None:
+                saving += f"; {phase_note}"
             rtol, atol = TOL[name]
             atol_txt = f"{atol} x max|want|" if "bwd" in name else f"{atol}"
             log(f"[kernels] {name} at T={T}: max_abs_err {r['max_abs_err']:.3e} "
@@ -619,10 +679,10 @@ def phase_kernels(profile: bool):
 
 def op_api_launches(n: int):
     """Launches of n forward and backward passes through the two public op
-    entry points at COG's shapes: K6 one launch a call, K7 two a layer plus
-    one reduction (41 layers), K8 and K9 one launch each."""
+    entry points at COG's shapes: K6 and K7 one launch a call (41 layers),
+    K8 and K9 one launch each."""
     return {"dilated_residual_multistack": n,
-            "dilated_residual_multistack_bwd": (2 * 41 + 1) * n,
+            "dilated_residual_multistack_bwd": n,
             "sliding_window_attention_pallas": n,
             "sliding_window_attention_bwd_pallas": n}
 
@@ -735,11 +795,11 @@ def forward_launches(n: int):
 
 def backward_launches(n: int):
     """Backward launches of n COG train steps: one K3 per attention layer;
-    two per TCN layer plus one weight-gradient reduction per call (the slow
-    path is one call of 41 layers, the fast path four of 11 + 3x10)."""
+    one TCN backward launch per call, its weight gradients included (the
+    slow path is one call of 41 layers, the fast path four of 11 + 3x10)."""
     return {"sliding_window_attention_packed_bwd": 2 * n,
-            "dilated_residual_multistack_stages_bwd": (2 * 41 + 1) * n,
-            "dilated_residual_stack_bwd": (2 * 41 + 4) * n,
+            "dilated_residual_multistack_stages_bwd": n,
+            "dilated_residual_stack_bwd": 4 * n,
             "dilated_residual_multistack_bwd": 0,
             "sliding_window_attention_bwd_pallas": 0}
 
@@ -1582,10 +1642,10 @@ def main(argv) -> int:
                "swa_packed_bwd": ("med_tpu_torch/csrc/swa_packed_bwd.cu",
                                   "med_tpu/ops/attention.py:506",
                                   "sliding_window_attention_packed_bwd"),
-               "tcn_layer_bwd/multistack": ("med_tpu_torch/csrc/tcn_layer_bwd.cu",
+               "tcn_stack_bwd/multistack": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
                                             "med_tpu/ops/tcn_fused.py:872",
                                             "dilated_residual_multistack_stages_bwd"),
-               "tcn_layer_bwd/stack": ("med_tpu_torch/csrc/tcn_layer_bwd.cu",
+               "tcn_stack_bwd/stack": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
                                        "med_tpu/ops/tcn_fused.py:193",
                                        "dilated_residual_stack_bwd"),
                "resnet_stage": ("med_tpu_torch/csrc/resnet_stage.cu",
@@ -1594,9 +1654,9 @@ def main(argv) -> int:
                "tcn_stack_fwd/concatenated": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
                                               "med_tpu/ops/tcn_fused.py:415",
                                               "dilated_residual_multistack"),
-               "tcn_multistack_bwd": ("med_tpu_torch/csrc/tcn_multistack_bwd.cu",
-                                      "med_tpu/ops/tcn_fused.py:508",
-                                      "dilated_residual_multistack_bwd"),
+               "tcn_stack_bwd/concatenated": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
+                                              "med_tpu/ops/tcn_fused.py:508",
+                                              "dilated_residual_multistack_bwd"),
                "swa_headmajor_fwd": ("med_tpu_torch/csrc/swa_headmajor_fwd.cu",
                                      "med_tpu/ops/attention.py:128",
                                      "sliding_window_attention_pallas"),
@@ -1609,7 +1669,7 @@ def main(argv) -> int:
     # every phase's count beside it (the pixel request's trunk is ResNet50;
     # the driver's count is its first run, 2 folds x 2 epochs)
     own_path = {"resnet_stage": fused_trunk, "tcn_stack_fwd/concatenated": op_api,
-                "tcn_multistack_bwd": op_api, "swa_headmajor_fwd": op_api,
+                "tcn_stack_bwd/concatenated": op_api, "swa_headmajor_fwd": op_api,
                 "swa_headmajor_bwd": op_api}
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": own_path.get(name, training)[wrapper],

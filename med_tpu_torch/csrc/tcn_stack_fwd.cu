@@ -18,8 +18,8 @@
 // w1 (C, C) [in][out]; b3, b1 (C); mask (T, C). The output of a stack's last
 // layer is its row of hs (S, T, C) and the input of the next stack. A
 // training forward also writes every layer's input h and post-relu y to
-// h_saved and y_saved (Lt, T, C), the layout the backward kernels read
-// (tcn_layer_bwd.cu, tcn_multistack_bwd.cu).
+// h_saved and y_saved (Lt, T, C), the layout the backward kernel reads
+// (tcn_stack_bwd.cu).
 //
 // What bounds it on an H100: operations. A layer is 8*T*C*C flops against
 // ~2*T*C*4 bytes of activations, ~64 flop/byte at C=64, above the fp32 ridge

@@ -10,18 +10,19 @@ with the mask only in training. Shapes:  x (T, C);  w3 (L, 3, C, C)
 
 On a CUDA tensor every layer of a call's stacks runs in one persistent
 launch of the hand-written kernel ``csrc/tcn_stack_fwd.cu`` (a grid barrier
-between layers; one launch for every 16 stacks); on a CPU tensor the plain version :func:`dilated_stack_xla`
-runs. Where autograd needs a gradient, the forward also saves every layer's
-input h and post-relu y (the TPU kernels' ``save=True`` residuals) and the
-backward walks the layers in reverse: on the card two launches a layer of
-``csrc/tcn_layer_bwd.cu`` plus one that sums the weight gradients, on the
-CPU the plain loop :func:`_layer_bwd_plain`.
+between layers; one launch for every 16 stacks); on a CPU tensor the plain
+version :func:`dilated_stack_xla` runs. Where autograd needs a gradient, the
+forward also saves every layer's input h and post-relu y (the TPU kernels'
+``save=True`` residuals) and the backward walks the layers in reverse: on
+the card in one persistent launch of ``csrc/tcn_stack_bwd.cu`` (one grid
+barrier a layer, the weight gradients after the last layer in the same
+launch; one launch for every 16 stacks), on the CPU the plain loop
+:func:`_layer_bwd_plain`.
 
 :func:`dilated_residual_multistack` is the same sequence of stacks with the
 weights of all stacks concatenated on the layer axis (w3 (Lt, 3, C, C), ...,
-mask (Lt, T, C)): on the card the same forward kernel and
-``csrc/tcn_multistack_bwd.cu`` find each stage's slices by offset, so
-nothing is split or joined on the host.
+mask (Lt, T, C)): on the card the same two kernels find each stage's slices
+by offset, so nothing is split or joined on the host.
 """
 
 from __future__ import annotations
@@ -159,22 +160,23 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-_FWD = "tcn_stack_fwd"
+_FWD, _BWD = "tcn_stack_fwd", "tcn_stack_bwd"
 _STAGES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 4 \
     + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
 
 
-def _launch_fwd(entry: str, argtypes, counter, *args) -> None:
-    """Call the forward C entry ``entry`` with ``args`` and then its launch
-    count, grid and tile-height out-parameters and the current stream;
-    raise ``counter.launches`` by the launches the runtime accepted and set
-    ``counter.last_launch`` to the (blocks, rows a tile) they ran with."""
+def _launch(lib: str, entry: str, argtypes, counter, *args) -> None:
+    """Call the C entry ``entry`` of kernel library ``lib`` with ``args``
+    and then its launch count, grid and tile-height out-parameters and the
+    current stream; raise ``counter.launches`` by the launches the runtime
+    accepted and set ``counter.last_launch`` to the (blocks, rows a tile)
+    they ran with."""
     launched, blocks, rows = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    fn = cuda_build.kernel_function(_FWD, entry, argtypes)
+    fn = cuda_build.kernel_function(lib, entry, argtypes)
     code = fn(*args, ctypes.byref(launched), ctypes.byref(blocks), ctypes.byref(rows),
               torch.cuda.current_stream().cuda_stream)
     counter.launches += launched.value
-    cuda_build.check_launch(_FWD, _FWD, code)
+    cuda_build.check_launch(lib, lib, code)
     counter.last_launch = (blocks.value, rows.value)
 
 
@@ -196,12 +198,20 @@ def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
     mks = None if masks is None else _pointers(masks)
     layers = (ctypes.c_int * S)(*Ls)
     with torch.cuda.device(dev):
-        _launch_fwd("tcn_stages_fwd", _STAGES_ARGTYPES, counter, x.data_ptr(),
-                    ctypes.addressof(w3s), ctypes.addressof(b3s), ctypes.addressof(w1s),
-                    ctypes.addressof(b1s), None if mks is None else ctypes.addressof(mks),
-                    ctypes.addressof(layers), S, hs.data_ptr(), _ptr(h_saved),
-                    _ptr(y_saved), scratch.data_ptr(), T, C, int(causal))
+        _launch(_FWD, "tcn_stages_fwd", _STAGES_ARGTYPES, counter, x.data_ptr(),
+                ctypes.addressof(w3s), ctypes.addressof(b3s), ctypes.addressof(w1s),
+                ctypes.addressof(b1s), None if mks is None else ctypes.addressof(mks),
+                ctypes.addressof(layers), S, hs.data_ptr(), _ptr(h_saved),
+                _ptr(y_saved), scratch.data_ptr(), T, C, int(causal))
     return (hs, h_saved, y_saved) if save else hs
+
+
+def _barriers(lib: str, symbol: str, launch: Tuple[int, int], C: int, n: int,
+              device) -> None:
+    fn = cuda_build.kernel_function(lib, symbol, [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(device):
+        code = fn(*launch, C, n, torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(lib, lib, code)
 
 
 def forward_barriers(launch: Tuple[int, int], C: int, n: int, device=None) -> None:
@@ -209,15 +219,30 @@ def forward_barriers(launch: Tuple[int, int], C: int, n: int, device=None) -> No
     tile) as a wrapper's ``last_launch`` gives it, at C channels, running
     ``n`` grid barriers and nothing else: the floor of the one-launch
     design, for measurement. Counts no launch."""
-    fn = cuda_build.kernel_function(_FWD, "tcn_stack_barriers",
-                                    [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    with torch.cuda.device(device):
-        code = fn(*launch, C, n, torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(_FWD, _FWD, code)
+    _barriers(_FWD, "tcn_stack_barriers", launch, C, n, device)
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
-    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+def backward_barriers(launch: Tuple[int, int], C: int, n: int, device=None) -> None:
+    """:func:`forward_barriers` for a backward launch's grid (the backward's
+    instances have their own shared memory, so their own occupancy)."""
+    _barriers(_BWD, "tcn_stack_bwd_barriers", launch, C, n, device)
+
+
+def _wgrad_chunks(T: int) -> int:
+    """The backward's weight-gradient chunks over T rows, as the kernel
+    counts them: P > 1 needs the (Lt, P, 4C^2 + 2C) partial buffer."""
+    return cuda_build.kernel_function(_BWD, "tcn_stack_bwd_chunks", [ctypes.c_int])(T)
+
+
+def backward_barrier_count(layers: int, T: int) -> int:
+    """Grid barriers one backward launch over ``layers`` layers and T rows
+    makes: one after each layer's dz and da are written, and one before the
+    weight-gradient partials are summed when there is more than one chunk."""
+    return layers + (1 if _wgrad_chunks(T) > 1 else 0)
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 9 \
+    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
 
 
 def _pointers(tensors):
@@ -226,13 +251,28 @@ def _pointers(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _bwd_buffers(T: int, C: int, Lt: int, dev):
+    """The backward's dx (T, C); its per-layer dz and da slots (Lt, T, C);
+    the weight-gradient partials (Lt, P, 4C^2 + 2C), or None when T fits
+    one chunk; and the gradients dw3, db3, dw1, db1."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = _wgrad_chunks(T)
+    partial = torch.empty((Lt, P, 4 * C * C + 2 * C), **f32) if P > 1 else None
+    return (torch.empty((T, C), **f32), torch.empty((Lt, T, C), **f32),
+            torch.empty((Lt, T, C), **f32), partial, torch.empty((Lt, 3, C, C), **f32),
+            torch.empty((Lt, C), **f32), torch.empty((Lt, C, C), **f32),
+            torch.empty((Lt, C), **f32))
+
+
 def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
-                     counter):
-    """Backward of :func:`_stages_cuda` on the card, one call into
-    ``tcn_layer_bwd.cu``: per layer, in reverse, two launches; then one that
-    sums the weight-gradient partials in a fixed order. ``stage_weights``
-    holds each stage's (w3, w1). Returns (dx, per stage (dw3, db3, dw1,
-    db1))."""
+                     counter, marks=None):
+    """Backward of :func:`_stages_cuda` on the card: every layer and the
+    weight gradients in one launch of ``tcn_stack_bwd.cu`` for every 16
+    stages. ``stage_weights`` holds each stage's (w3, w1). ``marks``, for
+    measurement, is None or a (4,) int64 tensor on the card that receives
+    the device clock (ns) at the launch's start, the chain's end, the
+    weight-gradient items' end and the launch's end, as block 0 sees them.
+    Returns (dx, per stage (dw3, db3, dw1, db1))."""
     S, T, C = g.shape
     dev = g.device
     Ls = [w[0].shape[0] for w in stage_weights]
@@ -244,33 +284,28 @@ def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     _check_stages((T, C), stage_weights, masks, dev, names=("w3", "w1"))
-    fn = cuda_build.kernel_function("tcn_layer_bwd", "tcn_stages_bwd", _BWD_ARGTYPES)
-    chunks = cuda_build.kernel_function("tcn_layer_bwd", "tcn_wgrad_chunks",
-                                        [ctypes.c_int])(T)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dh = torch.zeros((T, C), **f32)
-    dz, da = torch.empty((T, C), **f32), torch.empty((T, C), **f32)
-    partial = torch.empty((Lt, chunks, 4 * C * C + 2 * C), **f32)
-    dw3, dw1 = torch.empty((Lt, 3, C, C), **f32), torch.empty((Lt, C, C), **f32)
-    db3, db1 = torch.empty((Lt, C), **f32), torch.empty((Lt, C), **f32)
+    _check_fwd_counts(T, Ls)
+    if marks is not None:
+        cuda_build.check_operand("marks", marks, dev, torch.int64)
+        if marks.numel() != 4:
+            raise ValueError(f"marks holds {marks.numel()} words, expected 4")
+    dx, dz, da, partial, dw3, db3, dw1, db1 = _bwd_buffers(T, C, Lt, dev)
     w3s = _pointers([w[0] for w in stage_weights])
     w1s = _pointers([w[1] for w in stage_weights])
     mks = None if masks is None else _pointers(masks)
     layers = (ctypes.c_int * S)(*Ls)
-    launched = ctypes.c_int(0)          # raised by the C loop at each launch
-    code = fn(dh.data_ptr(), g.data_ptr(), h_saved.data_ptr(), y_saved.data_ptr(),
-              ctypes.addressof(w3s), ctypes.addressof(w1s),
-              None if mks is None else ctypes.addressof(mks), ctypes.addressof(layers),
-              S, dz.data_ptr(), da.data_ptr(), partial.data_ptr(), dw3.data_ptr(),
-              db3.data_ptr(), dw1.data_ptr(), db1.data_ptr(), T, C, int(causal),
-              ctypes.byref(launched), torch.cuda.current_stream(dev).cuda_stream)
-    counter.launches += launched.value
-    cuda_build.check_launch("tcn_layer_bwd", "tcn_stages_bwd", code)
+    with torch.cuda.device(dev):
+        _launch(_BWD, "tcn_stages_bwd", _BWD_ARGTYPES, counter, g.data_ptr(),
+                h_saved.data_ptr(), y_saved.data_ptr(), ctypes.addressof(w3s),
+                ctypes.addressof(w1s), None if mks is None else ctypes.addressof(mks),
+                ctypes.addressof(layers), S, dx.data_ptr(), dz.data_ptr(), da.data_ptr(),
+                _ptr(partial), dw3.data_ptr(), db3.data_ptr(), dw1.data_ptr(),
+                db1.data_ptr(), _ptr(marks), T, C, int(causal))
     dws, a = [], 0
     for L in Ls:
         dws.append((dw3[a:a + L], db3[a:a + L], dw1[a:a + L], db1[a:a + L]))
         a += L
-    return dh, dws
+    return dx, dws
 
 
 def _stages_fwd(x, stage_weights, masks, causal: bool, counter, save: bool):
@@ -358,8 +393,9 @@ def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = Tr
     """Backward of one stack from its saved layer inputs and post-relu
     activations (L, T, C) and the output cotangent g (T, C) -> (dx, dw3,
     db3, dw1, db1), as med_tpu's ``_bwd_call``. A CUDA tensor runs the CUDA
-    kernels, 2L + 1 launches (replacing
-    med_tpu/ops/tcn_fused.py::_bwd_kernel); a CPU tensor the plain loop."""
+    kernel, one launch, whose (blocks, rows a tile) ``.last_launch`` keeps
+    (replacing med_tpu/ops/tcn_fused.py::_bwd_kernel); a CPU tensor the
+    plain loop."""
     dx, dws = _stages_bwd(g[None].contiguous(), h_saved, y_saved, [(w3, w1)],
                           None if mask is None else [mask], causal,
                           dilated_residual_stack_bwd)
@@ -367,6 +403,7 @@ def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = Tr
 
 
 dilated_residual_stack_bwd.launches = 0
+dilated_residual_stack_bwd.last_launch = None
 
 
 def _check_layer_counts(stage_weights, L0: int, Lr: int) -> None:
@@ -405,7 +442,8 @@ def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
     (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
     stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
     per stage (dw3, db3, dw1, db1)), as med_tpu's ``_multi_bwd_call_s``. A
-    CUDA tensor runs the CUDA kernels, 2 Lt + 1 launches (replacing
+    CUDA tensor runs the CUDA kernel, one launch for every 16 stacks, whose
+    (blocks, rows a tile) ``.last_launch`` keeps (replacing
     med_tpu/ops/tcn_fused.py::_multi_bwd_kernel_s); a CPU tensor the plain
     loop."""
     _check_layer_counts(stage_weights, L0, Lr)
@@ -415,6 +453,7 @@ def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
 
 
 dilated_residual_multistack_stages_bwd.launches = 0
+dilated_residual_multistack_stages_bwd.last_launch = None
 
 
 # --- operands concatenated on the layer axis -----------------------------
@@ -489,8 +528,8 @@ def _check_multistack(T: int, C: int, dev, named, mask) -> int:
 
 _MULTI_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
     + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
-_MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 \
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+_MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+    + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
 
 
 def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool,
@@ -502,11 +541,11 @@ def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool
     _check_fwd_counts(T, lengths)
     hs, scratch, h_saved, y_saved = _fwd_buffers(T, C, len(lengths), Lt, dev, save)
     with torch.cuda.device(dev):
-        _launch_fwd("tcn_multistack_fwd", _MULTI_ARGTYPES, dilated_residual_multistack,
-                    x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), _ptr(mask), hs.data_ptr(), _ptr(h_saved),
-                    _ptr(y_saved), scratch.data_ptr(), T, C, Lt, L0, max(Lr, 1),
-                    int(causal))
+        _launch(_FWD, "tcn_multistack_fwd", _MULTI_ARGTYPES, dilated_residual_multistack,
+                x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), _ptr(mask), hs.data_ptr(), _ptr(h_saved),
+                _ptr(y_saved), scratch.data_ptr(), T, C, Lt, L0, max(Lr, 1),
+                int(causal))
     return (hs, h_saved, y_saved) if save else hs
 
 
@@ -525,10 +564,10 @@ def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
     (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
     stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
     dw3, db3, dw1, db1) in the concatenated layout, as med_tpu's
-    ``_multi_bwd_call``. A CUDA tensor runs the CUDA kernels, 2 Lt + 1
-    launches made by one C call (replacing
-    med_tpu/ops/tcn_fused.py::_multi_bwd_kernel); a CPU tensor the plain
-    version; any other device raises."""
+    ``_multi_bwd_call``. A CUDA tensor runs the CUDA kernel, one launch for
+    every 16 stacks, whose (blocks, rows a tile) ``.last_launch`` keeps
+    (replacing med_tpu/ops/tcn_fused.py::_multi_bwd_kernel); a CPU tensor
+    the plain version; any other device raises."""
     if g.device.type == "cpu":
         return dilated_residual_multistack_bwd_plain(
             g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=mask)
@@ -541,30 +580,20 @@ def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
     if S != len(_stage_lengths(Lt, L0, Lr)):
         raise ValueError(f"g holds {S} stage cotangents; {Lt} layers of "
                          f"L0={L0}, Lr={Lr} make {len(_stage_lengths(Lt, L0, Lr))}")
-    name = "tcn_multistack_bwd"
-    fn = cuda_build.kernel_function(name, name, _MULTI_BWD_ARGTYPES)
-    chunks = cuda_build.kernel_function(name, "tcn_multistack_wgrad_chunks",
-                                        [ctypes.c_int])(T)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.zeros((T, C), **f32)
-    dz, da = torch.empty((T, C), **f32), torch.empty((T, C), **f32)
-    partial = torch.empty((Lt, chunks, 4 * C * C + 2 * C), **f32)
-    dw3, dw1 = torch.empty((Lt, 3, C, C), **f32), torch.empty((Lt, C, C), **f32)
-    db3, db1 = torch.empty((Lt, C), **f32), torch.empty((Lt, C), **f32)
-    launched = ctypes.c_int(0)
-    code = fn(dx.data_ptr(), g.data_ptr(), h_saved.data_ptr(), y_saved.data_ptr(),
-              w3.data_ptr(), w1.data_ptr(),
-              None if mask is None else mask.data_ptr(), dz.data_ptr(),
-              da.data_ptr(), partial.data_ptr(), dw3.data_ptr(), db3.data_ptr(),
-              dw1.data_ptr(), db1.data_ptr(), T, C, Lt, L0, max(Lr, 1),
-              int(causal), ctypes.byref(launched),
-              torch.cuda.current_stream(dev).cuda_stream)
-    dilated_residual_multistack_bwd.launches += launched.value
-    cuda_build.check_launch(name, name, code)
+    _check_fwd_counts(T, _stage_lengths(Lt, L0, Lr))
+    dx, dz, da, partial, dw3, db3, dw1, db1 = _bwd_buffers(T, C, Lt, dev)
+    with torch.cuda.device(dev):
+        _launch(_BWD, "tcn_multistack_bwd", _MULTI_BWD_ARGTYPES,
+                dilated_residual_multistack_bwd, g.data_ptr(), h_saved.data_ptr(),
+                y_saved.data_ptr(), w3.data_ptr(), w1.data_ptr(), _ptr(mask),
+                dx.data_ptr(), dz.data_ptr(), da.data_ptr(), _ptr(partial),
+                dw3.data_ptr(), db3.data_ptr(), dw1.data_ptr(), db1.data_ptr(), None, T,
+                C, Lt, L0, max(Lr, 1), int(causal))
     return dx, dw3, db3, dw1, db1
 
 
 dilated_residual_multistack_bwd.launches = 0
+dilated_residual_multistack_bwd.last_launch = None
 
 
 class _Multistack(torch.autograd.Function):

@@ -2,7 +2,9 @@
 card, at awkward shapes (ragged tiles, dilations wider than the sequence,
 acausal taps, dropout masks, images narrower than a tile; for the one-launch
 TCN forward also T = 1 and 5, where every block but one has no rows, and
-the 300-frame request's 18 and 300 rows), the small COG
+the 300-frame request's 18 and 300 rows; for the one-launch TCN backward
+T = 1, 17 and 33 at every channel count, more than 16 stacks, and two runs
+equal bit for bit), the small COG
 served on the card against the CPU, and a small ResNet trunk and pixel
 front end on the card against the CPU. They need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -314,7 +316,7 @@ def test_tcn_stack_bwd_kernel_matches_plain(cuda_device, rng, C, L, T, causal, u
                               _dev(g, dev)))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert ttcn.dilated_residual_stack_bwd.launches == before + 2 * L + 1
+            assert ttcn.dilated_residual_stack_bwd.launches == before + 1
     (o, dx, (dws,)), (wo, wdx, (wdws,)) = results
     torch.testing.assert_close(o.cpu(), wo, rtol=1e-4, atol=1e-4)
     for a, b in zip([dx, *dws], [wdx, *wdws]):
@@ -341,13 +343,120 @@ def test_tcn_multistack_bwd_kernel_matches_plain(cuda_device, rng, use_mask):
     dx, dws = ttcn.dilated_residual_multistack_stages_bwd(
         g, h_saved, y_saved, [s[:4] for s in stages], 11, 10, masks=masks)
     torch.cuda.synchronize()
-    assert ttcn.dilated_residual_multistack_stages_bwd.launches == before + 2 * sum(layers) + 1
+    assert ttcn.dilated_residual_multistack_stages_bwd.launches == before + 1
     want_dx, want_dws = ttcn._stages_bwd_plain(g, h_saved, y_saved,
                                                [(s[0], s[2]) for s in stages], masks, True)
     _close_grad(dx, want_dx)
     for got, want in zip(dws, want_dws):
         for a, b in zip(got, want):
             _close_grad(a, b)
+
+
+def _stages_bwd_case(rng, C, T, layers, causal, use_mask, device):
+    """Saved h, y from the card's saving forward, a cotangent on every stage
+    output, and each stage's (w3, w1) and mask, for a backward call."""
+    x = _dev(rng.normal(size=(T, C)).astype(np.float32), device)
+    stages = [_stack(rng, L, T, C, device) for L in layers]
+    masks = [s[4] for s in stages] if use_mask else None
+    _, h_saved, y_saved = ttcn._stages_fwd(x, [s[:4] for s in stages], masks, causal,
+                                           ttcn.dilated_residual_multistack_stages,
+                                           save=True)
+    g = _dev(rng.normal(size=(len(layers), T, C)).astype(np.float32), device)
+    return g, h_saved, y_saved, [(s[0], s[2]) for s in stages], masks
+
+
+# T = 1: one row, every tap but the centre outside; 17 and 33: one row past
+# a 16- or 32-row tile
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+@pytest.mark.parametrize("T", [1, 17, 33])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_tcn_bwd_kernel_at_short_sequences(cuda_device, rng, C, T, causal, use_mask):
+    """The one-launch backward at sequences shorter than, or one row past, a
+    tile, for every channel count: three stages, so each stage's cotangent
+    enters at its own layer."""
+    g, h_saved, y_saved, ws, masks = _stages_bwd_case(rng, C, T, (3, 2, 2), causal,
+                                                      use_mask, cuda_device)
+    before = ttcn.dilated_residual_multistack_stages_bwd.launches
+    dx, dws = ttcn._stages_bwd(g, h_saved, y_saved, ws, masks, causal,
+                               ttcn.dilated_residual_multistack_stages_bwd)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack_stages_bwd.launches == before + 1
+    want_dx, want_dws = ttcn._stages_bwd_plain(g, h_saved, y_saved, ws, masks, causal)
+    _close_grad(dx, want_dx)
+    for got, want in zip(dws, want_dws):
+        for a, b in zip(got, want):
+            _close_grad(a, b)
+
+
+@pytest.mark.parametrize("T", [300, 4097])
+def test_tcn_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T):
+    """Two backward calls on the same inputs are equal bit for bit: no
+    atomics, the weight-gradient partials summed in chunk order (at T=4097
+    there are nine 512-row chunks)."""
+    g, h_saved, y_saved, ws, masks = _stages_bwd_case(rng, 64, T, (11, 10, 10, 10), True,
+                                                      True, cuda_device)
+    runs = [ttcn._stages_bwd(g, h_saved, y_saved, ws, masks, True,
+                             ttcn.dilated_residual_multistack_stages_bwd) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dx0, dws0), (dx1, dws1) = runs
+    assert torch.equal(dx0, dx1)
+    for got, want in zip(dws0, dws1):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_tcn_bwd_launch_fills_the_card_and_its_barrier_floor_runs(cuda_device, rng):
+    """The one-launch backward's grid, as the launch reports it: at most one
+    block a tile and no more than the card runs at once; the barrier-only
+    launch on the same grid."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    grids = {}
+    for T, C in ((1, 64), (18, 64), (300, 64), (1024, 64), (4096, 64), (4097, 8)):
+        g, h_saved, y_saved, ws, _ = _stages_bwd_case(rng, C, T, (2,), True, False,
+                                                      cuda_device)
+        ttcn.dilated_residual_stack_bwd(g[0], h_saved, y_saved, *ws[0])
+        blocks, rows = grids[T, C] = ttcn.dilated_residual_stack_bwd.last_launch
+        assert 1 <= blocks <= -(-T // rows)
+        assert blocks <= sms * (1 if C == 64 else 8)
+    if sms == 132:          # an H100 SXM: one block an SM at C=64
+        assert grids[4096, 64] == (128, 32)
+        assert grids[1024, 64] == (64, 16)
+    ttcn.backward_barriers(grids[4096, 64], 64, ttcn.backward_barrier_count(41, 4096))
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):        # no instance has 7-row tiles
+        ttcn.backward_barriers((4, 7), 64, 1)
+
+
+@pytest.mark.parametrize("S", [17, 33])
+@pytest.mark.parametrize("T", [5, 300])
+def test_tcn_backward_takes_more_than_16_stacks(cuda_device, rng, S, T):
+    """More stacks than one launch carries: one launch for every 16, the
+    last group first, dh carried from launch to launch; per-stage and
+    concatenated operands alike, against the plain backward."""
+    C, layers = 16, (2,) + (1,) * (S - 1)
+    g, h_saved, y_saved, ws, masks = _stages_bwd_case(rng, C, T, layers, True, True,
+                                                      cuda_device)
+    launches = -(-S // 16)
+    before = ttcn.dilated_residual_multistack_stages_bwd.launches
+    dx, dws = ttcn._stages_bwd(g, h_saved, y_saved, ws, masks, True,
+                               ttcn.dilated_residual_multistack_stages_bwd)
+    torch.cuda.synchronize()
+    assert ttcn.dilated_residual_multistack_stages_bwd.launches == before + launches
+    want_dx, want_dws = ttcn._stages_bwd_plain(g, h_saved, y_saved, ws, masks, True)
+    _close_grad(dx, want_dx)
+    for got, want in zip(dws, want_dws):
+        for a, b in zip(got, want):
+            _close_grad(a, b)
+    w3, w1 = (torch.cat(t) for t in zip(*ws))
+    bwd = ttcn.dilated_residual_multistack_bwd
+    before = bwd.launches
+    grads = bwd(g, h_saved, y_saved, w3, w1, 2, 1, mask=torch.cat(masks))
+    torch.cuda.synchronize()
+    assert bwd.launches == before + launches
+    want = (want_dx, *(torch.cat(t) for t in zip(*want_dws)))
+    for a, b in zip(grads, want):
+        _close_grad(a, b)
 
 
 def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
@@ -411,8 +520,8 @@ def test_small_cog_train_step_same_on_card_and_cpu(cuda_device, rng):
         "dilated_residual_multistack_stages": 1,
         "dilated_residual_stack": 1 + 2,
         "sliding_window_attention_packed_bwd": 2,
-        "dilated_residual_multistack_stages_bwd": 2 * 10 + 1,
-        "dilated_residual_stack_bwd": 2 * 10 + 3,
+        "dilated_residual_multistack_stages_bwd": 1,
+        "dilated_residual_stack_bwd": 3,
         "fused_bottleneck_stage": 0}
 
 
@@ -606,7 +715,7 @@ def test_concatenated_multistack_kernels_match_plain(cuda_device, rng, C, T, L0,
     before = bwd.launches
     grads = bwd(g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=m)
     torch.cuda.synchronize()
-    assert bwd.launches == before + 2 * Lt + 1
+    assert bwd.launches == before + 1
     want_grads = ttcn.dilated_residual_multistack_bwd_plain(
         g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=m)
     for a, b in zip(grads, want_grads):
@@ -707,7 +816,7 @@ def test_small_cli_run_on_the_card_equals_its_cpu_run(cuda_device, rng, tmp_path
     assert ops.launch_counts() == counts           # the CPU run launched nothing
     assert counts["sliding_window_attention_packed"] == 2 * 3
     assert counts["sliding_window_attention_packed_bwd"] == 2 * 2
-    assert counts["dilated_residual_multistack_stages_bwd"] == 2 * (2 * 4 + 1)
+    assert counts["dilated_residual_multistack_stages_bwd"] == 2 * 1
     np.testing.assert_allclose(card["1Out"]["probs"], cpu["1Out"]["probs"], rtol=0, atol=1e-4)
     listing = [sorted(str(f.relative_to(r.dir)) for f in Path(r.dir).rglob("*")
                       if f.is_file()) for r in (card_run, cpu_run)]
