@@ -20,7 +20,9 @@ non-zero and the last line is not printed:
    grid, for the TCN backward also two runs equal bit for bit,
    and, for the attention, the time of ``scaled_dot_product_attention``
    (forward; autograd backward for K3) with a band mask as a yardstick (the
-   port never calls it); the same for the public op entry points' kernels:
+   port never calls it), by the profiler the one kernel a K1 or K3 call runs
+   and its own device time a launch, and two K3 runs equal bit for bit;
+   the same for the public op entry points' kernels:
    K6/K7, the multistack with the stacks' weights concatenated on the layer
    axis (with and without dropout mask), and K8/K9, the head-major
    attention and its backward that recomputes the softmax; then (``[ops]``
@@ -193,6 +195,42 @@ def check_grads(name: str, got, want, rtol: float, atol_frac: float) -> float:
                for i, (g, w) in enumerate(zip(got, want)))
 
 
+def _device_events(fn, calls: int):
+    """The device kernels, copies and fills of ``calls`` calls of ``fn``
+    (after a warm call), by the profiler. A session whose trace holds no
+    device event at all recorded nothing (seen once in four runs, right
+    after another session): it is taken again, at most three sessions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+    return events
+
+
+def _device_launches(fn, kernel: str, calls: int = 20) -> str:
+    """Raise unless each of ``calls`` calls of ``fn`` ran exactly one device
+    kernel, named ``kernel``, by the profiler: no copy, fill or other pass
+    beside it. Returns, for the log, the launches a call and the kernel's
+    own device time a launch (median)."""
+    events = _device_events(fn, calls)
+    names = sorted({e.name for e in events})
+    if len(events) != calls or any(kernel not in n for n in names):
+        raise RuntimeError(f"{kernel}: {len(events)} device kernels in {calls} calls "
+                           f"({names}), expected the one kernel a call")
+    ms = statistics.median(e.time_range.elapsed_us() for e in events) / 1e3
+    return f"1 launch a call, device {ms:.4f} ms a launch (profiler, median of {calls})"
+
+
 def phase_device():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -248,11 +286,12 @@ def _attention_case(T: int, gen: torch.Generator):
     nbytes = 4 * (2 * H * d * N + 2 * H * d * Tv + 2 * H * N)
     flops = H * N * W * (2 * d + 2 * d + 4)
     b_ms, b_by = bound(nbytes, flops)
+    run = lambda: sliding_window_attention_packed(q, k, v, W, m)  # noqa: E731
     return dict(
-        run=lambda: sliding_window_attention_packed(q, k, v, W, m), max_abs_err=err,
-        ms=cuda_ms(lambda: sliding_window_attention_packed(q, k, v, W, m), 50),
+        run=run, max_abs_err=err, ms=cuda_ms(run, 50),
         plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
+        phase_note=_device_launches(run, "swa_packed_fwd"))
 
 
 def _stage_weights(gen: torch.Generator, layers, C: int = 64):
@@ -363,14 +402,18 @@ def _attention_bwd_case(T: int, gen: torch.Generator):
     check_close(f"attention bwd T={T} library yardstick dq",
                 lib()[0][0].permute(0, 2, 1), run()[0], 5e-3, 5e-3)
 
-    # bytes: q, g, out and stats read, dq written (per query); k, v read,
-    # dk, dv written (per key). Operations per (query, key) pair: score,
-    # g.v, dq, dk, dv (2d each) and ~4 for a, ds
-    nbytes = 4 * (4 * H * d * N + 2 * H * N + 4 * H * d * Tv)
+    # bytes: q, g and out read, the lse row of stats read, dq written (per
+    # query; delta = out.g is formed from out, so stats' second row is not
+    # read); k, v read, dk, dv written (per key). Operations per (query,
+    # key) pair: score, g.v, dq, dk, dv (2d each) and ~4 for a, ds
+    nbytes = 4 * (4 * H * d * N + H * N + 4 * H * d * Tv)
     flops = H * N * W * (10 * d + 4) + 2 * H * d * N
     b_ms, b_by = bound(nbytes, flops)
+    _same_bits(f"attention bwd T={T}", run)
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
+                phase_note=_device_launches(run, "swa_packed_bwd") +
+                "; two runs equal bit for bit")
 
 
 def _tcn_bwd_flops_bytes(T: int, C: int, layers, n_g: int, n_dx: int):
@@ -794,7 +837,8 @@ def forward_launches(n: int):
 
 
 def backward_launches(n: int):
-    """Backward launches of n COG train steps: one K3 per attention layer;
+    """Backward launches of n COG train steps: one K3 per attention layer
+    (one cooperative launch that also forms delta = out.g);
     one TCN backward launch per call, its weight gradients included (the
     slow path is one call of 41 layers, the fast path four of 11 + 3x10)."""
     return {"sliding_window_attention_packed_bwd": 2 * n,

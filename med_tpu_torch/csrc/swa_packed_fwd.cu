@@ -14,122 +14,202 @@
 // which is how the reference zero-pads its windows.
 //
 // What bounds it on an H100: memory. Per query it reads D floats of q and
-// writes D of out and 2 of stats (4*(2D+2) bytes), against 4*W*D flops; at
-// COG's D=8, W=30 that is ~13 flop/byte, under the card's fp32 ridge of
-// ~20 flop/byte (67 TFLOP/s over 3.35 TB/s). The K/V rows are tiny (D floats a
-// frame) and are shared by the m queries of a frame and by W frames.
+// writes D of out and 2 of stats (4*(2D+2) bytes), against 16 FMAs and one
+// exp a (query, key) pair; at COG's D=8, W=30 that is ~13 flop/byte, under
+// the card's fp32 ridge of ~20 flop/byte (67 TFLOP/s over 3.35 TB/s). The
+// K/V rows are tiny (D floats a frame) and are shared by the m queries of a
+// frame and by W frames.
 //
-// Design: one thread per (head, query token), so the threads of a warp read
-// q and write out/stats at consecutive addresses along N. A block covers fpb
-// whole frames of one head and stages the K/V rows of the padded frames
-// [t0, t0+fpb+W-1) in shared memory, zeros left of frame 0, so every key a
-// thread needs is read once from device memory per block. Each thread makes
-// two passes over its W keys in shared memory: the max, then exp, sum and
-// the weighted sum of values (expf, not __expf, to stay within the parity
-// tolerance of the reference).
+// Design: one pass over the keys. A thread holds R query slots of one frame
+// (R = 2 for D <= 8, else 1), so each key row read from shared memory feeds
+// R queries, and holds their scores of a chunk of 16 keys in registers:
+// the chunk's max, one expf a score, the sum and the weighted sum of
+// values, with an online rescale between chunks (COG's W=30: two chunks).
+// Each score is computed once: D FMAs for the score and D for the values a
+// pair. Blocks of 128 threads at ~100 registers a thread (D=8): five
+// blocks an SM. A block covers fpb whole frames of one head (a slice of one
+// frame's slots where m is large) and stages the K/V rows of the padded
+// frames [t0-W+1, t0+fpb+Wc-1), Wc = W rounded up to whole chunks, with
+// 4-byte cp.async, zero-filled outside [0, T), while the threads load their
+// q; consecutive threads fill consecutive words, so the stores meet no bank
+// conflict. expf and logf, not the fast intrinsics, keep the parity with
+// the reference.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+constexpr int kThreads = 128;
+constexpr int kChunk = 16;   // keys whose scores a thread holds at once
+constexpr size_t kMaxSmem = 227 * 1024;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 template <int D>
-__global__ void swa_packed_fwd_kernel(const float* __restrict__ q,
-                                      const float* __restrict__ k,
-                                      const float* __restrict__ v,
-                                      float* __restrict__ out,
-                                      float* __restrict__ stats,
-                                      int T, int m, int W, int fpb) {
-  extern __shared__ float smem[];
-  const int rows = fpb + W - 1;
-  float* ks = smem;              // [rows][D]
-  float* vs = smem + rows * D;   // [rows][D]
+__device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 t = reinterpret_cast<const float4*>(src)[c];
+    x[4 * c] = t.x;
+    x[4 * c + 1] = t.y;
+    x[4 * c + 2] = t.z;
+    x[4 * c + 3] = t.w;
+  }
+}
+
+// Block (tile * nsb + sb, h): frames t0 = tile*fpb .. +fpb-1, slots sb*spb ..
+// +spb-1 of each; thread (frame lt, slot group) = (tid / tpf, tid % tpf).
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+swa_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ stats, int T, int m, int W, int fpb, int spb,
+                      int tpf, int nsb) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = fpb + (W + kChunk - 1) / kChunk * kChunk - 1;
+  float* ks = smem;              // [rows][D], row r: frame t0 - (W-1) + r
+  float* vs = smem + rows * D;
   const int h = blockIdx.y;
-  const int t0 = blockIdx.x * fpb;
+  const int t0 = blockIdx.x / nsb * fpb;
+  const int sb = blockIdx.x % nsb;
   const long long N = (long long)T * m;
   const float* kh = k + (long long)h * D * T;
   const float* vh = v + (long long)h * D * T;
-
-  // row r holds original frame t0 - (W-1) + r; consecutive threads take
-  // consecutive frames of one feature row, so the loads coalesce
   for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx % rows;
-    const int d = idx / rows;
-    const int f = t0 - (W - 1) + r;
-    const bool inside = f >= 0 && f < T;
-    ks[r * D + d] = inside ? kh[(long long)d * T + f] : 0.f;
-    vs[r * D + d] = inside ? vh[(long long)d * T + f] : 0.f;
+    const int d = idx % D;
+    const int f = t0 - (W - 1) + idx / D;
+    const bool in = f >= 0 && f < T;
+    const long long at = in ? (long long)d * T + f : 0;
+    cp_async4(ks + idx, kh + at, in ? 4 : 0);
+    cp_async4(vs + idx, vh + at, in ? 4 : 0);
   }
-  __syncthreads();
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  const int lt = threadIdx.x / m;   // frame within the block
+  const int lt = threadIdx.x / tpf;
   const int t = t0 + lt;
-  if (lt >= fpb || t >= T) return;
-  const long long n = (long long)t * m + threadIdx.x % m;
-
+  const int j = sb * spb + threadIdx.x % tpf * R;       // the thread's first slot
+  const int j_end = min(m, (sb + 1) * spb);
+  const bool live = lt < fpb && t < T && j < j_end;
   const float scale = 1.f / sqrtf((float)D);
-  const float* qh = q + (long long)h * D * N;
-  float qr[D];
+  const float* qh = q + (long long)h * D * N + (long long)t * m + j;
+  float qr[R][D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = qh[(long long)d * N + n] * scale;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      qr[r][d] = live && j + r < j_end ? qh[(long long)d * N + r] * scale : 0.f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!live) return;
 
   // key w of frame t sits at local row lt + w
-  float mx = -INFINITY;
-  for (int w = 0; w < W; ++w) {
-    const float* kr = ks + (lt + w) * D;
-    float s = 0.f;
+  float mx[R], sum[R], acc[R][D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-    mx = fmaxf(mx, s);
+  for (int r = 0; r < R; ++r) {
+    mx[r] = -INFINITY;
+    sum[r] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[r][d] = 0.f;
   }
-  float sum = 0.f;
-  float acc[D];
+  for (int c0 = 0; c0 < W; c0 += kChunk) {
+    float s[R][kChunk];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int w = 0; w < W; ++w) {
-    const float* kr = ks + (lt + w) * D;
-    const float* vr = vs + (lt + w) * D;
-    float s = 0.f;
+    for (int w = 0; w < kChunk; ++w) {
+      float kv[D];
+      load_row<D>(kv, ks + (lt + c0 + w) * D);
 #pragma unroll
-    for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-    const float p = expf(s - mx);
-    sum += p;
+      for (int r = 0; r < R; ++r) {
+        float x = 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
+        for (int d = 0; d < D; ++d) x = fmaf(qr[r][d], kv[d], x);
+        s[r][w] = c0 + w < W ? x : -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float cm = s[r][0];
+#pragma unroll
+      for (int w = 1; w < kChunk; ++w) cm = fmaxf(cm, s[r][w]);
+      const float nm = fmaxf(mx[r], cm);
+      if (c0 > 0) {   // rescale what the earlier chunks summed
+        const float alpha = expf(mx[r] - nm);
+        sum[r] *= alpha;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[r][d] *= alpha;
+      }
+      mx[r] = nm;
+    }
+#pragma unroll
+    for (int w = 0; w < kChunk; ++w) {
+      float vv[D];
+      load_row<D>(vv, vs + (lt + c0 + w) * D);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float e = expf(s[r][w] - mx[r]);
+        sum[r] += e;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[r][d] = fmaf(e, vv[d], acc[r][d]);
+      }
+    }
   }
-  const float rs = 1.f / sum;
-  float* oh = out + (long long)h * D * N;
+  float* oh = out + (long long)h * D * N + (long long)t * m + j;
+  float* sh = stats + (long long)h * 2 * N + (long long)t * m + j;
 #pragma unroll
-  for (int d = 0; d < D; ++d) oh[(long long)d * N + n] = acc[d] * rs;
-  stats[(long long)h * 2 * N + n] = mx + logf(sum);
-  stats[(long long)h * 2 * N + N + n] = rs;
+  for (int r = 0; r < R; ++r) {
+    if (j + r >= j_end) break;
+    const float rs = 1.f / sum[r];
+#pragma unroll
+    for (int d = 0; d < D; ++d) oh[(long long)d * N + r] = acc[r][d] * rs;
+    sh[r] = mx[r] + logf(sum[r]);
+    sh[N + r] = rs;
+  }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* stats, int H, int T, int m, int W, cudaStream_t stream) {
-  const int fpb = m >= 256 ? 1 : 256 / m;
-  const int threads = (fpb * m + 31) / 32 * 32;
-  if (threads > 1024) return cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)(fpb + W - 1) * D * sizeof(float);
+  constexpr int R = D <= 8 ? 2 : 1;
+  const int slot_threads = (m + R - 1) / R;
+  int tpf, spb, nsb, fpb;
+  if (slot_threads <= kThreads) {
+    tpf = slot_threads, spb = m, nsb = 1, fpb = kThreads / slot_threads;
+  } else {
+    tpf = kThreads, spb = kThreads * R, nsb = (m + spb - 1) / spb, fpb = 1;
+  }
+  const int wc = (W + kChunk - 1) / kChunk * kChunk;
+  auto smem_of = [&](int frames) { return 2 * (size_t)(frames + wc - 1) * D * sizeof(float); };
+  while (fpb > 1 && smem_of(fpb) > kMaxSmem) fpb /= 2;
+  const size_t smem = smem_of(fpb);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = swa_packed_fwd_kernel<D, R>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        swa_packed_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((T + fpb - 1) / fpb, H);
-  swa_packed_fwd_kernel<D><<<grid, threads, smem, stream>>>(q, k, v, out, stats,
-                                                           T, m, W, fpb);
+  const int threads = (fpb * tpf + 31) / 32 * 32;
+  const dim3 grid((T + fpb - 1) / fpb * nsb, H);
+  kernel<<<grid, threads, smem, stream>>>(q, k, v, out, stats, T, m, W, fpb, spb, tpf, nsb);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 when the launch was accepted.
+// Returns a cudaError_t code: 0 when the launch was accepted. One launch.
 extern "C" int swa_packed_fwd(const float* q, const float* k, const float* v,
                               float* out, float* stats, int H, int D, int T,
                               int m, int W, void* stream) {
+  if (H < 1 || T < 1 || m < 1 || W < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 4: return launch<4>(q, k, v, out, stats, H, T, m, W, s);

@@ -14,11 +14,21 @@ like with like:
 
 :func:`sliding_window_attention_packed` runs the hand-written CUDA kernel
 ``csrc/swa_packed_fwd.cu`` on a CUDA tensor and its plain PyTorch version
-:func:`sliding_window_attention_packed_plain` on a CPU tensor. Where autograd
+:func:`sliding_window_attention_packed_plain` on a CPU tensor. The kernel
+makes one pass over each query's keys: a thread holds the scores of R query
+slots of one frame for a chunk of 16 keys in registers (an online max and
+sum across chunks), so each score is computed once. Where autograd
 needs a gradient it runs through :class:`_PackedAttention`, whose backward
 :func:`sliding_window_attention_packed_bwd` is the CUDA kernel
 ``csrc/swa_packed_bwd.cu`` on the card and
-:func:`sliding_window_attention_packed_bwd_plain` on the CPU.
+:func:`sliding_window_attention_packed_bwd_plain` on the CPU. That kernel is
+one cooperative launch that computes each (query, key) pair once: it forms
+delta = out.g itself, gathers dq per query from a shared band of ds, and
+sums dk and dv per key from per-tile partials in a fixed order (a scratch
+buffer the wrapper allocates, no atomics), so its runs give the same bits.
+Its tiles take fewer frames, then fewer query slots, where shared memory
+asks for it, and walk a window too large for any tile in chunks, so it
+takes any window.
 
 The head-major layout, q (H, T, M, dk), k (H, T, dk), v (H, T, dv) -> out
 (H, T, M, dv), is the public op :func:`sliding_window_attention`:
@@ -153,8 +163,8 @@ def sliding_window_attention_packed(q, k, v, window: int, m: int,
                                     return_stats: bool = False):
     """Banded local attention in the packed layout (module docstring).
 
-    A CUDA tensor goes to the CUDA kernel (replacing
-    med_tpu/ops/attention.py::_swa_packed_fwd_kernel) and a CPU tensor to
+    A CUDA tensor goes to the CUDA kernel, one launch (replacing
+    med_tpu/ops/attention.py::_swa_packed_fwd_kernel), and a CPU tensor to
     the plain version; any other device raises. ``return_stats`` also
     returns the (H, 2, N) per-query (logsumexp, 1/sum). When autograd needs
     a gradient of q, k or v, the call saves what the backward reads; under
@@ -201,7 +211,8 @@ def sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
             dk_p[:, W - 1:].transpose(1, 2), dv_p[:, W - 1:].transpose(1, 2))
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SCRATCH_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _packed_bwd_cuda(q, k, v, g, out, stats, window: int, m: int):
@@ -221,16 +232,22 @@ def _packed_bwd_cuda(q, k, v, g, out, stats, window: int, m: int):
     if g.shape != q.shape or out.shape != q.shape or stats.shape != (H, 2, N):
         raise ValueError(f"g {tuple(g.shape)}, out {tuple(out.shape)} and stats "
                          f"{tuple(stats.shape)} do not match q {tuple(q.shape)}")
-    # delta = out.g per query, one elementwise product and one reduction (an
-    # einsum here becomes H*N batched 1x1 products)
-    delta = (out * g).sum(dim=1)
+    # the kernel's per-tile dk/dv partials: their size follows from the shapes
+    floats = ctypes.c_longlong(0)
+    plan = cuda_build.kernel_function("swa_packed_bwd", "swa_packed_bwd_scratch",
+                                      _SCRATCH_ARGTYPES)
+    if plan(H, dk, T, m, window, ctypes.addressof(floats)) != 0:
+        raise ValueError(f"the backward kernel takes window >= 1 and fewer than "
+                         f"2**31 queries in all (H*T*m); got window={window}, "
+                         f"H={H}, T={T}, m={m}")
+    scratch = torch.empty(floats.value, dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dkk = torch.empty_like(k)
     dvv = torch.empty_like(v)
     fn = cuda_build.kernel_function("swa_packed_bwd", "swa_packed_bwd", _BWD_ARGTYPES)
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              stats.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkk.data_ptr(),
-              dvv.data_ptr(), H, dk, T, m, window,
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
+              stats.data_ptr(), dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
+              scratch.data_ptr(), H, dk, T, m, window,
               torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("swa_packed_bwd", "swa_packed_bwd", code)
     sliding_window_attention_packed_bwd.launches += 1
@@ -242,9 +259,10 @@ def sliding_window_attention_packed_bwd(q, k, v, g, out, stats, window: int,
     """Backward of :func:`sliding_window_attention_packed` from the
     forward's ``out`` and (H, 2, N) ``stats`` and the output cotangent g ->
     (dq (H, dk, N), dk (H, dk, T), dv (H, dv, T)). A CUDA tensor runs the
-    CUDA kernel, one launch (replacing
-    med_tpu/ops/attention.py::_swa_packed_bwd_kernel); a CPU tensor the
-    plain version; any other device raises."""
+    CUDA kernel, one cooperative launch that also forms delta = out.g
+    (replacing med_tpu/ops/attention.py::_swa_packed_bwd_kernel and the
+    delta pass before it); a CPU tensor the plain version; any other device
+    raises."""
     if q.is_cuda:
         return _packed_bwd_cuda(q, k, v, g, out, stats, window, m)
     if q.device.type == "cpu":

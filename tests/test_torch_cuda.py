@@ -61,8 +61,21 @@ OP_API_IDLE = {"dilated_residual_multistack": 0, "dilated_residual_multistack_bw
                "sliding_window_attention_bwd_pallas": 0}
 
 
-@pytest.mark.parametrize("H,d,m,W,T", [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41),
-                                       (3, 16, 1, 7, 300), (1, 32, 300, 3, 5)])
+# the packed attention kernels at COG's shapes and beyond: W = 40 and 70 take
+# three and five chunks of 16 keys in the forward; m = 30 and 512 (K3 splits
+# 512 slots of d=32 over eight slot blocks); T = 1, 16 and 17 frames against
+# K3's tiles of 16; and windows no tile of K3 holds whole, which it walks in
+# chunks (W = 3000 at d=4, 3600 at d=8 and m=15, 800 at d=16, 400 at d=32:
+# chunks of 94, 29, 25 and 13 positions), over three tiles
+ATTENTION_SHAPES = [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41), (3, 16, 1, 7, 300),
+                    (1, 32, 300, 3, 5), (2, 8, 15, 40, 50), (2, 8, 15, 70, 90),
+                    (2, 8, 30, 30, 40), (1, 8, 512, 30, 3), (1, 32, 512, 30, 3),
+                    (8, 8, 15, 30, 1), (8, 8, 15, 30, 16), (8, 8, 15, 30, 17),
+                    (1, 4, 1, 3000, 40), (1, 8, 15, 3600, 40), (1, 16, 1, 800, 40),
+                    (1, 32, 1, 400, 40)]
+
+
+@pytest.mark.parametrize("H,d,m,W,T", ATTENTION_SHAPES)
 def test_attention_kernel_matches_plain(cuda_device, rng, H, d, m, W, T):
     q, k, v = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
                for s in ((H, d, T * m), (H, d, T), (H, d, T)))
@@ -273,8 +286,7 @@ def _close_grad(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
 
 
-@pytest.mark.parametrize("H,d,m,W,T", [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41),
-                                       (3, 16, 1, 7, 300), (1, 32, 300, 3, 5)])
+@pytest.mark.parametrize("H,d,m,W,T", ATTENTION_SHAPES)
 def test_attention_bwd_kernel_matches_plain(cuda_device, rng, H, d, m, W, T):
     q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
                   for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m)))
@@ -286,6 +298,69 @@ def test_attention_bwd_kernel_matches_plain(cuda_device, rng, H, d, m, W, T):
     for a, b in zip(got, want):
         _close_grad(a, b)
     assert tatt.sliding_window_attention_packed_bwd.launches == before + 1
+
+
+def _offset_view(a, device):
+    """``a`` on the card in a contiguous view 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+    buf[1:] = torch.as_tensor(a.ravel(), device=device)
+    view = buf[1:].view(a.shape)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def test_attention_kernels_take_views_off_16_byte_boundaries(cuda_device, rng):
+    H, d, m, W, T = 8, 8, 15, 30, 40
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m))]
+    q, k, v, g = (_offset_view(a, cuda_device) for a in arrays)
+    out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    want_out, want_stats = tatt.sliding_window_attention_packed_plain(q, k, v, W, m)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
+    out = _offset_view(out.cpu().numpy(), cuda_device)
+    got = tatt.sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)
+    want = tatt.sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats, W, m)
+    for a, b in zip(got, want):
+        _close_grad(a, b)
+
+
+@pytest.mark.parametrize("T", [17, 4096])
+def test_attention_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T):
+    H, d, m, W = 8, 8, 15, 30
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m)))
+    out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    first = tatt.sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)
+    second = tatt.sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _device_kernels(fn):
+    """Names of the kernels the card ran during one call of ``fn``, by
+    ``chip_smoke.py``'s profiler helper (which takes a session that recorded
+    no device event at all again)."""
+    from chip_smoke import _device_events
+
+    return [e.name for e in _device_events(fn, 1)]
+
+
+def test_attention_kernels_launch_only_themselves(cuda_device, rng):
+    """A K1 call runs one kernel and a K3 call one: no delta pass, no copy,
+    no fill; each wrapper counts its one launch."""
+    H, d, m, W, T = 8, 8, 15, 30, 64
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m)))
+    out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    fwd = tatt.sliding_window_attention_packed
+    bwd = tatt.sliding_window_attention_packed_bwd
+    before = fwd.launches, bwd.launches
+    names = _device_kernels(lambda: fwd(q, k, v, W, m, return_stats=True))
+    assert len(names) == 1 and "swa_packed_fwd" in names[0], names
+    names = _device_kernels(lambda: bwd(q, k, v, g, out, stats, W, m))
+    assert len(names) == 1 and "swa_packed_bwd" in names[0], names
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
 
 
 def _grads(fn, x, weights, g):
