@@ -217,18 +217,19 @@ def _device_events(fn, calls: int):
     return events
 
 
-def _device_launches(fn, kernel: str, calls: int = 20) -> str:
+def _device_launches(fn, kernel: str, calls: int = 20) -> dict:
     """Raise unless each of ``calls`` calls of ``fn`` ran exactly one device
     kernel, named ``kernel``, by the profiler: no copy, fill or other pass
-    beside it. Returns, for the log, the launches a call and the kernel's
-    own device time a launch (median)."""
+    beside it. Returns the kernel's own device time a launch (median) as
+    ``device_ms`` and, for the log, ``phase_note``."""
     events = _device_events(fn, calls)
     names = sorted({e.name for e in events})
     if len(events) != calls or any(kernel not in n for n in names):
         raise RuntimeError(f"{kernel}: {len(events)} device kernels in {calls} calls "
                            f"({names}), expected the one kernel a call")
     ms = statistics.median(e.time_range.elapsed_us() for e in events) / 1e3
-    return f"1 launch a call, device {ms:.4f} ms a launch (profiler, median of {calls})"
+    return dict(device_ms=ms, phase_note=f"1 launch a call, device {ms:.4f} ms a launch "
+                                         f"(profiler, median of {calls})")
 
 
 def phase_device():
@@ -291,7 +292,7 @@ def _attention_case(T: int, gen: torch.Generator):
         run=run, max_abs_err=err, ms=cuda_ms(run, 50),
         plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
-        phase_note=_device_launches(run, "swa_packed_fwd"))
+        **_device_launches(run, "swa_packed_fwd"))
 
 
 def _stage_weights(gen: torch.Generator, layers, C: int = 64):
@@ -410,10 +411,10 @@ def _attention_bwd_case(T: int, gen: torch.Generator):
     flops = H * N * W * (10 * d + 4) + 2 * H * d * N
     b_ms, b_by = bound(nbytes, flops)
     _same_bits(f"attention bwd T={T}", run)
+    device = _device_launches(run, "swa_packed_bwd")
+    device["phase_note"] += "; two runs equal bit for bit"
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
-                phase_note=_device_launches(run, "swa_packed_bwd") +
-                "; two runs equal bit for bit")
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
 def _tcn_bwd_flops_bytes(T: int, C: int, layers, n_g: int, n_dx: int):
@@ -626,6 +627,17 @@ def _band_mask(T: int):
     return (col >= frame) & (col < frame + W)
 
 
+def _head_major_instances(wrapper, before: dict) -> str:
+    """The launches by instance since ``before``, for the log: COG's
+    operands are 16-byte aligned, so every launch takes the 16-byte one."""
+    now = {k: n - before.get(k, 0) for k, n in wrapper.instances.items()
+           if n - before.get(k, 0)}
+    if set(now) != {"16-byte"}:
+        raise RuntimeError(f"{wrapper.__name__}: launches by instance {now}, expected "
+                           f"the 16-byte instance only")
+    return f"{now['16-byte']} launches of the 16-byte instance"
+
+
 def _head_major_case(T: int, gen: torch.Generator):
     """K8 at COG's head-major shapes: 8 heads, d=8, 15 queries a frame,
     window 30, T frames."""
@@ -647,8 +659,12 @@ def _head_major_case(T: int, gen: torch.Generator):
     nbytes = 4 * (2 * H * T * m * d + 2 * H * T * d)
     flops = H * T * m * W * (2 * d + 2 * d + 4)
     b_ms, b_by = bound(nbytes, flops)
+    fwd = att.sliding_window_attention_pallas
+    before = dict(fwd.instances)
+    device = _device_launches(run, "swa_headmajor_fwd")
+    device["phase_note"] += f"; {_head_major_instances(fwd, before)}"
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 5),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
 def _head_major_bwd_case(T: int, gen: torch.Generator):
@@ -676,8 +692,13 @@ def _head_major_bwd_case(T: int, gen: torch.Generator):
     nbytes = 4 * (3 * H * T * m * d + 4 * H * T * d)
     flops = H * T * m * W * (10 * d + 4)
     b_ms, b_by = bound(nbytes, flops)
+    _same_bits(f"head-major attention bwd T={T}", run)
+    bwd = att.sliding_window_attention_bwd_pallas
+    before = dict(bwd.instances)
+    device = _device_launches(run, "swa_headmajor_bwd")
+    device["phase_note"] += f"; {_head_major_instances(bwd, before)}; two runs equal bit for bit"
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1))
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
 KERNEL_CASES = (("swa_packed_fwd", _attention_case),

@@ -59,6 +59,8 @@
 
 #include <initializer_list>
 
+#include "swa_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -171,36 +173,9 @@ struct Args {
   Plan p;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
-// 4 bytes global -> shared; src_bytes 0 writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = reinterpret_cast<const float4*>(src)[c];
-    x[4 * c] = t.x;
-    x[4 * c + 1] = t.y;
-    x[4 * c + 2] = t.z;
-    x[4 * c + 3] = t.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[D]) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c)
-    reinterpret_cast<float4*>(dst)[c] =
-        make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
-}
+using swa::cp_async4;
+using swa::load_row;
+using swa::store_row;
 
 // One query's operands, fetched into registers ahead of its tile's staging.
 template <int D>
@@ -253,7 +228,7 @@ __device__ __forceinline__ void stage_kv(float* dst, const Args& a, const TileAt
     cp_async4(dst + idx, kh + at, in ? 4 : 0);
     cp_async4(dst + KC * D + idx, vh + at, in ? 4 : 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  swa::cp_async_commit();
 }
 
 template <int D>
@@ -311,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, D <= 8 ? 2 : 1) swa_packed_bwd_kerne
       const int wc = min(WC, W - w0);
       const float* ks = kv + buf * 2 * KC * D;
       const float* vs = ks + KC * D;
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");   // this chunk's K/V rows
+      swa::cp_async_wait_all();   // this chunk's K/V rows
       __syncthreads();
 
       // the next chunk's K/V rows (the next tile's, with its first query a
@@ -407,90 +382,17 @@ __global__ void __launch_bounds__(kThreads, D <= 8 ? 2 : 1) swa_packed_bwd_kerne
           dqn[(long long)d * N] = w0 == 0 ? x : dqn[(long long)d * N] + x;
         }
       }
-      // phase 2b: the chunk's dk, dv partial of each of its key rows r
-      // (tile row w0 + r), slot groups then frames in order, into scratch
-      // [tile id][2D][KR]; the first F-1 rows of a later chunk are the last
-      // of the chunk before, and add to what it wrote (after the barrier that
-      // ended that chunk). P[lt][sg][e][r - lt] lies at lt * step +
-      // (sg * 2D + e) * WC + r: every thread walks all the tile's frames, so
-      // the warp reads consecutive words at each step, and drops the terms
-      // outside its band (the words it reads there lie inside P, and a
-      // select discards them)
-      float* sc = a.scratch + (long long)id * 2 * D * KR + w0;
-      const int rows = F + wc - 1;
-      const int step = S * 2 * D * WC - 1;
-      for (int it = threadIdx.x; it < 2 * D * rows; it += kThreads) {
-        const int r = it % rows, e = it / rows;
-        float sum = 0.f;
-        for (int sg = 0; sg < S; ++sg) {
-          const float* pp = P + (sg * 2 * D + e) * WC + r;
-#pragma unroll 4
-          for (int lt = 0; lt < nf; ++lt) {
-            const float x = pp[lt * step];
-            sum += (unsigned)(r - lt) < (unsigned)wc ? x : 0.f;
-          }
-        }
-        float* dst = sc + e * KR + r;
-        *dst = w0 > 0 && r < F - 1 ? *dst + sum : sum;
-      }
+      // phase 2b: the chunk's dk, dv partial of each of its key rows into
+      // the tile's scratch slot [tile id][2D][KR]
+      swa::sum_chunk_partials<D, kThreads>(P, a.scratch + (long long)id * 2 * D * KR, F, S,
+                                           WC, wc, nf, KR, w0);
       __syncthreads();   // the next chunk's staging overwrites shared memory
     }
   }
 
   cg::this_grid().sync();
-  // dk, dv: tile (h, i) sums the partials of its own keys i*F .. i*F+F-1
-  // over the tiles that touch them, in tile order (key row of f in tile
-  // i + k: f - (i+k)*F + W - 1). A thread takes one key of four owners at a
-  // time and issues the loads of up to four tiles each before it adds any.
-  const int owners = a.H * p.n_tiles;
-  const long long tile_step = (long long)p.nc * 2 * D * KR - F;   // tile i+k -> i+k+1
-  const long long slot_step = (long long)2 * D * KR;               // slot block c -> c+1
-  for (int o0 = blockIdx.x; o0 < owners; o0 += 4 * gridDim.x) {
-    for (int r = threadIdx.x; r < 2 * D * F; r += kThreads) {
-      const int e = r / F, kf = r % F;
-      float v[4][4];
-      int n[4];
-      const float* src[4];
-      float* dst[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        n[u] = 0;
-        dst[u] = nullptr;
-        src[u] = a.scratch;
-        const int o = o0 + u * gridDim.x;
-        if (o >= owners) continue;
-        const int h = o / p.n_tiles, i = o % p.n_tiles;
-        const int f = i * F + kf;
-        if (f >= T) continue;
-        n[u] = min(p.n_tiles - 1, (f + W - 1) / F) - i + 1;
-        src[u] += ((long long)(h * p.n_tiles + i) * p.nc * 2 * D + e) * KR + kf + W - 1;
-        dst[u] = (e < D ? a.dk : a.dv) + (long long)(h * D + e % D) * T + f;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          v[u][k] = k < n[u] ? __ldcg(src[u] + k * tile_step) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (dst[u] == nullptr) continue;
-        float sum = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (k >= n[u]) break;
-          float part = v[u][k];
-          for (int c = 1; c < p.nc; ++c) part += __ldcg(src[u] + k * tile_step + c * slot_step);
-          sum += part;
-        }
-        for (int k = 4; k < n[u]; ++k) {
-          float part = 0.f;
-          for (int c = 0; c < p.nc; ++c) part += __ldcg(src[u] + k * tile_step + c * slot_step);
-          sum += part;
-        }
-        *dst[u] = sum;
-      }
-    }
-  }
+  swa::sum_tile_partials<D, kThreads, false>(a.scratch, a.dk, a.dv, a.H, T, W, F, p.nc,
+                                             p.n_tiles, KR);
 }
 
 template <int D>

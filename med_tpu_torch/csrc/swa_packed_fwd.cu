@@ -38,34 +38,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "swa_common.cuh"
+
 namespace {
 
+using swa::kChunk;
+
 constexpr int kThreads = 128;
-constexpr int kChunk = 16;   // keys whose scores a thread holds at once
 constexpr size_t kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes global -> shared; src_bytes 0 writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 t = reinterpret_cast<const float4*>(src)[c];
-    x[4 * c] = t.x;
-    x[4 * c + 1] = t.y;
-    x[4 * c + 2] = t.z;
-    x[4 * c + 3] = t.w;
-  }
-}
 
 // Block (tile * nsb + sb, h): frames t0 = tile*fpb .. +fpb-1, slots sb*spb ..
 // +spb-1 of each; thread (frame lt, slot group) = (tid / tpf, tid % tpf).
@@ -90,10 +70,10 @@ swa_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int f = t0 - (W - 1) + idx / D;
     const bool in = f >= 0 && f < T;
     const long long at = in ? (long long)d * T + f : 0;
-    cp_async4(ks + idx, kh + at, in ? 4 : 0);
-    cp_async4(vs + idx, vh + at, in ? 4 : 0);
+    swa::cp_async4(ks + idx, kh + at, in ? 4 : 0);
+    swa::cp_async4(vs + idx, vh + at, in ? 4 : 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  swa::cp_async_commit();
 
   const int lt = threadIdx.x / tpf;
   const int t = t0 + lt;
@@ -108,60 +88,13 @@ swa_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < D; ++d)
       qr[r][d] = live && j + r < j_end ? qh[(long long)d * N + r] * scale : 0.f;
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  swa::cp_async_wait_all();
   __syncthreads();
   if (!live) return;
 
   // key w of frame t sits at local row lt + w
   float mx[R], sum[R], acc[R][D];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    mx[r] = -INFINITY;
-    sum[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[r][d] = 0.f;
-  }
-  for (int c0 = 0; c0 < W; c0 += kChunk) {
-    float s[R][kChunk];
-#pragma unroll
-    for (int w = 0; w < kChunk; ++w) {
-      float kv[D];
-      load_row<D>(kv, ks + (lt + c0 + w) * D);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float x = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) x = fmaf(qr[r][d], kv[d], x);
-        s[r][w] = c0 + w < W ? x : -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float cm = s[r][0];
-#pragma unroll
-      for (int w = 1; w < kChunk; ++w) cm = fmaxf(cm, s[r][w]);
-      const float nm = fmaxf(mx[r], cm);
-      if (c0 > 0) {   // rescale what the earlier chunks summed
-        const float alpha = expf(mx[r] - nm);
-        sum[r] *= alpha;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[r][d] *= alpha;
-      }
-      mx[r] = nm;
-    }
-#pragma unroll
-    for (int w = 0; w < kChunk; ++w) {
-      float vv[D];
-      load_row<D>(vv, vs + (lt + c0 + w) * D);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float e = expf(s[r][w] - mx[r]);
-        sum[r] += e;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[r][d] = fmaf(e, vv[d], acc[r][d]);
-      }
-    }
-  }
+  swa::band_attend<D, R>(qr, ks, vs, lt, W, mx, sum, acc);
   float* oh = out + (long long)h * D * N + (long long)t * m + j;
   float* sh = stats + (long long)h * 2 * N + (long long)t * m + j;
 #pragma unroll

@@ -32,12 +32,20 @@ takes any window.
 
 The head-major layout, q (H, T, M, dk), k (H, T, dk), v (H, T, dv) -> out
 (H, T, M, dv), is the public op :func:`sliding_window_attention`:
-:func:`sliding_window_attention_pallas` runs ``csrc/swa_headmajor_fwd.cu``
-and :func:`sliding_window_attention_bwd_pallas` runs
-``csrc/swa_headmajor_bwd.cu``, which recomputes the softmax from q, k and v;
-their plain versions are :func:`sliding_window_attention_xla` and
-:func:`sliding_window_attention_bwd_plain`. (The names are the JAX package's,
-whose counterparts these are.)
+:func:`sliding_window_attention_pallas` runs ``csrc/swa_headmajor_fwd.cu``,
+the packed forward's one-pass design in this layout, and
+:func:`sliding_window_attention_bwd_pallas` runs ``csrc/swa_headmajor_bwd.cu``,
+one cooperative launch that recomputes the softmax from q, k and v and
+computes each (query, key) pair's score and g.v once: per tile, lanes of a
+query write them to shared bands, then threads (frame, window position)
+sum dk and dv into per-tile partials that a scratch buffer holds until
+they are summed in a fixed order (a window too large for a tile goes in
+chunks, with a first walk for the softmax statistics). Both read their
+operands 16 bytes at a time where every pointer is 16-byte aligned and 4
+where one is not, and count their launches by instance in ``.instances``.
+Their plain versions are :func:`sliding_window_attention_xla` and
+:func:`sliding_window_attention_bwd_plain`. (The names are the JAX
+package's, whose counterparts these are.)
 """
 
 from __future__ import annotations
@@ -325,14 +333,25 @@ def _check_head_major(q, k, v, g=None) -> None:
         raise ValueError(f"g {tuple(g.shape)} does not match q {tuple(q.shape)}")
 
 
-_HM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-_HM_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_HM_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+_HM_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+# the head-major kernels' instances, by the code their C entries report: 16-byte
+# copies and loads where every pointer is 16-byte aligned, 4-byte ones where not
+HEAD_MAJOR_INSTANCES = ("16-byte", "4-byte")
+
+
+def _count_instance(counter, code: int) -> None:
+    counter.launches += 1
+    name = HEAD_MAJOR_INSTANCES[code]
+    counter.instances[name] = counter.instances.get(name, 0) + 1
 
 
 def sliding_window_attention_pallas(q, k, v, window: int) -> torch.Tensor:
     """Banded local attention in the head-major layout, no gradient. A CUDA
     tensor goes to the CUDA kernel, one launch that reads q, k, v where they
-    lie (replacing med_tpu/ops/attention.py::_swa_kernel); a CPU tensor to
+    lie, 16 bytes at a time where they are 16-byte aligned and 4 where not
+    (counted by instance in ``.instances``; replacing
+    med_tpu/ops/attention.py::_swa_kernel); a CPU tensor to
     :func:`sliding_window_attention_xla`; any other device raises."""
     if q.device.type == "cpu":
         return sliding_window_attention_xla(q, k, v, window)
@@ -341,23 +360,28 @@ def sliding_window_attention_pallas(q, k, v, window: int) -> torch.Tensor:
     _check_head_major(q, k, v)
     H, T, M, d = q.shape
     out = torch.empty_like(q)
+    taken = ctypes.c_int(-1)
     fn = cuda_build.kernel_function("swa_headmajor_fwd", "swa_headmajor_fwd",
                                     _HM_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), H, d, T,
-              M, window, torch.cuda.current_stream(q.device).cuda_stream)
+              M, window, ctypes.byref(taken),
+              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("swa_headmajor_fwd", "swa_headmajor_fwd", code)
-    sliding_window_attention_pallas.launches += 1
+    _count_instance(sliding_window_attention_pallas, taken.value)
     return out
 
 
 sliding_window_attention_pallas.launches = 0
+sliding_window_attention_pallas.instances = {}   # launches by instance; read as a difference
 
 
 def sliding_window_attention_bwd_pallas(q, k, v, g, window: int):
     """Backward of :func:`sliding_window_attention_pallas` from q, k, v and
     the output cotangent g alone -> (dq, dk, dv), head-major. A CUDA tensor
-    runs the CUDA kernel, one launch, which recomputes the banded softmax
-    (replacing med_tpu/ops/attention.py::_swa_bwd_kernel); a CPU tensor
+    runs the CUDA kernel, one cooperative launch that recomputes the banded
+    softmax and sums dk and dv from per-tile partials in a scratch buffer
+    allocated here (replacing med_tpu/ops/attention.py::_swa_bwd_kernel;
+    instances as the forward's); a CPU tensor
     :func:`sliding_window_attention_bwd_plain`; any other device raises."""
     if q.device.type == "cpu":
         return sliding_window_attention_bwd_plain(q, k, v, g, window)
@@ -365,18 +389,32 @@ def sliding_window_attention_bwd_pallas(q, k, v, g, window: int):
         raise ValueError(f"no head-major attention backward for device {q.device}")
     _check_head_major(q, k, v, g)
     H, T, M, d = q.shape
-    dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the kernel's per-tile dk/dv partials: their size follows from the shapes
+    floats = ctypes.c_longlong(0)
+    plan = cuda_build.kernel_function("swa_headmajor_bwd", "swa_headmajor_bwd_scratch",
+                                      _SCRATCH_ARGTYPES)
+    if plan(H, d, T, M, window, ctypes.addressof(floats)) != 0:
+        raise ValueError(f"the backward kernel takes window >= 1 and fewer than "
+                         f"2**31 queries in all (H*T*M); got window={window}, "
+                         f"H={H}, T={T}, M={M}")
+    scratch = torch.empty(floats.value, dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    dkk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    taken = ctypes.c_int(-1)
     fn = cuda_build.kernel_function("swa_headmajor_bwd", "swa_headmajor_bwd",
                                     _HM_BWD_ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), H, d, T, M, window,
+              dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(), scratch.data_ptr(), H, d,
+              T, M, window, ctypes.byref(taken),
               torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("swa_headmajor_bwd", "swa_headmajor_bwd", code)
-    sliding_window_attention_bwd_pallas.launches += 1
+    _count_instance(sliding_window_attention_bwd_pallas, taken.value)
     return dq, dkk, dvv
 
 
 sliding_window_attention_bwd_pallas.launches = 0
+sliding_window_attention_bwd_pallas.instances = {}
 
 
 class _HeadMajorAttention(torch.autograd.Function):

@@ -105,6 +105,17 @@ def check_operand(name: str, t, device, dtype) -> None:
                          f"contiguous={t.is_contiguous()}")
 
 
+def check_alignment(name: str, t, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary: a kernel
+    that copies it ``nbytes`` at a time faults on a view that does not (a
+    sticky error that ends the process's CUDA context)."""
+    off = t.data_ptr() % nbytes
+    if off:
+        raise ValueError(f"{name} starts {off} bytes past a {nbytes}-byte boundary; the "
+                         f"kernel reads it {nbytes} bytes at a time: pass a tensor "
+                         f"that starts on one (.clone() makes one)")
+
+
 def check_launch(name: str, symbol: str, code: int) -> None:
     """Raise when a launch returned a CUDA error code."""
     if code != 0:

@@ -114,6 +114,15 @@ def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool):
 MAX_LAYERS = 30      # layers of a stack: the widest tap, 2 * 2**29, is an int
 
 
+def _check_operand(name: str, t, dev, dtype) -> None:
+    """check_operand, and the alignment the kernels' accesses need: 16 bytes
+    for float operands (cp.async and float4), 4 for a uint8 mask (read 4
+    bytes at a time), an element for the rest."""
+    cuda_build.check_operand(name, t, dev, dtype)
+    nbytes = {torch.float32: 16, torch.uint8: 4}.get(dtype, t.element_size())
+    cuda_build.check_alignment(name, t, nbytes)
+
+
 def _check_stages(x_shape, stage_weights, masks, dev,
                   names=("w3", "b3", "w1", "b1")) -> None:
     """Raise unless each stage's tensors (named ``names``) and mask have the
@@ -126,12 +135,12 @@ def _check_stages(x_shape, stage_weights, masks, dev,
         shapes = {"w3": (L, 3, C, C), "b3": (L, C), "w1": (L, C, C), "b1": (L, C)}
         for name, t in zip(names, w):
             shape = shapes[name]
-            cuda_build.check_operand(f"stage {s} {name}", t, dev, torch.float32)
+            _check_operand(f"stage {s} {name}", t, dev, torch.float32)
             if tuple(t.shape) != shape:
                 raise ValueError(f"stage {s} {name} has shape {tuple(t.shape)}, "
                                  f"expected {shape}")
         if masks is not None:
-            cuda_build.check_operand(f"stage {s} mask", masks[s], dev, torch.uint8)
+            _check_operand(f"stage {s} mask", masks[s], dev, torch.uint8)
             if tuple(masks[s].shape) != (L, T, C):
                 raise ValueError(f"stage {s} mask has shape "
                                  f"{tuple(masks[s].shape)}, expected {(L, T, C)}")
@@ -188,7 +197,7 @@ def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
     count the launch raises."""
     T, C = x.shape
     dev = x.device
-    cuda_build.check_operand("x", x, dev, torch.float32)
+    _check_operand("x", x, dev, torch.float32)
     _check_stages(x.shape, stage_weights, masks, dev)
     Ls = [w[0].shape[0] for w in stage_weights]
     _check_fwd_counts(T, Ls)
@@ -280,13 +289,13 @@ def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
     for name, t, shape in (("g", g, (len(stage_weights), T, C)),
                            ("h_saved", h_saved, (Lt, T, C)),
                            ("y_saved", y_saved, (Lt, T, C))):
-        cuda_build.check_operand(name, t, dev, torch.float32)
+        _check_operand(name, t, dev, torch.float32)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     _check_stages((T, C), stage_weights, masks, dev, names=("w3", "w1"))
     _check_fwd_counts(T, Ls)
     if marks is not None:
-        cuda_build.check_operand("marks", marks, dev, torch.int64)
+        _check_operand("marks", marks, dev, torch.int64)
         if marks.numel() != 4:
             raise ValueError(f"marks holds {marks.numel()} words, expected 4")
     dx, dz, da, partial, dw3, db3, dw1, db1 = _bwd_buffers(T, C, Lt, dev)
@@ -514,12 +523,12 @@ def _check_multistack(T: int, C: int, dev, named, mask) -> int:
     shapes = {"x": (T, C), "w3": (Lt, 3, C, C), "b3": (Lt, C), "w1": (Lt, C, C),
               "b1": (Lt, C), "h_saved": (Lt, T, C), "y_saved": (Lt, T, C)}
     for name, t in named.items():
-        cuda_build.check_operand(name, t, dev, torch.float32)
+        _check_operand(name, t, dev, torch.float32)
         if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shapes[name]}")
     if mask is not None:
-        cuda_build.check_operand("mask", mask, dev, torch.uint8)
+        _check_operand("mask", mask, dev, torch.uint8)
         if tuple(mask.shape) != (Lt, T, C):
             raise ValueError(f"mask has shape {tuple(mask.shape)}, expected "
                              f"{(Lt, T, C)}")

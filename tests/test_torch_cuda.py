@@ -4,7 +4,11 @@ acausal taps, dropout masks, images narrower than a tile; for the one-launch
 TCN forward also T = 1 and 5, where every block but one has no rows, and
 the 300-frame request's 18 and 300 rows; for the one-launch TCN backward
 T = 1, 17 and 33 at every channel count, more than 16 stacks, and two runs
-equal bit for bit), the small COG
+equal bit for bit; for the head-major attention the widest windows the
+kernels before them took, m = 1 and 300, and two backward runs equal bit
+for bit; operands in views 4 bytes past a 16-byte boundary, which the
+head-major kernels read through their 4-byte instance and the TCN
+wrappers refuse by name), the small COG
 served on the card against the CPU, and a small ResNet trunk and pixel
 front end on the card against the CPU. They need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
@@ -337,13 +341,13 @@ def test_attention_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T):
         assert torch.equal(a, b)
 
 
-def _device_kernels(fn):
-    """Names of the kernels the card ran during one call of ``fn``, by
-    ``chip_smoke.py``'s profiler helper (which takes a session that recorded
-    no device event at all again)."""
+def _device_kernels(fn, calls: int = 1):
+    """Names of the kernels the card ran during ``calls`` calls of ``fn``,
+    by ``chip_smoke.py``'s profiler helper (which takes a session that
+    recorded no device event at all again)."""
     from chip_smoke import _device_events
 
-    return [e.name for e in _device_events(fn, 1)]
+    return [e.name for e in _device_events(fn, calls)]
 
 
 def test_attention_kernels_launch_only_themselves(cuda_device, rng):
@@ -827,6 +831,135 @@ def test_head_major_attention_kernels_match_plain(cuda_device, rng, H, d, m, W, 
         tatt.sliding_window_attention(*leaves, W, use_pallas=False), leaves, g)
     for a, b in zip(auto, plain):
         _close_grad(a, b)
+
+
+# K8 and K9 at the widest windows the kernels before them ran at m=15
+# (their shared memory held K8 to W = 7248, 3616, 1800, 892 and K9 to 3939,
+# 1854, 796, 286 for d = 4, 8, 16, 32; K9 now walks a window no tile holds
+# whole in chunks); m = 1 and 300; T = 37, a multiple of no tile or block
+# (K8: 16 frames a block, K9: 8 or 16 a tile); H = 1
+HEAD_MAJOR_WINDOWS = [(1, 4, 15, 7248, 40), (1, 8, 15, 3616, 40), (1, 16, 15, 1800, 40),
+                      (1, 32, 15, 892, 40), (1, 4, 15, 3939, 40), (1, 8, 15, 1854, 40),
+                      (1, 16, 15, 796, 40), (1, 32, 15, 286, 40), (2, 8, 1, 30, 37),
+                      (1, 8, 300, 30, 37), (1, 32, 300, 30, 5), (3, 4, 15, 30, 37)]
+
+
+@pytest.mark.parametrize("H,d,m,W,T", HEAD_MAJOR_WINDOWS)
+def test_head_major_kernels_take_every_window_their_parents_took(cuda_device, rng, H, d, m,
+                                                                 W, T):
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d)))
+    out = tatt.sliding_window_attention_pallas(q, k, v, W)
+    grads = tatt.sliding_window_attention_bwd_pallas(q, k, v, g, W)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tatt.sliding_window_attention_xla(q, k, v, W),
+                               rtol=1e-4, atol=1e-5)
+    for a, b in zip(grads, tatt.sliding_window_attention_bwd_plain(q, k, v, g, W)):
+        _close_grad(a, b)
+
+
+def _instances_since(fn, before):
+    return {k: n - before.get(k, 0) for k, n in fn.instances.items() if n - before.get(k, 0)}
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "g"])
+def test_head_major_kernels_take_views_off_16_byte_boundaries(cuda_device, rng, operand):
+    """One operand a contiguous view 4 bytes past a 16-byte boundary: the C
+    entries take their 4-byte instance (counted in ``.instances``) and match
+    the plain versions; the aligned call takes the 16-byte one."""
+    H, d, m, W, T = 8, 8, 15, 30, 40
+    arrays = dict(zip("qkvg", (rng.normal(size=s).astype(np.float32)
+                               for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d)))))
+    aligned = {n: _dev(a, cuda_device) for n, a in arrays.items()}
+    t = dict(aligned, **{operand: _offset_view(arrays[operand], cuda_device)})
+    fwd, bwd = tatt.sliding_window_attention_pallas, tatt.sliding_window_attention_bwd_pallas
+    before = dict(fwd.instances), dict(bwd.instances)
+    out = fwd(t["q"], t["k"], t["v"], W)
+    grads = bwd(t["q"], t["k"], t["v"], t["g"], W)
+    torch.cuda.synchronize()
+    # g is the backward's alone
+    assert _instances_since(fwd, before[0]) == {"16-byte" if operand == "g" else "4-byte": 1}
+    assert _instances_since(bwd, before[1]) == {"4-byte": 1}
+    want = tatt.sliding_window_attention_xla(*(aligned[n] for n in "qkv"), W)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    want = tatt.sliding_window_attention_bwd_plain(*(aligned[n] for n in "qkvg"), W)
+    for a, b in zip(grads, want):
+        _close_grad(a, b)
+
+
+TCN_ENTRIES = ("dilated_residual_stack", "dilated_residual_stack_bwd",
+               "dilated_residual_multistack_stages", "dilated_residual_multistack_stages_bwd",
+               "dilated_residual_multistack", "dilated_residual_multistack_bwd")
+
+
+@pytest.mark.parametrize("entry", TCN_ENTRIES)
+@pytest.mark.parametrize("operand", ["x", "w3"])
+def test_tcn_wrappers_refuse_views_off_16_byte_boundaries(cuda_device, rng, entry, operand):
+    """The TCN kernels copy their operands 16 bytes at a time: a contiguous
+    view 4 bytes past a boundary (x of a forward, g of a backward, or the
+    first stage's w3) raises ValueError naming it, and nothing launches."""
+    C, T, L0, Lr = 8, 5, 2, 2
+
+    def t(name, *shape):
+        a = (rng.uniform(-1, 1, size=shape) / np.sqrt(3 * C)).astype(np.float32)
+        return _offset_view(a, cuda_device) if name == operand else _dev(a, cuda_device)
+
+    fn = getattr(ttcn, entry)
+    bwd = entry.endswith("_bwd")
+    if entry.startswith("dilated_residual_stack"):
+        w3, b3, w1, b1 = t("w3", L0, 3, C, C), t("b3", L0, C), t("w1", L0, C, C), t("b1", L0, C)
+        args = ((t("x", T, C), t("h", L0, T, C), t("y", L0, T, C), w3, w1) if bwd
+                else (t("x", T, C), w3, b3, w1, b1))
+    elif "stages" in entry:
+        ws = [(t("w3" if s == 0 else "w3'", L, 3, C, C), t("b3", L, C), t("w1", L, C, C),
+               t("b1", L, C)) for s, L in enumerate((L0, Lr))]
+        args = ((t("x", 2, T, C), t("h", L0 + Lr, T, C), t("y", L0 + Lr, T, C), ws, L0, Lr)
+                if bwd else (t("x", T, C), ws, L0, Lr))
+    else:
+        Lt = L0 + Lr
+        w3, b3, w1, b1 = t("w3", Lt, 3, C, C), t("b3", Lt, C), t("w1", Lt, C, C), t("b1", Lt, C)
+        args = ((t("x", 2, T, C), t("h", Lt, T, C), t("y", Lt, T, C), w3, w1, L0, Lr) if bwd
+                else (t("x", T, C), w3, b3, w1, b1, L0, Lr))
+    name = {"x": "g" if bwd else "x", "w3": "stage 0 w3" if "stages" in entry or
+            entry.startswith("dilated_residual_stack") else "w3"}[operand]
+    before = fn.launches
+    with pytest.raises(ValueError, match=f"^{name} starts 4 bytes past a 16-byte boundary"):
+        fn(*args)
+    torch.cuda.synchronize()   # no CUDA error: nothing was launched
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("T", [17, 4096])
+def test_head_major_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T):
+    H, d, m, W = 8, 8, 15, 30
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d)))
+    first = tatt.sliding_window_attention_bwd_pallas(q, k, v, g, W)
+    second = tatt.sliding_window_attention_bwd_pallas(q, k, v, g, W)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_head_major_kernels_launch_only_themselves(cuda_device, rng):
+    """A K8 call runs one kernel and a K9 call one: no fill, no copy (K9's
+    scratch is written before it is read); each wrapper counts its launch."""
+    H, d, m, W, T = 8, 8, 15, 30, 64
+    q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
+                  for s in ((H, T, m, d), (H, T, d), (H, T, d), (H, T, m, d)))
+    fwd, bwd = tatt.sliding_window_attention_pallas, tatt.sliding_window_attention_bwd_pallas
+    # five calls a session, and no kernel but the wrapper's own: the
+    # profiler has dropped events of calls this short (~8 us) here, a whole
+    # session of one call three times in a row (chip_smoke.py holds the
+    # count exact at T = 1024 and 4096)
+    names = _device_kernels(lambda: fwd(q, k, v, W), 5)
+    assert 0 < len(names) <= 5 and all("swa_headmajor_fwd" in n for n in names), names
+    names = _device_kernels(lambda: bwd(q, k, v, g, W), 5)
+    assert 0 < len(names) <= 5 and all("swa_headmajor_bwd" in n for n in names), names
+    # the profiler helper may take its session again: count one call alone
+    before = fwd.launches, bwd.launches
+    fwd(q, k, v, W)
+    bwd(q, k, v, g, W)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_new_kernels_reject_inputs_they_do_not_take(cuda_device, rng):
