@@ -25,7 +25,11 @@ non-zero and the last line is not printed:
    the same for the public op entry points' kernels:
    K6/K7, the multistack with the stacks' weights concatenated on the layer
    axis (with and without dropout mask), and K8/K9, the head-major
-   attention and its backward that recomputes the softmax; then (``[ops]``
+   attention and its backward that recomputes the softmax; K1 and K3's D=2
+   instances at TransSVNet's encoder shapes (8 heads of width 2, m = W =
+   30; the yardstick one ``scaled_dot_product_attention`` call over the
+   frames' windows as its batch) and K2b/K5 at one TeCNo stage's stack (8
+   layers at C=64 over the whole trial); then (``[ops]``
    lines) ``torch.autograd.grad`` through ``dilated_residual_multistack``
    and ``sliding_window_attention``, counting launches, equal to the direct
    backward calls;
@@ -44,7 +48,16 @@ non-zero and the last line is not printed:
    card and on the CPU with the same dropout masks: the loss compared, and
    every gradient leaf with the card's encoder FFN relu pattern pinned to
    the CPU's (the flips counted);
-6. pixels: a full-width ResNet-50 trunk (3, 4, 6, 3) at width 64 with
+6. families (``[families]`` lines): TeCNo and TransSVNet as
+   `med_tpu.cli.train_frame` configures them (2048-d video features; TeCNo
+   2 stages of 8 layers at 64 maps; TransSVNet f_maps 64, 8 heads, len_q 30
+   over a frozen TeCNo), seeded weights in the JAX package's checkpoint
+   layout: ``FrameModelServer`` (TransSVNet with ``frozen=``) at T = 300,
+   1000, 4096 with latency, launch counts and card against CPU
+   probabilities at each T; a 2-epoch ``train_frame_fold`` on phase 5's
+   trials with launch counts, step time per T, launches per step; one train
+   step card against CPU (loss, every gradient leaf);
+7. pixels: a full-width ResNet-50 trunk (3, 4, 6, 3) at width 64 with
    weights drawn from a seed and BatchNorm statistics measured on seeded
    frames, saved as a ``med_tpu`` fine-tune checkpoint
    (``resnet50_1Out.npz`` + meta) and loaded through
@@ -63,14 +76,17 @@ non-zero and the last line is not printed:
    ``FrameModelServer.predict_trial_from_pixels`` (``PixelFrontEnd``'s
    ``ResNet50`` trunk ahead of phase 4's COG), counting launches, against
    ``predict_trial`` on the same features, and its latency;
-7. driver: two synthetic LOSO folds written with ``save_trial_npz`` (6
+8. driver: two synthetic LOSO folds written with ``save_trial_npz`` (6
    trials of 300-4096 frames, 2048-d features, 26-d kinematics, fold
    statistics), then ``med_tpu_torch.cli.train_frame.main`` at full COG
    width, multimodal, 2 epochs, on the card: every file of the run layout,
    finite numbers in ``summary.json`` and ``windowed_metrics.json``, kernel
    launches against the design; then the same command with ``--resume
-   --n-epochs 3``, which must train epoch 2 alone; wall time per fold;
-8. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+   --n-epochs 3``, which must train epoch 2 alone; then the command's
+   defaults (TeCNo, 2 epochs) and ``--model-name TransSVNet --run-id`` that
+   run, each checked the same way; wall time per fold;
+9. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+A ``[time]`` line gives each phase's wall time.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
 """
@@ -112,7 +128,9 @@ TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
        "tcn_stack_fwd/stack": (1e-4, 1e-4), "swa_packed_bwd": (1e-4, 1e-5),
        "tcn_stack_bwd/multistack": (1e-4, 1e-5), "tcn_stack_bwd/stack": (1e-4, 1e-5),
        "tcn_stack_fwd/concatenated": (1e-4, 1e-4), "tcn_stack_bwd/concatenated": (1e-4, 1e-5),
-       "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5)}
+       "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5),
+       "swa_packed_fwd/d2": (1e-4, 1e-5), "swa_packed_bwd/d2": (1e-4, 1e-5),
+       "tcn_stack_fwd/tecno": (1e-4, 1e-4), "tcn_stack_bwd/tecno": (1e-4, 1e-5)}
 # the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
 # it; fold 2Out tests trials 0 and 3 and trains on the rest
 DRIVER_FRAMES = (300, 1000, 2000, 4096, 500, 1500)
@@ -221,9 +239,15 @@ def _device_launches(fn, kernel: str, calls: int = 20) -> dict:
     """Raise unless each of ``calls`` calls of ``fn`` ran exactly one device
     kernel, named ``kernel``, by the profiler: no copy, fill or other pass
     beside it. Returns the kernel's own device time a launch (median) as
-    ``device_ms`` and, for the log, ``phase_note``."""
-    events = _device_events(fn, calls)
-    names = sorted({e.name for e in events})
+    ``device_ms`` and, for the log, ``phase_note``. A session that recorded
+    fewer events than calls, all of the kernel, is taken again (at most
+    three sessions): the profiler has dropped a few of twenty ~30 µs
+    launches."""
+    for _ in range(3):
+        events = _device_events(fn, calls)
+        names = sorted({e.name for e in events})
+        if len(events) >= calls or any(kernel not in n for n in names):
+            break
     if len(events) != calls or any(kernel not in n for n in names):
         raise RuntimeError(f"{kernel}: {len(events)} device kernels in {calls} calls "
                            f"({names}), expected the one kernel a call")
@@ -701,6 +725,151 @@ def _head_major_bwd_case(T: int, gen: torch.Generator):
                 bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
+# TransSVNet's encoder attention: 8 heads of its model width (the 2
+# classes), each of a frame's m = 30 window positions attending the W = 30
+# frames of its window (zero before frame 0): q (8, 2, 30*T), k, v (8, 2, T)
+TSVN_HEADS = dict(H=8, d=2, m=30, W=30)
+# one TeCNo stage's stack: 8 layers at C=64 over the whole trial
+TECNO_STACK = dict(L=8, C=64)
+
+
+def _tsvn_attention_inputs(T: int, gen: torch.Generator, grad: bool = False):
+    H, d, m = TSVN_HEADS["H"], TSVN_HEADS["d"], TSVN_HEADS["m"]
+    shapes = [(H, d, T * m), (H, d, T), (H, d, T)] + ([(H, d, T * m)] if grad else [])
+    return [torch.randn(s, generator=gen).cuda() for s in shapes]
+
+
+def _window_sdpa(q, k, v, T: int):
+    """The library's yardstick for TransSVNet's attention: one
+    ``scaled_dot_product_attention`` call over the frames' windows as its
+    batch, (T, H, m, d) queries against (T, H, W, d) keys and values (the
+    windows of the zero-padded frames, as views), no mask. Returns the
+    call and its leaves (queries, windowed keys and values)."""
+    H, d, m, W = (TSVN_HEADS[k_] for k_ in ("H", "d", "m", "W"))
+    q4 = q.reshape(H, d, T, m).permute(2, 0, 3, 1)
+    kw, vw = (F.pad(x, (W - 1, 0)).unfold(2, W, 1).permute(2, 0, 3, 1) for x in (k, v))
+    return q4, kw, vw
+
+
+def _tsvn_attention_case(T: int, gen: torch.Generator):
+    """K1's D=2 instance at TransSVNet's encoder shapes (TSVN_HEADS) over T
+    frames."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed, sliding_window_attention_packed_plain)
+
+    H, d, m, W = (TSVN_HEADS[k] for k in ("H", "d", "m", "W"))
+    N = T * m
+    q, k, v = _tsvn_attention_inputs(T, gen)
+    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    p_out, p_stats = sliding_window_attention_packed_plain(q, k, v, W, m)
+    tol = TOL["swa_packed_fwd/d2"]
+    err = max(check_close(f"attention d=2 T={T} out", out, p_out, *tol),
+              check_close(f"attention d=2 T={T} stats", stats, p_stats, *tol))
+    q4, kw, vw = _window_sdpa(q, k, v, T)
+    lib = lambda: F.scaled_dot_product_attention(q4, kw, vw)  # noqa: E731
+    check_close(f"attention d=2 T={T} library yardstick",
+                lib().permute(1, 3, 0, 2).reshape(H, d, N), out, 5e-3, 5e-3)
+    # bytes: q read, out and stats written per query; k, v read per frame.
+    # Operations per (query, key) pair: score and values 2d each, ~4 for the
+    # exp and the sums
+    nbytes = 4 * (2 * H * d * N + 2 * H * N + 2 * H * d * T)
+    flops = H * N * W * (4 * d + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    run = lambda: sliding_window_attention_packed(q, k, v, W, m)  # noqa: E731
+    return dict(
+        run=run, max_abs_err=err, ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 5, warmup=1),
+        **_device_launches(run, "swa_packed_fwd"))
+
+
+def _tsvn_attention_bwd_case(T: int, gen: torch.Generator):
+    """K3's D=2 instance at TransSVNet's encoder shapes, a cotangent on
+    every query; two runs equal bit for bit."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed, sliding_window_attention_packed_bwd,
+        sliding_window_attention_packed_bwd_plain)
+
+    H, d, m, W = (TSVN_HEADS[k] for k in ("H", "d", "m", "W"))
+    N = T * m
+    q, k, v, g = _tsvn_attention_inputs(T, gen, grad=True)
+    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    run = lambda: sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)  # noqa: E731
+    plain = lambda: sliding_window_attention_packed_bwd_plain(  # noqa: E731
+        q, k, v, g, out, stats, W, m)
+    rtol, atol = TOL["swa_packed_bwd/d2"]
+    err = max(check_grads(f"attention d=2 bwd T={T} {n}", [a], [b], rtol, atol)
+              for n, a, b in zip(("dq", "dk", "dv"), run(), plain()))
+    # yardstick: autograd backward of the one library call, to its leaves
+    # (the windowed keys' gradients per window slot; no fold onto frames)
+    leaves = [t.detach().requires_grad_() for t in _window_sdpa(q, k, v, T)]
+    lib_out = F.scaled_dot_product_attention(*leaves)
+    g4 = g.reshape(H, d, T, m).permute(2, 0, 3, 1)
+    lib = lambda: torch.autograd.grad(lib_out, leaves, g4, retain_graph=True)  # noqa: E731
+    check_close(f"attention d=2 bwd T={T} library yardstick dq",
+                lib()[0].permute(1, 3, 0, 2).reshape(H, d, N), run()[0], 5e-3, 5e-3)
+    # bytes: q, g and out read, the lse row read, dq written per query; k, v
+    # read, dk, dv written per frame. Operations per pair: score, g.v, dq,
+    # dk, dv (2d each) and ~4 for a, ds
+    nbytes = 4 * (4 * H * d * N + H * N + 4 * H * d * T)
+    flops = H * N * W * (10 * d + 4) + 2 * H * d * N
+    b_ms, b_by = bound(nbytes, flops)
+    _same_bits(f"attention d=2 bwd T={T}", run)
+    device = _device_launches(run, "swa_packed_bwd")
+    device["phase_note"] += "; two runs equal bit for bit"
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 5, warmup=1), **device)
+
+
+def _tecno_stack_case(T: int, gen: torch.Generator):
+    """K2b at one TeCNo stage's shape: one stack of 8 layers at C=64 over
+    the whole T-frame trial, one launch; the saving forward with a dropout
+    mask (a train step's) beside it."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    L, C = TECNO_STACK["L"], TECNO_STACK["C"]
+    (w,) = _stage_weights(gen, (L,), C)
+    x = torch.randn((T, C), generator=gen).cuda()
+    mask = torch.randint(0, 2, (L, T, C), generator=gen, dtype=torch.uint8).cuda()
+    run = lambda: tcn.dilated_residual_stack(x, *w)  # noqa: E731
+    plain = lambda: tcn.dilated_stack_xla(x, *w)  # noqa: E731
+    err = check_close(f"TeCNo stack T={T}", run(), plain(), *TOL["tcn_stack_fwd/tecno"])
+    saving = lambda: tcn._stages_fwd(x, [w], [mask], True,  # noqa: E731
+                                     tcn.dilated_residual_stack, save=True)
+    nbytes, flops = _tcn_flops_bytes(T, C, (L,), 1, 1)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, saving_ms=cuda_ms(saving, 20),
+                **_barrier_floor(tcn.dilated_residual_stack, (L,)),
+                **_device_launches(run, "tcn_stack_kernel"))
+
+
+def _tecno_stack_bwd_case(T: int, gen: torch.Generator):
+    """K5 at one TeCNo stage's shape (TECNO_STACK over T frames), with a
+    dropout mask; two runs equal bit for bit."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    L, C = TECNO_STACK["L"], TECNO_STACK["C"]
+    (w,) = _stage_weights(gen, (L,), C)
+    mask = torch.randint(0, 2, (L, T, C), generator=gen, dtype=torch.uint8).cuda()
+    x = torch.randn((T, C), generator=gen).cuda()
+    g = torch.randn((T, C), generator=gen).cuda()
+    _, h, y = tcn._stages_fwd(x, [w], [mask], True, tcn.dilated_residual_stack, save=True)
+    run = lambda: tcn.dilated_residual_stack_bwd(g, h, y, w[0], w[2], mask=mask)  # noqa: E731
+    plain = lambda: tcn._stages_bwd_plain(g[None], h, y, [(w[0], w[2])], [mask], True)  # noqa: E731
+    rtol, atol = TOL["tcn_stack_bwd/tecno"]
+    got, (p_dx, (p_dw,)) = run(), plain()
+    err = max(check_grads(f"TeCNo stack bwd T={T} {n}", [a], [b], rtol, atol)
+              for n, a, b in zip(("dx", "dw3", "db3", "dw1", "db1"), got, (p_dx, *p_dw)))
+    _same_bits(f"TeCNo stack bwd T={T}", run)
+    nbytes, flops = _tcn_bwd_flops_bytes(T, C, (L,), 1, 1)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_bwd_barrier_floor(tcn.dilated_residual_stack_bwd, [(L, T)]),
+                **_device_launches(run, "tcn_bwd_kernel"))
+
+
 KERNEL_CASES = (("swa_packed_fwd", _attention_case),
                 ("tcn_stack_fwd/multistack", _multistack_case),
                 ("tcn_stack_fwd/stack", _fast_stacks_case),
@@ -710,7 +879,11 @@ KERNEL_CASES = (("swa_packed_fwd", _attention_case),
                 ("tcn_stack_fwd/concatenated", _concat_multistack_case),
                 ("tcn_stack_bwd/concatenated", _concat_multistack_bwd_case),
                 ("swa_headmajor_fwd", _head_major_case),
-                ("swa_headmajor_bwd", _head_major_bwd_case))
+                ("swa_headmajor_bwd", _head_major_bwd_case),
+                ("swa_packed_fwd/d2", _tsvn_attention_case),
+                ("swa_packed_bwd/d2", _tsvn_attention_bwd_case),
+                ("tcn_stack_fwd/tecno", _tecno_stack_case),
+                ("tcn_stack_bwd/tecno", _tecno_stack_bwd_case))
 
 
 def phase_kernels(profile: bool):
@@ -993,14 +1166,18 @@ def _trial(rng: np.random.Generator, T: int, name: str):
                       e_powerset=e, skill=skill_one_hot(name, T))
 
 
-def _step_gradients(cfg, batch, masks, device: str):
-    """Loss and every gradient leaf (JAX tree paths) of one train step."""
+def _step_gradients(cfg, batch, masks, device: str, frozen=None):
+    """Loss and every gradient leaf (JAX tree paths) of one train step, from
+    seeded weights (``masks`` None: TransSVNet, which has no dropout)."""
     from med_tpu_torch.train.engine import Experiment
     from med_tpu_torch.utils.jax_params import export_jax_params
 
     exp = Experiment(cfg, device=device)
     exp.init_weights(SEED)
-    dev_masks = {n: {k: v.to(exp.device) for k, v in d.items()} for n, d in masks.items()}
+    if frozen is not None:
+        exp.load_frozen(frozen)
+    dev_masks = None if masks is None else {
+        n: {k: v.to(exp.device) for k, v in d.items()} for n, d in masks.items()}
     loss, _ = exp.compute_gradients(batch, masks=dev_masks)
     tree = export_jax_params(exp.net, grads=True)["params"]
     return loss.item(), {k: torch.from_numpy(v) for k, v in _flat(tree).items()}
@@ -1161,6 +1338,236 @@ def phase_training(profile: bool):
             batch = frame_batch(trial, cfg)
             _profile(f"train step T={trial.n_frames}", lambda: exp.train_step(batch))
     return launches
+
+
+FAMILIES = ("TeCNo", "TransSVNet")
+# TransSVNet's gradients, card against CPU. Its LayerNorms act over its 2
+# classes, so a frame's gradient carries the factor eps / (a - b)^2 of each:
+# frames whose two LN inputs nearly coincide dominate the sum, and float32
+# inputs (the kernels', the features') fix those differences only to ~1e-3.
+# Measured on the CPU at this test's config, the port's float32 gradients
+# sit up to 6e-3 of a leaf's largest |value| from its float64 ones, and the
+# two packages' all-float32 gradients stood ~1e-2 apart before the port took
+# the model's tail in float64 (models/transsvnet.py). So each leaf is held
+# to TSVN_GRAD_ATOL of its largest |value|; the decoder's W_Q and W_K
+# (NULL_LEAVES: keys driven to +-r(1, -1), r within ~1e-5 of 1, make its
+# scores over a window nearly equal and these gradients ~1e-17 of the
+# tree's largest) to that of the tree's largest.
+TSVN_GRAD_ATOL = 2e-2
+NULL_LEAVES = ("dec_attn/W_Q/kernel", "dec_attn/W_K/kernel")
+
+
+def _family_config(model_name: str):
+    """TeCNo or TransSVNet as med_tpu.cli.train_frame configures and trains
+    them: 2048-d video features, 2 classes; TeCNo 2 stages of 8 layers at 64
+    maps, TransSVNet f_maps 64, 8 heads, len_q 30 over a frozen TeCNo of the
+    same config; lr 5e-4, no weight decay, no schedule; each trial in its own
+    256-frame bucket (fused_epoch off), so step times follow T."""
+    from med_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(model_name=model_name, dataset_type="frame", data_type="video",
+                            video_dims=2048, out_features=2, error_type="global",
+                            lr=5e-4, weight_decay=0.0, lr_scheduler=False, seed=42,
+                            n_epochs=2, fused_epoch=False)
+
+
+def _family_checkpoints(directory: str):
+    """Seeded weights of both families, written with the port's
+    save_checkpoint in the JAX package's layout and loaded back as a served
+    run would be; the frozen stage is the TeCNo checkpoint's model tree, as
+    med_tpu.cli.train_frame hands it over. Returns ({name: checkpoint},
+    frozen)."""
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.train.checkpoint import load_best_checkpoint, save_checkpoint
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    ckpts = {}
+    for i, name in enumerate(FAMILIES):
+        exp = Experiment(_family_config(name), device="cpu")
+        tree = export_jax_params(init_weights(exp.net,
+                                              torch.Generator().manual_seed(SEED + i)))
+        save_checkpoint(str(Path(directory) / f"best_model_{name}_1Out.npz"), tree["params"])
+        ckpts[name] = load_best_checkpoint(directory, name, "1Out")
+    return ckpts, {"tecno_params": ckpts["TeCNo"]["params"]["model"]}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def family_launches(model_name: str, passes: int = 0, steps: int = 0) -> dict:
+    """Launches of ``passes`` served requests or eval passes and ``steps``
+    train steps of a family (zero for every other wrapper): TeCNo, one K2b
+    a stage (2), and in a train step the saving forward and one K5 a stage;
+    TransSVNet, the frozen TeCNo's 2 K2b (the forward that saves nothing,
+    in training too) and one K1, and in a train step one K3."""
+    from med_tpu_torch import ops
+
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+    counts["dilated_residual_stack"] = 2 * (passes + steps)
+    if model_name == "TeCNo":
+        counts["dilated_residual_stack_bwd"] = 2 * steps
+    else:
+        counts["sliding_window_attention_packed"] = passes + steps
+        counts["sliding_window_attention_packed_bwd"] = steps
+    return counts
+
+
+def _family_card_vs_cpu_step(name: str, cfg, trial, frozen) -> None:
+    """One full-width train step on the card and on the CPU, same weights
+    (and TeCNo's dropout masks): the loss within TRAIN_TOL, and every
+    gradient leaf within rtol and an atol of TRAIN_TOL['grad_atol'] times
+    the leaf's own largest |value| (TransSVNet: TSVN_GRAD_ATOL times it, and
+    times the tree's for NULL_LEAVES)."""
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.train.engine import Experiment
+
+    batch = frame_batch(trial, cfg)
+    masks = None
+    if name == "TeCNo":
+        masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+            batch["images"].shape[1], torch.Generator().manual_seed(SEED))
+    cpu_loss, cpu = _step_gradients(cfg, batch, masks, "cpu", frozen)
+    card_loss, card = _step_gradients(cfg, batch, masks, "cuda", frozen)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    tree_max = max(g.abs().max().item() for g in cpu.values())
+    atol = TRAIN_TOL["grad_atol"] if name == "TeCNo" else TSVN_GRAD_ATOL
+    rows, failed = [], []
+    for n in sorted(cpu):
+        leaf_max = max(cpu[n].abs().max().item(), 1e-30)
+        scale = tree_max if n.endswith(NULL_LEAVES) else leaf_max
+        err = (card[n] - cpu[n]).abs()
+        rows.append((err.max().item() / leaf_max, err.max().item() / tree_max, n))
+        if (err - TRAIN_TOL["grad_rtol"] * cpu[n].abs()).max().item() > atol * scale:
+            failed.append(n)
+    log(f"[families] {name} card vs CPU train step at T={trial.n_frames}: loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e}, tol {TRAIN_TOL['loss']}); "
+        f"{len(rows)} gradient leaves, largest |card - CPU| over the leaf's max "
+        f"{max(r[0] for r in rows):.2e} ({max(rows)[2]}), over the tree's max "
+        f"{max(r[1] for r in rows):.2e} (tol rtol {TRAIN_TOL['grad_rtol']}, atol "
+        f"{atol} x the leaf max; x the tree max for "
+        f"{[n for n in sorted(cpu) if n.endswith(NULL_LEAVES)]})")
+    for leaf_rel, _, n in sorted(rows, reverse=True):
+        log(f"[families]   {name} {n}: |card - CPU| {leaf_rel:.2e} of the leaf's max")
+    if rel > TRAIN_TOL["loss"]:
+        raise RuntimeError(f"{name} card vs CPU loss {card_loss} vs {cpu_loss}")
+    if failed:
+        raise RuntimeError(f"{name} card vs CPU gradients out of tolerance: {failed}")
+
+
+def phase_families(profile: bool):
+    """TeCNo and TransSVNet at full width (phase 6 of the module docstring).
+    Returns, per family, the launch counts of its train_frame_fold run."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.train.loop import train_frame_fold
+
+    rng = np.random.default_rng(SEED + 4)
+    stats = {"kinematics": {"mean": rng.standard_normal(26, dtype=np.float32),
+                            "std": rng.uniform(0.5, 2.0, 26).astype(np.float32)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts, frozen_tree = _family_checkpoints(tmp)
+    requests = {T: _request(rng, T) for T in REQUEST_FRAMES}
+    train = [_trial(rng, T, f"Needle_Passing_{'BCDE'[i]}00{i + 1}")
+             for i, T in enumerate(TRAIN_FRAMES)]
+    test = [_trial(rng, T, f"Needle_Passing_F00{i + 1}") for i, T in enumerate(TEST_FRAMES)]
+    fold_launches = {}
+    for name in FAMILIES:
+        cfg = _family_config(name)
+        frozen = frozen_tree if name == "TransSVNet" else None
+        server = FrameModelServer(cfg, ckpts[name], stats=stats, frozen=frozen)
+        if server.exp.device.type != "cuda":
+            raise RuntimeError(f"{name} server runs on {server.exp.device}, not the card")
+        server.predict_trial(*_request(rng, 256))          # warm-up, not counted
+        ops.reset_launch_counts()
+        served = {}
+        for T, req in requests.items():
+            t0 = time.perf_counter()
+            served[T] = server.predict_trial(*req)
+            ms = (time.perf_counter() - t0) * 1e3
+            _check_served(f"{name} request T={T}", *served[T], T)
+            log(f"[families] {name} request T={T}: {ms:.2f} ms (first pass)")
+        launches = ops.launch_counts()
+        want = family_launches(name, passes=len(requests))
+        log(f"[families] {name} launches over {len(requests)} requests: "
+            f"{_nonzero(launches)} (expected {_nonzero(want)}, no other)")
+        if launches != want:
+            raise RuntimeError(f"{name} kernel launches {launches} != {want}")
+        for T, req in requests.items():
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                server.predict_trial(*req)
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            log(f"[families] {name} request T={T}: median {med:.2f} ms of 5 "
+                f"(min {min(times):.2f}, max {max(times):.2f}), {T / med * 1e3:.0f} frames/s")
+        cpu = FrameModelServer(cfg, ckpts[name], stats=stats, frozen=frozen, device="cpu")
+        for T, req in requests.items():
+            c_preds, c_probs = cpu.predict_trial(*req)
+            g_preds, g_probs = served[T]
+            err = float(np.abs(g_probs - c_probs).max())
+            flips = g_preds != c_preds
+            if err > 1e-4 or bool((flips & (np.abs(c_probs - 0.5) > 1e-4)).any()):
+                raise RuntimeError(f"{name} card vs CPU at T={T}: probabilities differ by "
+                                   f"{err:.3e} (tol 1e-4), or predictions away from 0.5")
+            log(f"[families] {name} card vs CPU at T={T}: max prob diff {err:.3e} "
+                f"(tol 1e-4), {int(flips.sum())} of {T} predictions differ")
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_frame_fold(cfg, train, test, frozen=frozen)     # on the card
+        wall = time.perf_counter() - t0
+        fold_launches[name] = launches = ops.launch_counts()
+        exp = res["exp"]
+        if exp.device.type != "cuda":
+            raise RuntimeError(f"{name} training ran on {exp.device}, not the card")
+        steps = cfg.n_epochs * len(train)
+        want = family_launches(name, passes=cfg.n_epochs * len(test), steps=steps)
+        log(f"[families] {name} launches over {steps} train steps and "
+            f"{cfg.n_epochs * len(test)} eval passes: {_nonzero(launches)} (expected "
+            f"{_nonzero(want)}, no other)")
+        if launches != want:
+            raise RuntimeError(f"{name} kernel launches {launches} != {want}")
+        for row in res["history"]:
+            if not (math.isfinite(row["train_loss"]) and math.isfinite(row["test_loss"])):
+                raise RuntimeError(f"{name}: non-finite loss in epoch {row['epoch']}: {row}")
+            log(f"[families] {name} epoch {row['epoch']}: train_loss "
+                f"{row['train_loss']:.6f}, test_loss {row['test_loss']:.6f}, test_f1 "
+                f"{row['test_f1']:.4f}, train {row['train_time']:.2f} s")
+        log(f"[families] {name} train_frame_fold: {cfg.n_epochs} epochs x {len(train)} "
+            f"trials in {wall:.2f} s (first steps included)")
+        for trial in train:
+            batch = frame_batch(trial, cfg)
+            exp.train_step(batch)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                exp.train_step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            med = statistics.median(times)
+            log(f"[families] {name} step T={trial.n_frames} (bucket "
+                f"{batch['labels'].shape[0]}): median {med:.2f} ms of 5 (min "
+                f"{min(times):.2f}, max {max(times):.2f}), "
+                f"{trial.n_frames / med * 1e3:.0f} frames/s")
+        ops.reset_launch_counts()
+        exp.train_step(frame_batch(train[0], cfg))
+        one = ops.launch_counts()
+        log(f"[families] {name} launches per train step: {_nonzero(one)}")
+        if one != family_launches(name, steps=1):
+            raise RuntimeError(f"{name} launches per train step {one} differ from the design")
+        _family_card_vs_cpu_step(name, cfg, _trial(rng, CPU_TRAIN_FRAMES,
+                                                   "Needle_Passing_G001"), frozen)
+        if profile:
+            req = requests[REQUEST_FRAMES[-1]]
+            _profile(f"{name} request T={len(req[0])}", lambda: server.predict_trial(*req))
+            batch = frame_batch(train[3], cfg)
+            _profile(f"{name} train step T={train[3].n_frames}", lambda: exp.train_step(batch))
+    return fold_launches
 
 
 def _seeded_trunk(directory: str, device="cuda", residual_scale: float = RESIDUAL_SCALE):
@@ -1580,8 +1987,9 @@ def _finite_numbers(obj) -> int:
 
 
 def phase_driver():
-    """The COG fold driver's command line on the card (phase 7 of the module
-    docstring)."""
+    """The fold driver's command line on the card (phase 8 of the module
+    docstring). Returns the launch counts of COG's first run and, per
+    family, of the TeCNo and TransSVNet runs."""
     from med_tpu_torch import ops
     from med_tpu_torch.cli import train_frame
 
@@ -1615,49 +2023,10 @@ def phase_driver():
 
         results, tracker, wall, launches = drive(2, "--n-epochs", "2")
         run = Path(tracker.dir)
-        if run.parent != root / "runs" / "COG_5Hz_multimodal":
-            raise RuntimeError(f"run directory {run} is not under COG_5Hz_multimodal")
-        want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json",
-                      "artifacts/windowed_metrics.json"}
-        for fold in splits:
-            want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
-                           f"checkpoints/best_model_LOSO_{fold}.npz",
-                           f"checkpoints/best_model_LOSO_{fold}.npz.json",
-                           f"checkpoints/last_state_LOSO_{fold}.npz"}
-        files = {str(f.relative_to(run)) for f in run.rglob("*") if f.is_file()}
-        if files != want_files:
-            raise RuntimeError(f"run layout: missing {sorted(want_files - files)}, "
-                               f"unexpected {sorted(files - want_files)}")
-        params = json.loads((run / "params.json").read_text())
-        width = {k: params[k] for k in ("model_name", "data_type", "video_dims", "d_model",
-                                        "d_q", "sequence_length", "num_layers_Basic",
-                                        "num_layers_R", "num_R", "mstcn_f_maps", "n_epochs")}
-        if width != {"model_name": "COG", "data_type": "multimodal", "video_dims": 2048,
-                     "d_model": 64, "d_q": 8, "sequence_length": 30, "num_layers_Basic": 11,
-                     "num_layers_R": 10, "num_R": 3, "mstcn_f_maps": 64, "n_epochs": 2}:
-            raise RuntimeError(f"the driver did not run full-width COG: {width}")
-        counted = {name: _finite_numbers(json.loads((run / "artifacts" / name).read_text()))
-                   for name in ("summary.json", "windowed_metrics.json")}
-        for fold, (_, test) in splits.items():
-            best = results[fold]
-            n = sum(DRIVER_FRAMES[int(t[-1]) - 1] for t in test)
-            _check_served(f"driver fold {fold}", best["preds"], best["probs"], n)
-            if not (math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
-                raise RuntimeError(f"driver fold {fold}: non-finite loss {best}")
-        log(f"[driver] run layout ok ({len(files)} files); summary.json holds "
-            f"{counted['summary.json']} finite numbers, windowed_metrics.json "
-            f"{counted['windowed_metrics.json']}; best test F1 "
-            f"{ {f: round(results[f]['test_f1'], 4) for f in splits} }")
-        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
-        train_s = sum(r["value"] for r in rows if r["key"] == "train_time")
-        # the eval rows come fold by fold, 2 epochs each, as ms per test frame
-        test_frames = [sum(DRIVER_FRAMES[i] for i in test) for test in DRIVER_TEST.values()]
-        per_frame = [r["value"] for r in rows if r["key"] == "test_inference_ms_per_frame"]
-        eval_s = sum(v * test_frames[j // 2] for j, v in enumerate(per_frame)) / 1e3
-        log(f"[driver] train_frame.main, {len(splits)} folds x 2 epochs: {wall:.2f} s of "
-            f"wall, {wall / len(splits):.2f} s a fold: train steps {train_s:.2f} s, eval "
-            f"passes {eval_s:.2f} s, the rest (loading the folds, snapshots, checkpoints "
-            f"and artifacts) {wall - train_s - eval_s:.2f} s")
+        _check_driver_run(run, "COG_5Hz_multimodal", splits, results, wall, {
+            "model_name": "COG", "data_type": "multimodal", "video_dims": 2048,
+            "d_model": 64, "d_q": 8, "sequence_length": 30, "num_layers_Basic": 11,
+            "num_layers_R": 10, "num_R": 3, "mstcn_f_maps": 64, "n_epochs": 2})
 
         _, resumed, wall_resume, _ = drive(1, "--n-epochs", "3", "--resume")
         if resumed.dir != tracker.dir:
@@ -1670,7 +2039,81 @@ def phase_driver():
         log(f"[driver] --resume --n-epochs 3 trained epoch 2 alone in every fold "
             f"(epoch rows {steps}): {wall_resume:.2f} s of wall, "
             f"{wall_resume / len(splits):.2f} s a fold")
-    return launches
+
+        # the frame CLI's default (TeCNo), then TransSVNet on that run
+        family_runs, tecno_id = {}, None
+        for name in FAMILIES:
+            extra = ([] if name == "TeCNo"
+                     else ["--model-name", "TransSVNet", "--run-id", tecno_id])
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            results, tracker = train_frame.main(
+                ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+                 "--folds", ",".join(splits), "--n-epochs", "2", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            family_runs[name] = ops.launch_counts()
+            want = family_launches(name, passes=2 * n_test, steps=2 * n_train)
+            log(f"[driver] {name}: launches over {2 * n_train} train steps and "
+                f"{2 * n_test} eval passes: {_nonzero(family_runs[name])} (expected "
+                f"{_nonzero(want)}, no other)")
+            if family_runs[name] != want:
+                raise RuntimeError(f"{name} kernel launches {family_runs[name]} != {want}")
+            tecno_id = tecno_id or tracker.run_id
+            _check_driver_run(Path(tracker.dir), f"{name}_5Hz_video", splits, results, wall, {
+                "model_name": name, "data_type": "video", "video_dims": 2048,
+                "mstcn_stages": 2, "mstcn_layers": 8, "mstcn_f_maps": 64,
+                "sequence_length": 30, "n_epochs": 2,
+                "run_id": None if name == "TeCNo" else tecno_id})
+    return launches, family_runs
+
+
+def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
+                      width: dict) -> None:
+    """Raise unless a driver run's directory is whole, its config has
+    ``width``, its summaries are finite and its best predictions served
+    numbers; log the run's wall split (train steps, eval passes and the rest
+    from its own metrics.jsonl)."""
+    tag = f"[driver] {width['model_name']}"
+    if run.parent.name != experiment:
+        raise RuntimeError(f"run directory {run} is not under {experiment}")
+    want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json",
+                  "artifacts/windowed_metrics.json"}
+    for fold in splits:
+        want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
+                       f"checkpoints/best_model_LOSO_{fold}.npz",
+                       f"checkpoints/best_model_LOSO_{fold}.npz.json",
+                       f"checkpoints/last_state_LOSO_{fold}.npz"}
+    files = {str(f.relative_to(run)) for f in run.rglob("*") if f.is_file()}
+    if files != want_files:
+        raise RuntimeError(f"run layout: missing {sorted(want_files - files)}, "
+                           f"unexpected {sorted(files - want_files)}")
+    params = json.loads((run / "params.json").read_text())
+    got = {k: params[k] for k in width}
+    if got != width:
+        raise RuntimeError(f"the driver did not run {width}: {got}")
+    counted = {name: _finite_numbers(json.loads((run / "artifacts" / name).read_text()))
+               for name in ("summary.json", "windowed_metrics.json")}
+    for fold, (_, test) in splits.items():
+        best = results[fold]
+        n = sum(DRIVER_FRAMES[int(t[-1]) - 1] for t in test)
+        _check_served(f"driver fold {fold}", best["preds"], best["probs"], n)
+        if not (math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
+            raise RuntimeError(f"driver fold {fold}: non-finite loss {best}")
+    log(f"{tag} run layout ok ({len(files)} files); summary.json holds "
+        f"{counted['summary.json']} finite numbers, windowed_metrics.json "
+        f"{counted['windowed_metrics.json']}; best test F1 "
+        f"{ {f: round(results[f]['test_f1'], 4) for f in splits} }")
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    train_s = sum(r["value"] for r in rows if r["key"] == "train_time")
+    # the eval rows come fold by fold, 2 epochs each, as ms per test frame
+    test_frames = [sum(DRIVER_FRAMES[i] for i in test) for test in DRIVER_TEST.values()]
+    per_frame = [r["value"] for r in rows if r["key"] == "test_inference_ms_per_frame"]
+    eval_s = sum(v * test_frames[j // 2] for j, v in enumerate(per_frame)) / 1e3
+    log(f"{tag} train_frame.main, {len(splits)} folds x 2 epochs: {wall:.2f} s of "
+        f"wall, {wall / len(splits):.2f} s a fold: train steps {train_s:.2f} s, eval "
+        f"passes {eval_s:.2f} s, the rest (loading the folds, snapshots, checkpoints "
+        f"and artifacts) {wall - train_s - eval_s:.2f} s")
 
 
 def main(argv) -> int:
@@ -1685,15 +2128,24 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_device()
-    phase_build()
-    kernels = phase_kernels("--profile" in argv)
-    op_api = phase_op_api()
-    serving = phase_serving("--profile" in argv)
-    training = phase_training("--profile" in argv)
-    fused_trunk, pixels, stage_kernel = phase_pixels("--profile" in argv)
+    profile = "--profile" in argv
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels, profile)
+    op_api = timed("ops", phase_op_api)
+    serving = timed("serving", phase_serving, profile)
+    training = timed("training", phase_training, profile)
+    families = timed("families", phase_families, profile)
+    fused_trunk, pixels, stage_kernel = timed("pixels", phase_pixels, profile)
     kernels["resnet_stage"] = stage_kernel
-    driver = phase_driver()
+    driver, driver_families = timed("driver", phase_driver)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -1727,21 +2179,41 @@ def main(argv) -> int:
                                      "sliding_window_attention_pallas"),
                "swa_headmajor_bwd": ("med_tpu_torch/csrc/swa_headmajor_bwd.cu",
                                      "med_tpu/ops/attention.py:212",
-                                     "sliding_window_attention_bwd_pallas")}
+                                     "sliding_window_attention_bwd_pallas"),
+               "swa_packed_fwd/d2": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
+                                     "med_tpu/ops/attention.py:390",
+                                     "sliding_window_attention_packed"),
+               "swa_packed_bwd/d2": ("med_tpu_torch/csrc/swa_packed_bwd.cu",
+                                     "med_tpu/ops/attention.py:506",
+                                     "sliding_window_attention_packed_bwd"),
+               "tcn_stack_fwd/tecno": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
+                                       "med_tpu/ops/tcn_fused.py:91",
+                                       "dilated_residual_stack"),
+               "tcn_stack_bwd/tecno": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
+                                       "med_tpu/ops/tcn_fused.py:193",
+                                       "dilated_residual_stack_bwd")}
     # launches: each kernel's own path: one 128-frame batch of
     # resnet50_fused_apply for K10, one forward and backward through the
-    # public op entry points for K6-K9, and the training run for the others;
-    # every phase's count beside it (the pixel request's trunk is ResNet50;
-    # the driver's count is its first run, 2 folds x 2 epochs)
+    # public op entry points for K6-K9, the TransSVNet and TeCNo fold runs
+    # for the D=2 attention and the TeCNo stacks, and COG's training run for
+    # the others; every phase's count beside it (the pixel request's trunk is
+    # ResNet50; the driver's COG count is its first run, 2 folds x 2 epochs)
     own_path = {"resnet_stage": fused_trunk, "tcn_stack_fwd/concatenated": op_api,
                 "tcn_stack_bwd/concatenated": op_api, "swa_headmajor_fwd": op_api,
-                "swa_headmajor_bwd": op_api}
+                "swa_headmajor_bwd": op_api, "swa_packed_fwd/d2": families["TransSVNet"],
+                "swa_packed_bwd/d2": families["TransSVNet"],
+                "tcn_stack_fwd/tecno": families["TeCNo"],
+                "tcn_stack_bwd/tecno": families["TeCNo"]}
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": own_path.get(name, training)[wrapper],
              "launches_serving": serving[wrapper], "launches_training": training[wrapper],
              "launches_fused_trunk": fused_trunk[wrapper],
              "launches_pixel_request": pixels[wrapper],
              "launches_op_api": op_api[wrapper], "launches_driver": driver[wrapper],
+             "launches_tecno_fold": families["TeCNo"][wrapper],
+             "launches_tsvn_fold": families["TransSVNet"][wrapper],
+             "launches_driver_tecno": driver_families["TeCNo"][wrapper],
+             "launches_driver_tsvn": driver_families["TransSVNet"][wrapper],
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     idle = [k["name"] for k in line if k["launches"] < 1]

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -125,10 +125,12 @@ def _dump_best(tracker: RunTracker, tag: str, best: dict, cfg) -> None:
     tracker.log_dict(dump, f"best_model_{tag}.json")
 
 
-def run_frame_folds(args, cfg: ExperimentConfig) -> Dict[str, dict]:
+def run_frame_folds(args, cfg: ExperimentConfig,
+                    frozen_fn: Optional[Callable[[str], dict]] = None) -> Dict[str, dict]:
     """Train all folds of a frame experiment; save checkpoints, artifacts,
     the weighted summary and the frame->window rollup (the fold loop of
-    train_frame.ipynb cells 2-4). Returns (fold_results, tracker)."""
+    train_frame.ipynb cells 2-4). ``frozen_fn(fold)`` gives a fold's frozen
+    stage (TransSVNet's TeCNo). Returns (fold_results, tracker)."""
     for name in _MULTI_GPU_FLAGS:
         if getattr(args, name, None):
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
@@ -147,6 +149,7 @@ def run_frame_folds(args, cfg: ExperimentConfig) -> Dict[str, dict]:
         tag = f"{args.setting}_{out}"
         print(f"[{tag}] train trials={len(train_trials)} test={len(test_trials)}")
         res = train_frame_fold(cfg, train_trials, test_trials, tracker=tracker,
+                               frozen=frozen_fn(out) if frozen_fn else None,
                                tag=tag, exp=shared_exp,
                                resume=getattr(args, "resume", False))
         best = res["best"]

@@ -4,7 +4,8 @@
 //
 // - copies from device to shared memory by cp.async, 4 or 16 bytes, zero
 //   where the source lies outside the sequence;
-// - rows of D floats between registers and shared memory as float4;
+// - rows of D floats between registers and shared memory as float4, or
+//   float2 at D = 2;
 // - the forward's pass over a query's W keys, a chunk of kChunk scores in
 //   registers with an online max and sum (K1, K8);
 // - the backward's two fixed-order sums of per-tile dk/dv partials: a
@@ -61,11 +62,21 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool in) {
   }
 }
 
-// A row of D floats into registers: float4 loads where V (shared memory
-// rows are always 16-byte aligned), else one float at a time.
+// A row of D floats between registers and shared memory: float4 accesses
+// where V and D is a multiple of 4 (such rows are 16-byte aligned), float2
+// where V and D = 2 (8-byte rows, 8-byte aligned), else one float at a time.
+// A width that is neither (D = 1, 3, 5, ..) must take V = false: D / 4
+// would be 0 (or leave floats out) on the vector paths.
+template <int D, bool V>
+__device__ __forceinline__ void check_row_width() {
+  static_assert(!V || D % 4 == 0 || D == 2,
+                "vector row access takes D a multiple of 4, or D = 2");
+}
+
 template <int D, bool V = true>
 __device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
-  if (V) {
+  check_row_width<D, V>();
+  if constexpr (V && D % 4 == 0) {
 #pragma unroll
     for (int c = 0; c < D / 4; ++c) {
       const float4 t = reinterpret_cast<const float4*>(src)[c];
@@ -74,6 +85,10 @@ __device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
       x[4 * c + 2] = t.z;
       x[4 * c + 3] = t.w;
     }
+  } else if constexpr (V && D == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x;
+    x[1] = t.y;
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = src[d];
@@ -82,11 +97,14 @@ __device__ __forceinline__ void load_row(float (&x)[D], const float* src) {
 
 template <int D, bool V = true>
 __device__ __forceinline__ void store_row(float* dst, const float (&x)[D]) {
-  if (V) {
+  check_row_width<D, V>();
+  if constexpr (V && D % 4 == 0) {
 #pragma unroll
     for (int c = 0; c < D / 4; ++c)
       reinterpret_cast<float4*>(dst)[c] =
           make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+  } else if constexpr (V && D == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
   } else {
 #pragma unroll
     for (int d = 0; d < D; ++d) dst[d] = x[d];

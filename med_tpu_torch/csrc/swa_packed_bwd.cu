@@ -51,6 +51,13 @@
 // adds the partials of the F-1 key rows it shares with the chunk before to
 // that chunk's scratch rows, so the sums keep a fixed order. expf (not
 // __expf) keeps parity with the reference.
+//
+// D = 2 (TransSVNet): the staged rows are 8 bytes. K/V, q^ and g rows go
+// between shared memory and registers as float2 (row stride D,
+// swa_common.cuh), the ds band stays 16-byte aligned for its float4 reads
+// (every region before it is a multiple of 4 floats), and the (lse, delta)
+// pairs 8-byte aligned; a tile of 16 frames of 30 slots takes ~88 KB, two
+// blocks an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -432,7 +439,7 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 // Returns a cudaError_t code: cudaErrorInvalidValue where no tiling fits.
 extern "C" int swa_packed_bwd_scratch(int H, int D, int T, int m, int W, long long* floats) {
   Plan p;
-  if ((D != 4 && D != 8 && D != 16 && D != 32) || !plan(H, D, T, m, W, &p))
+  if ((D != 2 && D != 4 && D != 8 && D != 16 && D != 32) || !plan(H, D, T, m, W, &p))
     return cudaErrorInvalidValue;
   *floats = p.scratch;
   return cudaSuccess;
@@ -448,6 +455,7 @@ extern "C" int swa_packed_bwd(const float* q, const float* k, const float* v,
   if (!plan(H, D, T, m, W, &args.p)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 2: return launch<2>(args, s);
     case 4: return launch<4>(args, s);
     case 8: return launch<8>(args, s);
     case 16: return launch<16>(args, s);

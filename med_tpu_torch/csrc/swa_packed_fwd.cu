@@ -21,10 +21,11 @@
 // frame and by W frames.
 //
 // Design: one pass over the keys. A thread holds R query slots of one frame
-// (R = 2 for D <= 8, else 1), so each key row read from shared memory feeds
-// R queries, and holds their scores of a chunk of 16 keys in registers:
-// the chunk's max, one expf a score, the sum and the weighted sum of
-// values, with an online rescale between chunks (COG's W=30: two chunks).
+// (R = 4 for D = 2, 2 for D <= 8, else 1), so each key row read from
+// shared memory feeds R queries, and holds their scores of a chunk of 16
+// keys in registers: the chunk's max, one expf a score, the sum and the
+// weighted sum of values, with an online rescale between chunks (COG's
+// W=30: two chunks).
 // Each score is computed once: D FMAs for the score and D for the values a
 // pair. Blocks of 128 threads at ~100 registers a thread (D=8): five
 // blocks an SM. A block covers fpb whole frames of one head (a slice of one
@@ -34,6 +35,13 @@
 // q; consecutive threads fill consecutive words, so the stores meet no bank
 // conflict. expf and logf, not the fast intrinsics, keep the parity with
 // the reference.
+//
+// D = 2 (TransSVNet's head width: its model width is the 2 classes, its
+// m = W = 30 window positions attend their window): a pair is 4 FMAs and
+// one exp, so the kernel is bound by the query tokens' bytes. Key rows are
+// 8 bytes, read from shared memory as float2 (swa_common.cuh), and a thread
+// takes 4 slots (8 threads and 32 slots a frame at m = 30, 16 frames a
+// block), so a key row feeds 4 queries.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,7 +119,7 @@ swa_packed_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* stats, int H, int T, int m, int W, cudaStream_t stream) {
-  constexpr int R = D <= 8 ? 2 : 1;
+  constexpr int R = D <= 2 ? 4 : D <= 8 ? 2 : 1;
   const int slot_threads = (m + R - 1) / R;
   int tpf, spb, nsb, fpb;
   if (slot_threads <= kThreads) {
@@ -145,6 +153,7 @@ extern "C" int swa_packed_fwd(const float* q, const float* k, const float* v,
   if (H < 1 || T < 1 || m < 1 || W < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 2: return launch<2>(q, k, v, out, stats, H, T, m, W, s);
     case 4: return launch<4>(q, k, v, out, stats, H, T, m, W, s);
     case 8: return launch<8>(q, k, v, out, stats, H, T, m, W, s);
     case 16: return launch<16>(q, k, v, out, stats, H, T, m, W, s);

@@ -1,5 +1,6 @@
-"""Live frame-level serving of COG, from features or from raw frames (port
-of ``med_tpu.eval.serving``'s ``FrameModelServer`` and ``PixelFrontEnd``).
+"""Live frame-level serving of the frame families (COG, TeCNo, TransSVNet),
+from features or from raw frames (port of ``med_tpu.eval.serving``'s
+``FrameModelServer`` and ``PixelFrontEnd``).
 The window-level ``predict_trial_from_pixels`` needs ``EnsembleServer`` and
 is not ported yet (ROADMAP.md Queue A8)."""
 
@@ -107,11 +108,13 @@ class FrameModelServer:
     probabilities.
 
     ``checkpoint`` is a ``med_tpu`` checkpoint tree (``load_checkpoint`` of
-    a ``best_model_<setting>_<fold>.npz``); it runs on CUDA unless
-    ``device="cpu"``."""
+    a ``best_model_<setting>_<fold>.npz``); ``frozen`` TransSVNet's frozen
+    TeCNo, ``{"tecno_params": <params tree>}`` as med_tpu takes it. It runs
+    on CUDA unless ``device="cpu"``."""
 
     def __init__(self, cfg: ExperimentConfig, checkpoint: Dict,
-                 stats: Optional[Dict] = None, device=None):
+                 stats: Optional[Dict] = None, frozen: Optional[Dict] = None,
+                 device=None):
         # fp32 as in the JAX package: no TF32 in matmuls or cuDNN on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -123,6 +126,8 @@ class FrameModelServer:
         with torch.no_grad():
             for name, value in constants.items():
                 self.exp.net.get_buffer(name).copy_(value)
+        if frozen is not None:
+            self.exp.load_frozen(frozen)
 
     def predict_trial_from_pixels(self, frontend: PixelFrontEnd, frames, kinematics):
         """Serving from raw frames: the trunk front-end makes the (T, F)

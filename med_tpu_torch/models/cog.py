@@ -34,15 +34,8 @@ from ..ops.attention import sliding_window_attention_packed
 from ..ops.interpolate import interp1d_linear
 from ..ops.tcn_fused import dilated_residual_multistack_stages
 from .layers import Conv1d, Dense, ResidualStack
+from .layers import ln0 as _ln0
 from .prompts import EMBED_DIM, GESTURES, load_prompt_embeddings
-
-
-def _ln0(x, eps: float = 1e-5):
-    """Affine-free layer norm over axis 0, the feature axis of the
-    feature-major (d, N) encoder layout."""
-    mean = x.mean(dim=0, keepdim=True)
-    var = (x - mean).square().mean(dim=0, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
 
 
 class _Norm(nn.Module):

@@ -29,6 +29,14 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
         p.copy_(draw * (2 * bound) - bound)
 
 
+def ln0(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine-free layer norm over axis 0, the feature axis of a
+    feature-major (d, N) tensor (the packed attention layout)."""
+    mean = x.mean(dim=0, keepdim=True)
+    var = (x - mean).square().mean(dim=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``net`` from ``generator``, in module order."""
     for module in net.modules():
@@ -157,6 +165,8 @@ class SingleStageTCN(nn.Module):
         self.stack = ResidualStack(num_layers, f_maps, causal=causal)
         self.conv_out = Conv1d(f_maps, out_classes)
 
-    def forward(self, x):
-        out = self.stack(self.conv_in(x))
+    def forward(self, x, mask=None):
+        """x (B, T, in_dim); ``mask`` the stack's (L, B, T, C) keep-mask in
+        training, or None -> (features, logits)."""
+        out = self.stack(self.conv_in(x), mask)
         return out, self.conv_out(out)

@@ -116,6 +116,9 @@ def sliding_window_attention_packed_plain(q, k, v, window: int, m: int):
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# K1 and K3 have an instance for each of these; 2 is TransSVNet's (its model
+# width is the class count)
+PACKED_HEAD_WIDTHS = (2, 4, 8, 16, 32)
 
 
 def _packed_fwd_cuda(q, k, v, window: int, m: int):
@@ -125,8 +128,8 @@ def _packed_fwd_cuda(q, k, v, window: int, m: int):
         raise ValueError(f"packed attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} with m={m}: "
                          f"the kernel takes q (H, d, T*m), k and v (H, d, T)")
-    if dk not in (4, 8, 16, 32):
-        raise ValueError(f"the CUDA kernel takes head widths 4, 8, 16, 32; got {dk}")
+    if dk not in PACKED_HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes head widths 2, 4, 8, 16, 32; got {dk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         cuda_build.check_operand(name, t, q.device, torch.float32)
     out = torch.empty_like(q)
@@ -230,8 +233,8 @@ def _packed_bwd_cuda(q, k, v, g, out, stats, window: int, m: int):
         raise ValueError(f"packed attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} with m={m}: "
                          f"the kernel takes q (H, d, T*m), k and v (H, d, T)")
-    if dk not in (4, 8, 16, 32):
-        raise ValueError(f"the CUDA kernel takes head widths 4, 8, 16, 32; got {dk}")
+    if dk not in PACKED_HEAD_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes head widths 2, 4, 8, 16, 32; got {dk}")
     if m > 512:
         raise ValueError(f"the backward kernel takes at most 512 queries a frame; got {m}")
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g), ("out", out),

@@ -1,6 +1,16 @@
-"""Train and eval steps of the COG frame family (port of the COG part of
-``med_tpu.train.engine``): input assembly, the multi-track loss with its
-confusion matrices, and one optimiser step per trial."""
+"""Train and eval steps of the frame families (port of the frame part of
+``med_tpu.train.engine``): input assembly, each family's loss with its
+confusion matrices, and one optimiser step per trial.
+
+=========  ===========================================================
+family     model and loss
+=========  ===========================================================
+cog        COG: multi-track CE + smoothing (train_..._COG)
+tecno      TeCNo: soft CE averaged over the stages (compute_loss)
+tsvn       a frozen TeCNo, then TransSVNet on its last stage's logits:
+           soft CE (train_..._TSVN)
+=========  ===========================================================
+"""
 
 from __future__ import annotations
 
@@ -11,9 +21,10 @@ import torch
 import torch.nn as nn
 
 from ..config import ExperimentConfig
-from ..models import build_feature_extractor, build_model, init_weights
+from ..models import build_feature_extractor, build_model, build_tecno, init_weights
 from ..ops.metrics import confusion_matrix
 from ..utils.device import resolve_device
+from ..utils.jax_params import load_jax_params
 from . import losses
 from .optim import make_optimizer
 
@@ -60,6 +71,38 @@ def cog_loss(cfg: ExperimentConfig, out_list, batch: Dict[str, torch.Tensor]):
     return loss, metrics
 
 
+def binary_frame_loss(family: str, out, batch: Dict[str, torch.Tensor]):
+    """The TeCNo and TransSVNet branch of med_tpu's ``_loss_for_family``:
+    the soft CE against [1 - y, y] (TeCNo: averaged over its stages, ``out``
+    (S, B, T, 2); TransSVNet: ``out`` (B, T, 2)); metrics from the final
+    output, a binary confusion matrix. Returns (loss, {"cm", "preds",
+    "probs"})."""
+    labels, mask = batch["labels"], batch.get("mask")
+    if family == "tecno":
+        final = out[-1]
+        loss = losses.tecno_stage_loss(out, labels, mask)
+    else:
+        final = out
+        loss = losses.soft_cross_entropy(
+            final, losses.binary_targets(labels, final.dtype), mask)
+    preds, probs = _predictions(final.detach(), 2)
+    return loss, {"cm": confusion_matrix(labels, preds, 2, mask), "preds": preds,
+                  "probs": probs}
+
+
+def _predictions(final: torch.Tensor, n_classes: int):
+    """Per-frame argmax and probabilities of a (1, T, n) output: the class-1
+    softmax when binary, else every class's."""
+    preds = torch.argmax(final, dim=-1).reshape(-1)
+    probs = torch.softmax(final, dim=-1)
+    if n_classes == 2:
+        return preds, probs[..., 1].reshape(-1)
+    return preds, probs.reshape(-1, n_classes)
+
+
+_FAMILIES = {"COG": "cog", "TeCNo": "tecno", "TransSVNet": "tsvn"}
+
+
 class Experiment:
     """Binds a config to its model, optimiser and dropout generator on one
     device (CUDA unless the caller passes ``device="cpu"``). Parameters start
@@ -71,9 +114,24 @@ class Experiment:
         self.cfg = cfg
         self.device = resolve_device(device)
         net = FrameNet(build_model(cfg, prompt_path), build_feature_extractor(cfg))
+        self.family = _FAMILIES[cfg.model_name]
         self.net = net.to(self.device).eval()
         self.optimizer = make_optimizer(cfg, self.net.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.frozen = None
+
+    def load_frozen(self, frozen: Dict) -> None:
+        """Give a TransSVNet experiment its frozen TeCNo, a TeCNo of the same
+        config (reference modeling_utils.py:2263-2268), from med_tpu's
+        ``{"tecno_params": <TeCNo params tree>}``. It stays outside the net,
+        so neither the optimiser nor a checkpoint of the net holds it."""
+        if self.family != "tsvn":
+            raise ValueError(f"a frozen stage belongs to TransSVNet; this experiment "
+                             f"runs {self.cfg.model_name}")
+        tecno = build_tecno(self.cfg)
+        state, _ = load_jax_params({"params": frozen["tecno_params"]}, tecno)
+        tecno.load_state_dict(state, strict=True)
+        self.frozen = tecno.to(self.device).eval().requires_grad_(False)
 
     def init_weights(self, seed: int) -> None:
         """Draw every parameter from ``seed`` (U(±1/sqrt(fan_in)), on the
@@ -105,15 +163,37 @@ class Experiment:
             return images
         return torch.cat([images, batch["kinematics"]], dim=-1)
 
+    def _forward(self, data: Dict[str, torch.Tensor], train: bool, masks=None):
+        """The model's output for the family's loss: COG's track list,
+        TeCNo's (S, 1, T, 2) stage logits, TransSVNet's (1, T, 2). The frozen
+        TeCNo runs under no_grad, so it saves nothing for a backward."""
+        x = self._assemble(data)
+        model = self.net.model
+        if self.family == "tsvn":
+            if self.frozen is None:
+                raise ValueError("TransSVNet needs its frozen TeCNo: pass frozen= "
+                                 "(or call load_frozen) first")
+            with torch.no_grad():
+                tecno_logits = self.frozen(x)[-1]
+            return model(tecno_logits, x)
+        if self.family == "tecno":
+            return model(x, train=train, masks=masks, generator=self.generator)
+        out_list, _ = model(x, train=train, masks=masks, generator=self.generator)
+        return out_list
+
+    def _loss(self, out, data: Dict[str, torch.Tensor]):
+        if self.family == "cog":
+            return cog_loss(self.cfg, out, data)
+        return binary_frame_loss(self.family, out, data)
+
     def compute_gradients(self, batch: Dict[str, np.ndarray], masks=None):
-        """Forward in training mode (dropout ``masks`` in COG.dropout_masks'
-        layout, or drawn from the experiment's generator), the loss, and its
-        backward into every parameter's ``.grad``. Returns (loss, metrics)."""
+        """Forward in training mode (dropout ``masks`` in the model's
+        ``dropout_masks`` layout, or drawn from the experiment's generator;
+        TransSVNet has no dropout), the loss, and its backward into every
+        parameter's ``.grad``. Returns (loss, metrics)."""
         data = self._tensors(batch)
         self.optimizer.zero_grad(set_to_none=False)
-        out_list, _ = self.net.model(self._assemble(data), train=True, masks=masks,
-                                     generator=self.generator)
-        loss, metrics = cog_loss(self.cfg, out_list, data)
+        loss, metrics = self._loss(self._forward(data, True, masks), data)
         loss.backward()
         return loss.detach(), metrics
 
@@ -129,22 +209,25 @@ class Experiment:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One padded trial -> {"preds", "probs"} over its frames, from COG's
-        first slow track: argmax, and the class-1 softmax when binary; with
-        "loss" and "cm" too when the batch carries labels."""
+        """One padded trial -> {"preds", "probs"} over its frames, from the
+        family's final output (COG's first slow track): argmax, and the
+        class-1 softmax when binary; with "loss" and "cm" too when the batch
+        carries labels."""
         cfg = self.cfg
         if cfg.error_type == "sequential":
             raise NotImplementedError(
                 "the sequential COG regime is not ported yet: ROADMAP.md "
                 "Queue A6 (other frame families)")
         data = self._tensors(batch)
-        out_list, _ = self.net.model(self._assemble(data))
+        out = self._forward(data, False)
         if "labels" in data:
-            loss, metrics = cog_loss(cfg, out_list, data)
+            loss, metrics = self._loss(out, data)
             metrics["loss"] = loss
             return metrics
-        track0 = out_list[0][0]
-        preds = torch.argmax(track0, dim=-1)
-        probs = torch.softmax(track0, dim=-1)
-        n_classes = 2 if cfg.error_type == "global" else cfg.out_features
-        return {"preds": preds, "probs": probs[..., 1] if n_classes == 2 else probs}
+        if self.family == "cog":
+            n_classes = 2 if cfg.error_type == "global" else cfg.out_features
+            final = out[0]
+        else:
+            n_classes, final = 2, out[-1] if self.family == "tecno" else out
+        preds, probs = _predictions(final, n_classes)
+        return {"preds": preds, "probs": probs}

@@ -79,8 +79,8 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
                      frozen=None, gates=None, tag: str = "",
                      exp: Optional[Experiment] = None, resume: bool = False,
                      mesh=None) -> Dict[str, Any]:
-    """Frame-level training of one fold (COG, batch = one trial), on CUDA
-    unless ``device="cpu"``. Weights are drawn from ``cfg.seed``; each epoch
+    """Frame-level training of one fold (COG, TeCNo or TransSVNet, batch =
+    one trial), on CUDA unless ``device="cpu"``. Weights are drawn from ``cfg.seed``; each epoch
     sets its learning rate, visits the training trials in the order of
     ``np.random.default_rng(cfg.seed + epoch)`` and evaluates the test
     trials. Returns {"best", "history", "checkpoint", "exp"}; the checkpoint
@@ -101,16 +101,18 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
     ``tag`` the full training state is written to the run's
     ``last_state_<tag>.npz`` after every epoch. ``resume``: restore that
     snapshot and go on at the epoch after it; ``best`` starts empty again,
-    as in med_tpu. ``frozen``, ``gates`` and ``mesh`` belong to families and
-    layouts the port does not have yet."""
-    for name, value, item in (("frozen", frozen, "A6 (other frame families)"),
-                              ("gates", gates, "A6 (other frame families)"),
+    as in med_tpu. ``frozen``: TransSVNet's frozen TeCNo as med_tpu's
+    ``{"tecno_params": <params tree>}``. ``gates`` and ``mesh`` belong to
+    regimes and layouts the port does not have yet."""
+    for name, value, item in (("gates", gates, "A6 (other frame families)"),
                               ("mesh", mesh, "A12 (multi-GPU)")):
         if value is not None:
             raise NotImplementedError(
                 f"train_frame_fold({name}=...) is not ported yet: ROADMAP.md "
                 f"Queue {item}")
     exp = exp or Experiment(cfg, device=device)
+    if frozen is not None:
+        exp.load_frozen(frozen)
     exp.init_weights(cfg.seed)
     average = _average_for(cfg)
     bucket = _common_bucket(cfg, train_trials + test_trials) or 256

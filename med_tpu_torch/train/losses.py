@@ -1,8 +1,11 @@
-"""COG's frame losses (port of the COG part of ``med_tpu.train.losses``).
+"""The frame families' losses (port of the frame part of
+``med_tpu.train.losses``).
 
-Per output track: cross-entropy plus the truncated-MSE temporal smoothing
-of the reference (modeling_utils.py:1501-1521), over labels
-nearest-resampled to the track's length. Every loss takes an explicit
+COG, per output track: cross-entropy plus the truncated-MSE temporal
+smoothing of the reference (modeling_utils.py:1501-1521), over labels
+nearest-resampled to the track's length. TeCNo and TransSVNet: the
+cross-entropy against the soft targets [1 - y, y] (modeling_utils.py:278-297),
+averaged over TeCNo's stages. Every loss takes an explicit
 validity mask, so trials padded to bucket lengths count only their frames.
 All arithmetic stays float32, index arithmetic included: the resampling
 floors i * (true_len / true_out), and float64 would move its boundaries.
@@ -30,6 +33,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     labels = labels.reshape(logits.shape[:-1]).long()
     per = -torch.gather(logp, -1, labels[..., None])[..., 0]
     return _masked_mean(per, mask)
+
+
+def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE against probability targets (torch CE with soft targets)."""
+    per = -(target_probs * F.log_softmax(logits, dim=-1)).sum(dim=-1)
+    return _masked_mean(per, mask)
+
+
+def binary_targets(labels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The soft targets [1 - y, y] of 0/1 labels y, on a new last axis."""
+    y = labels.to(dtype)
+    return torch.stack([1.0 - y, y], dim=-1)
+
+
+def tecno_stage_loss(stage_logits: torch.Tensor, binary_labels: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The soft CE of each stage, averaged: stage_logits (S, B, T, 2),
+    binary_labels (B, T) or (T,)."""
+    targets = binary_targets(binary_labels, stage_logits.dtype)
+    return torch.stack([soft_cross_entropy(logits, targets, mask)
+                        for logits in stage_logits]).mean()
 
 
 def smooth_loss(track_logits: torch.Tensor,

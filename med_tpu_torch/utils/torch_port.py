@@ -1,5 +1,6 @@
 """Reference-checkpoint interop: import the reference's torch state_dicts
-(the port's copy of the COG part of ``med_tpu.utils.torch_port``).
+(the port's copy of the frame-family part of ``med_tpu.utils.torch_port``:
+COG, TeCNo, TransSVNet).
 
 The reference saves ``{'feature_extractor': state_dict, 'model':
 state_dict}`` per fold (modeling_utils.py:3028-3040). The importers here map
@@ -105,6 +106,40 @@ def _ffn(sd, prefix):
     }
 
 
+def import_tecno(sd: Dict[str, Any]) -> Tuple[dict, dict]:
+    """Reference MultiStageModel state_dict -> TeCNo params.
+
+    ``stage1`` is the first stage, ``stages.{s}`` the refinements
+    (models_TCN.py:17-43); ours are ``stage0..stage{S-1}``. No batch norm
+    anywhere in the family -> empty batch_stats."""
+    p = {"stage0": _tcn_stage(sd, "stage1")}
+    s = 0
+    while f"stages.{s}.conv_1x1.weight" in sd:
+        p[f"stage{s + 1}"] = _tcn_stage(sd, f"stages.{s}")
+        s += 1
+    return p, {}
+
+
+def _mha(sd, prefix):
+    """Reference MultiHeadAttention (models_TCN.py:196-232): W_Q/W_K/W_V/fc,
+    all bias-free; LayerNorm is per-forward => no keys."""
+    return {g: _dense_nb(sd, f"{prefix}.{g}") for g in ("W_Q", "W_K", "W_V", "fc")}
+
+
+def import_transsvnet(sd: Dict[str, Any]) -> Tuple[dict, dict]:
+    """Reference Transformer state_dict -> TransSVNet params
+    (models_TCN.py:336-385: 1-layer encoder + 1-layer decoder + fc)."""
+    p: Dict[str, Any] = {"fc": _dense_nb(sd, "fc")}
+    i = 0
+    while f"transformer.encoder.layers.{i}.enc_self_attn.W_Q.weight" in sd:
+        p[f"enc_attn{i}"] = _mha(sd, f"transformer.encoder.layers.{i}.enc_self_attn")
+        p[f"enc_ffn{i}"] = _ffn(sd, f"transformer.encoder.layers.{i}.pos_ffn")
+        i += 1
+    p["dec_attn"] = _mha(sd, "transformer.decoder.layers.0.dec_enc_attn")
+    p["dec_ffn"] = _ffn(sd, "transformer.decoder.layers.0.pos_ffn")
+    return p, {}
+
+
 def _cot(sd, prefix):
     """MyTransformer -> ChainOfGestureTransformer params (models_COG.py:100-176).
 
@@ -167,22 +202,25 @@ def import_reference_checkpoint(path: str, model_name: str) -> dict:
     """Load a reference ``best_model_*.pt`` into the ``med_tpu`` checkpoint
     layout ({'params': {'fe': ..., 'model': ...}, 'batch_stats': {'model':
     ...}, and 'constants': {'model': ...} for COG's frozen prompt tables}).
-    COG only: the other families' importers come with their models."""
-    if model_name in ("TeCNo", "TransSVNet"):
-        raise NotImplementedError(
-            f"importing a reference {model_name} checkpoint is not ported yet: "
-            "ROADMAP.md Queue A6 (other frame families)")
+    The frame families only: the window families' importers come with their
+    models."""
     if model_name in ("SimpleCNN", "Siamese_CNN", "SimpleLSTM", "Siamese_LSTM"):
         raise NotImplementedError(
             f"importing a reference {model_name} checkpoint is not ported yet: "
             "ROADMAP.md Queue A7 (window families)")
-    if model_name != "COG":
+    if model_name not in ("COG", "TeCNo", "TransSVNet"):
         raise ValueError(f"unknown reference model name {model_name!r}")
     blob = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     if blob.get("feature_extractor"):
         out["params"]["fe"] = import_feature_extractor(blob["feature_extractor"])
-    p, s, constants = import_cog(blob["model"])
+    constants: Dict[str, Any] = {}
+    if model_name == "TeCNo":
+        p, s = import_tecno(blob["model"])
+    elif model_name == "TransSVNet":
+        p, s = import_transsvnet(blob["model"])
+    else:
+        p, s, constants = import_cog(blob["model"])
     out["params"]["model"] = p
     out["batch_stats"]["model"] = s
     if constants:

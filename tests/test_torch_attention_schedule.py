@@ -61,7 +61,7 @@ def _rows(x, frames):
 def _fwd_launch(D, m, W):
     """The forward's launch shape, as the C entry picks it: (R, CH, fpb, spb,
     nsb)."""
-    R = 2 if D <= 8 else 1
+    R = 4 if D <= 2 else 2 if D <= 8 else 1
     CH = 16
     slot_threads = -(-m // R)
     if slot_threads <= 128:
@@ -223,9 +223,10 @@ def _pallas_tile(W):
 
 
 # COG's (H, d, m, W) at T=48 (two chunks of 16 keys); W=40 takes three;
-# m=1 and m=30; T shorter than a tile of 16 frames, and T=1
+# m=1 and m=30; T shorter than a tile of 16 frames, and T=1; TransSVNet's
+# d=2, m=W=30 (4 slots a thread)
 FWD_CASES = [(8, 8, 15, 30, 48), (2, 8, 3, 40, 70), (2, 4, 1, 5, 40), (2, 16, 30, 7, 20),
-             (2, 8, 15, 30, 5), (2, 8, 15, 30, 1)]
+             (2, 8, 15, 30, 5), (2, 8, 15, 30, 1), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9)]
 
 
 @pytest.mark.parametrize("H,d,m,W,T", FWD_CASES)
@@ -247,10 +248,11 @@ def test_forward_schedule_matches_plain_and_pallas(rng, H, d, m, W, T, order):
 # W=40 (F=16, m=3); m=1; m=30 (F=8, 5 slot groups, T not a multiple of F);
 # m=512 at d=32 (one frame, 64 slots a tile: 8 slot blocks); W=400 at d=32
 # (F=16, window chunks of 13, the last of 10) and W=310 at m=2 over three
-# tiles (F=16, chunks of 20, the last of 10)
+# tiles (F=16, chunks of 20, the last of 10); TransSVNet's d=2, m=W=30
+# (F=16, all 30 slots, one slot group) over three tiles and within one
 BWD_CASES = [(8, 8, 15, 30, 48), (2, 8, 15, 30, 17), (2, 8, 15, 30, 5), (2, 8, 15, 30, 1),
              (2, 8, 3, 40, 70), (2, 4, 1, 5, 40), (2, 16, 30, 7, 22), (1, 32, 512, 30, 3),
-             (1, 32, 1, 400, 20), (1, 32, 2, 310, 40)]
+             (1, 32, 1, 400, 20), (1, 32, 2, 310, 40), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9)]
 
 
 def test_bwd_plan_mirrors_the_kernels_choices():
@@ -260,6 +262,7 @@ def test_bwd_plan_mirrors_the_kernels_choices():
     assert _bwd_plan(32, 512, 30) == (1, 64, 9, 30)
     assert _bwd_plan(32, 1, 400) == (16, 1, 1, 13)
     assert _bwd_plan(32, 2, 310) == (16, 2, 1, 20)
+    assert _bwd_plan(2, 30, 30) == (16, 30, 1, 30)
 
 
 @pytest.mark.parametrize("H,d,m,W,T", BWD_CASES)

@@ -70,13 +70,16 @@ OP_API_IDLE = {"dilated_residual_multistack": 0, "dilated_residual_multistack_bw
 # 512 slots of d=32 over eight slot blocks); T = 1, 16 and 17 frames against
 # K3's tiles of 16; and windows no tile of K3 holds whole, which it walks in
 # chunks (W = 3000 at d=4, 3600 at d=8 and m=15, 800 at d=16, 400 at d=32:
-# chunks of 94, 29, 25 and 13 positions), over three tiles
+# chunks of 94, 29, 25 and 13 positions), over three tiles; TransSVNet's head
+# width d=2 (8 heads, m = W = 30, 4 slots a K1 thread), one frame, a ragged
+# tile, m not a multiple of 4, and a window K3 walks in chunks
 ATTENTION_SHAPES = [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41), (3, 16, 1, 7, 300),
                     (1, 32, 300, 3, 5), (2, 8, 15, 40, 50), (2, 8, 15, 70, 90),
                     (2, 8, 30, 30, 40), (1, 8, 512, 30, 3), (1, 32, 512, 30, 3),
                     (8, 8, 15, 30, 1), (8, 8, 15, 30, 16), (8, 8, 15, 30, 17),
                     (1, 4, 1, 3000, 40), (1, 8, 15, 3600, 40), (1, 16, 1, 800, 40),
-                    (1, 32, 1, 400, 40)]
+                    (1, 32, 1, 400, 40), (8, 2, 30, 30, 100), (8, 2, 30, 30, 1),
+                    (2, 2, 30, 30, 17), (1, 2, 7, 5, 41), (1, 2, 30, 6000, 40)]
 
 
 @pytest.mark.parametrize("H,d,m,W,T", ATTENTION_SHAPES)
@@ -329,9 +332,28 @@ def test_attention_kernels_take_views_off_16_byte_boundaries(cuda_device, rng):
         _close_grad(a, b)
 
 
-@pytest.mark.parametrize("T", [17, 4096])
-def test_attention_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T):
-    H, d, m, W = 8, 8, 15, 30
+def test_head_width_2_attention_takes_views_off_16_byte_boundaries(cuda_device, rng):
+    """TransSVNet's D=2 instances (8-byte rows) with every operand 4 bytes
+    past a 16-byte boundary."""
+    H, d, m, W, T = 8, 2, 30, 30, 45
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m))]
+    q, k, v, g = (_offset_view(a, cuda_device) for a in arrays)
+    out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    want_out, want_stats = tatt.sliding_window_attention_packed_plain(q, k, v, W, m)
+    torch.testing.assert_close(out, want_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4, atol=1e-5)
+    out = _offset_view(out.cpu().numpy(), cuda_device)
+    stats = _offset_view(stats.cpu().numpy(), cuda_device)
+    got = tatt.sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)
+    want = tatt.sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats, W, m)
+    for a, b in zip(got, want):
+        _close_grad(a, b)
+
+
+@pytest.mark.parametrize("T,d,m", [(17, 8, 15), (4096, 8, 15), (4096, 2, 30)])
+def test_attention_bwd_kernel_gives_the_same_bits_twice(cuda_device, rng, T, d, m):
+    H, W = 8, 30
     q, k, v, g = (_dev(rng.normal(size=s).astype(np.float32), cuda_device)
                   for s in ((H, d, T * m), (H, d, T), (H, d, T), (H, d, T * m)))
     out, stats = tatt.sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
@@ -1029,3 +1051,132 @@ def test_small_cli_run_on_the_card_equals_its_cpu_run(cuda_device, rng, tmp_path
     listing = [sorted(str(f.relative_to(r.dir)) for f in Path(r.dir).rglob("*")
                       if f.is_file()) for r in (card_run, cpu_run)]
     assert listing[0] == listing[1] and len(listing[0]) == 8
+
+
+# --------------------------------------------- TeCNo and TransSVNet
+def test_tcn_kernels_at_tecnos_shape_over_the_whole_trial(cuda_device, rng):
+    """One TeCNo stage at full width: conv_in (2048 -> 64) makes the stack's
+    input, 8 layers at C=64 over a whole 4096-frame trial, one K2b launch
+    forward (saving, with a dropout mask) and one K5 launch back."""
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.models.layers import SingleStageTCN
+
+    stage = init_weights(SingleStageTCN(8, 2048, 64, 2),
+                         torch.Generator().manual_seed(2)).to(cuda_device)
+    T = 4096
+    x = stage.conv_in(_dev(rng.normal(size=(1, T, 2048)).astype(np.float32),
+                           cuda_device))[0].detach()
+    assert x.is_contiguous() and x.data_ptr() % 16 == 0
+    w = [t.detach() for t in stage.stack.weights()]
+    mask = _dev(rng.integers(0, 2, size=(8, T, 64)).astype(np.uint8), cuda_device)
+    g = _dev(rng.normal(size=(T, 64)).astype(np.float32), cuda_device)
+    before = ttcn.dilated_residual_stack.launches, ttcn.dilated_residual_stack_bwd.launches
+    got = ttcn._stages_fwd(x, [w], [mask], True, ttcn.dilated_residual_stack, save=True)
+    dx, *dws = ttcn.dilated_residual_stack_bwd(g, got[1], got[2], w[0], w[2], mask=mask)
+    torch.cuda.synchronize()
+    assert (ttcn.dilated_residual_stack.launches,
+            ttcn.dilated_residual_stack_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = ttcn._stages_fwd(x.cpu(), [[t.cpu() for t in w]], [mask.cpu()], True,
+                            ttcn.dilated_residual_stack, save=True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    # the plain backward on the kernel's own saved h, y: a relu within
+    # rounding of 0 may take the other side in the CPU's forward
+    p_dx, (p_dw,) = ttcn._stages_bwd_plain(g.cpu()[None], got[1].cpu(), got[2].cpu(),
+                                           [(w[0].cpu(), w[2].cpu())], [mask.cpu()], True)
+    for a, b in zip((dx, *dws), (p_dx, *p_dw)):
+        _close_grad(a.cpu(), b)
+
+
+FAMILY_SMALL = dict(dataset_type="frame", data_type="video", video_dims=2048,
+                    out_features=2, mstcn_stages=2, mstcn_layers=4, mstcn_f_maps=32,
+                    sequence_length=30, weight_decay=0.0, lr_scheduler=False)
+# launches of a request and of a train step (ROADMAP.md's table for the slice)
+FAMILY_LAUNCHES = {
+    ("TeCNo", "request"): {"dilated_residual_stack": 2},
+    ("TeCNo", "step"): {"dilated_residual_stack": 2, "dilated_residual_stack_bwd": 2},
+    ("TransSVNet", "request"): {"dilated_residual_stack": 2,
+                                "sliding_window_attention_packed": 1},
+    ("TransSVNet", "step"): {"dilated_residual_stack": 2,
+                             "sliding_window_attention_packed": 1,
+                             "sliding_window_attention_packed_bwd": 1}}
+
+
+@pytest.mark.parametrize("model_name", ["TeCNo", "TransSVNet"])
+def test_small_tecno_and_transsvnet_same_on_card_and_cpu(cuda_device, rng, model_name):
+    """Served and one train step on the card and on the CPU, same weights
+    (and TeCNo's dropout masks): probabilities within 1e-5, the loss within
+    1e-5, gradients rtol 1e-4 and atol 1e-5 of each leaf's largest value
+    (TransSVNet: 2e-2 of it, and of the tree's largest for its decoder W_Q
+    and W_K; float32 inputs fix its gradients only to ~1e-3, see
+    TSVN_GRAD_ATOL and NULL_LEAVES in chip_smoke.py), and the designed
+    launches."""
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.data.datasets import FrameTrial, frame_batch
+    from med_tpu_torch.data.labels import skill_one_hot
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.models import build_tecno, init_weights
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    cfg = ExperimentConfig(model_name=model_name, **FAMILY_SMALL)
+    tree = export_jax_params(init_weights(Experiment(cfg, device="cpu").net,
+                                          torch.Generator().manual_seed(5)))
+    frozen = None
+    if model_name == "TransSVNet":
+        tecno = init_weights(build_tecno(cfg), torch.Generator().manual_seed(6))
+        frozen = {"tecno_params": export_jax_params(tecno)["params"]}
+    T, name = 300, "Needle_Passing_B001"
+    images = rng.normal(size=(T, 2048)).astype(np.float32)
+    kin = rng.normal(size=(T, 26)).astype(np.float32)
+    idle = {k: 0 for k in ops.launch_counts()}
+    ops.reset_launch_counts()
+    got_p, got_pr = FrameModelServer(cfg, tree, frozen=frozen).predict_trial(images, kin)
+    assert ops.launch_counts() == {**idle, **FAMILY_LAUNCHES[model_name, "request"]}
+    want_p, want_pr = FrameModelServer(cfg, tree, frozen=frozen,
+                                       device="cpu").predict_trial(images, kin)
+    np.testing.assert_allclose(got_pr, want_pr, rtol=0, atol=1e-5)
+    sure = np.abs(want_pr - 0.5) > 1e-5
+    np.testing.assert_array_equal(got_p[sure], want_p[sure])
+
+    e = np.zeros((T, 7), np.int32)
+    e[:, -1] = rng.integers(0, 2, T)
+    batch = frame_batch(FrameTrial(name, images, kin, rng.integers(0, 15, T), e,
+                                   skill_one_hot(name, T)), cfg)
+    masks = None
+    if model_name == "TeCNo":
+        masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+            batch["images"].shape[1], torch.Generator().manual_seed(1))
+    losses, grads = [], []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = Experiment(cfg, device=device)
+        exp.init_weights(5)
+        if frozen is not None:
+            exp.load_frozen(frozen)
+        ops.reset_launch_counts()
+        dev_masks = None if masks is None else {
+            n: {k: v.to(device) for k, v in d.items()} for n, d in masks.items()}
+        loss, _ = exp.compute_gradients(batch, masks=dev_masks)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {**idle, **FAMILY_LAUNCHES[model_name, "step"]}
+        losses.append(loss.item())
+        grads.append(export_jax_params(exp.net, grads=True)["params"])
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    from chip_smoke import NULL_LEAVES, TSVN_GRAD_ATOL
+
+    want = dict(leaves(grads[1]))
+    gmax = max(np.abs(w).max() for w in want.values())
+    atol = 1e-5 if model_name == "TeCNo" else TSVN_GRAD_ATOL
+    for path, got in leaves(grads[0]):
+        scale = gmax if path.endswith(NULL_LEAVES) else np.abs(want[path]).max()
+        np.testing.assert_allclose(got, want[path], rtol=1e-4, atol=atol * scale,
+                                   err_msg=path)

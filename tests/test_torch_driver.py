@@ -411,16 +411,19 @@ def test_best_checkpoint_is_not_overwritten_by_later_steps(rng):
 
 def test_train_frame_fold_refuses_what_is_not_ported(rng):
     cfg = ExperimentConfig(model_name="COG", dataset_type="frame", out_features=2)
-    for kw, item in (({"frozen": {}}, "A6"), ({"gates": {}}, "A6"), ({"mesh": object()}, "A12")):
+    for kw, item in (({"gates": {}}, "A6"), ({"mesh": object()}, "A12")):
         with pytest.raises(NotImplementedError, match=item):
             train_frame_fold(cfg, [], [], device="cpu", **kw)
+    # a frozen stage is TransSVNet's alone
+    with pytest.raises(ValueError, match="TransSVNet"):
+        train_frame_fold(cfg, [], [], device="cpu", frozen={"tecno_params": {}})
 
 
 @pytest.mark.parametrize("flags, item", [
     (("--mesh", "auto"), "A12"), (("--trial-dp",), "A12"),
     (("--sequence-parallel",), "A12"), (("--fold-parallel",), "A12"),
-    (("--model-name", "TeCNo"), "A6"), (("--model-name", "TransSVNet"), "A6"),
-    ((), "A6"),                                   # TeCNo is the reference's default
+    (("--model-name", "COG", "--use-skill-prompt"), "A6"), (("--model-name", "SimpleCNN"), "A7"),
+    (("--model-name", "TransSVNet"), "--run-id"),  # its frozen TeCNo's run
     (("--model-name", "COG", "--trial-batch", "2"), "A6"),
     (("--model-name", "COG", "--srm"), "A6"),
 ])
@@ -428,7 +431,7 @@ def test_cli_names_the_roadmap_item_of_what_is_not_ported(two_folds, tmp_path, f
     argv = ["--data-root", two_folds, "--runs-root", str(tmp_path / "runs"),
             "--device", "cpu", "--model-name", "COG", *flags]
     with pytest.raises((SystemExit, NotImplementedError), match=item):
-        tcli.main(argv if flags else argv[:-2])
+        tcli.main(argv)
     assert not os.path.exists(tmp_path / "runs")
 
 

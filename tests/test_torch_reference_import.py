@@ -122,7 +122,7 @@ def test_imported_reference_cog_gives_the_same_logits_in_both_packages(reference
                                    err_msg=f"track {k} vs the torch oracle")
 
 
-@pytest.mark.parametrize("family, roadmap", [("TeCNo", "A6"), ("TransSVNet", "A6"),
+@pytest.mark.parametrize("family, roadmap", [("SimpleLSTM", "A7"), ("Siamese_CNN", "A7"),
                                              ("SimpleCNN", "A7"), ("Siamese_LSTM", "A7")])
 def test_other_families_importers_name_their_roadmap_item(reference_blob, family, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
