@@ -29,7 +29,10 @@ non-zero and the last line is not printed:
    instances at TransSVNet's encoder shapes (8 heads of width 2, m = W =
    30; the yardstick one ``scaled_dot_product_attention`` call over the
    frames' windows as its batch) and K2b/K5 at one TeCNo stage's stack (8
-   layers at C=64 over the whole trial); then (``[ops]``
+   layers at C=64 over the whole trial); K1 and K3 at the shapes of the
+   error-specific regime (ES_ATTENTION: m = 45 and m = 8 queries a frame,
+   and 16 heads, a trial group of two; the yardstick the windowed
+   library call); then (``[ops]``
    lines) ``torch.autograd.grad`` through ``dilated_residual_multistack``
    and ``sliding_window_attention``, counting launches, equal to the direct
    backward calls;
@@ -85,7 +88,19 @@ non-zero and the last line is not printed:
    --n-epochs 3``, which must train epoch 2 alone; then the command's
    defaults (TeCNo, 2 epochs) and ``--model-name TransSVNet --run-id`` that
    run, each checked the same way; wall time per fold;
-9. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+9. es (``[es]`` lines): COG's observed-gesture, skill-prompt and SRM
+   variants at full width, served at T = 300, 1000, 4096 (latency,
+   launches), card against CPU probabilities, one train step counted and
+   one card against CPU; ``med_tpu_torch.cli.train_frame_es.main`` and
+   ``train_frame_es_sequential.main --run-id`` phase 8's COG run on phase
+   8's folds for 2 epochs (launches with the binary stage's gate passes,
+   the run layout, 6-class windowed metrics, wall per fold); COG and TeCNo
+   with ``compute_dtype="bfloat16"`` served at T = 4096 (no TCN kernel
+   launches; logits within 0.1 of the fp32 model's largest) and trained
+   for a 2-epoch fold on phase 5's trials; COG with ``trial_batch=2`` for
+   a 2-epoch fold on phase 5's trials (K1 and K3 once a group and layer)
+   and one grouped step card against CPU;
+10. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 A ``[time]`` line gives each phase's wall time.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
@@ -94,6 +109,7 @@ Runs from the repository root; imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import shutil
@@ -130,7 +146,9 @@ TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
        "tcn_stack_fwd/concatenated": (1e-4, 1e-4), "tcn_stack_bwd/concatenated": (1e-4, 1e-5),
        "swa_headmajor_fwd": (1e-4, 1e-5), "swa_headmajor_bwd": (1e-4, 1e-5),
        "swa_packed_fwd/d2": (1e-4, 1e-5), "swa_packed_bwd/d2": (1e-4, 1e-5),
-       "tcn_stack_fwd/tecno": (1e-4, 1e-4), "tcn_stack_bwd/tecno": (1e-4, 1e-5)}
+       "tcn_stack_fwd/tecno": (1e-4, 1e-4), "tcn_stack_bwd/tecno": (1e-4, 1e-5),
+       **{f"swa_packed_{way}/{shape}": (1e-4, 1e-5) for way in ("fwd", "bwd")
+          for shape in ("m45", "m8", "heads16")}}
 # the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
 # it; fold 2Out tests trials 0 and 3 and trains on the rest
 DRIVER_FRAMES = (300, 1000, 2000, 4096, 500, 1500)
@@ -139,9 +157,11 @@ DRIVER_TEST = {"1Out": (4, 5), "2Out": (0, 3)}
 # fraction of that leaf's own largest |value|. float32 summed in another
 # order flips a few relu derivatives of the encoder FFNs (pre-activations
 # within rounding of 0), and each flip moves one token's term of Dense_0's
-# weight gradient and of every gradient upstream of it. So the leaves are
-# held to this tolerance with the card's FFN relu pattern pinned to the
-# CPU's; the run without the pin is printed beside it, with the flips and
+# weight gradient and of every gradient upstream of it; the same happens
+# in the TCN stacks' relus (a flip in a slow stage moves that layer's
+# weight gradients and everything upstream). So the leaves are held to
+# this tolerance with the card's FFN and TCN relu patterns pinned to the
+# CPU's; the run without the pins is printed beside it, with the flips and
 # how close to 0 their pre-activations were (at most FLIP_PRE of the
 # call's largest |pre-activation|).
 TRAIN_TOL = {"loss": 1e-5, "grad_rtol": 1e-4, "grad_atol": 1e-5}
@@ -279,46 +299,6 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
-def _attention_case(T: int, gen: torch.Generator):
-    """COG's attention call at T frames: 8 heads, d=8, 15 queries a frame,
-    window 30, over the T + 29 frames of the left-padded visual sequence."""
-    from med_tpu_torch.ops.attention import (
-        sliding_window_attention_packed, sliding_window_attention_packed_plain)
-
-    H, d, m, W = 8, 8, 15, 30
-    Tv = T + W - 1
-    N = Tv * m
-    q, k, v = (torch.randn(s, generator=gen).cuda()
-               for s in ((H, d, N), (H, d, Tv), (H, d, Tv)))
-    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
-    p_out, p_stats = sliding_window_attention_packed_plain(q, k, v, W, m)
-    tol = TOL["swa_packed_fwd"]
-    err = max(check_close(f"attention T={T} out", out, p_out, *tol),
-              check_close(f"attention T={T} stats", stats, p_stats, *tol))
-
-    # yardstick: one library call computing the same function
-    qs = q.permute(0, 2, 1)[None]
-    ks = F.pad(k, (W - 1, 0)).permute(0, 2, 1)[None]
-    vs = F.pad(v, (W - 1, 0)).permute(0, 2, 1)[None]
-    frame = torch.arange(N, device="cuda")[:, None] // m
-    col = torch.arange(Tv + W - 1, device="cuda")[None, :]
-    band = (col >= frame) & (col < frame + W)
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band)  # noqa: E731
-    # sanity only: the library may take other summation paths
-    check_close(f"attention T={T} library yardstick", lib()[0].permute(0, 2, 1), out,
-                5e-3, 5e-3)
-
-    nbytes = 4 * (2 * H * d * N + 2 * H * d * Tv + 2 * H * N)
-    flops = H * N * W * (2 * d + 2 * d + 4)
-    b_ms, b_by = bound(nbytes, flops)
-    run = lambda: sliding_window_attention_packed(q, k, v, W, m)  # noqa: E731
-    return dict(
-        run=run, max_abs_err=err, ms=cuda_ms(run, 50),
-        plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
-        **_device_launches(run, "swa_packed_fwd"))
-
-
 def _stage_weights(gen: torch.Generator, layers, C: int = 64):
     def u(shape, fan_in):
         b = 1.0 / math.sqrt(fan_in)
@@ -392,53 +372,6 @@ def _fast_stacks_case(T: int, gen: torch.Generator):
     return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 5),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 **_barrier_floor(dilated_residual_stack, layers))
-
-
-def _attention_bwd_case(T: int, gen: torch.Generator):
-    """K3 at COG's attention shapes (see _attention_case), with a cotangent
-    on every query."""
-    from med_tpu_torch.ops.attention import (
-        sliding_window_attention_packed, sliding_window_attention_packed_bwd,
-        sliding_window_attention_packed_bwd_plain)
-
-    H, d, m, W = 8, 8, 15, 30
-    Tv = T + W - 1
-    N = Tv * m
-    q, k, v, g = (torch.randn(s, generator=gen).cuda()
-                  for s in ((H, d, N), (H, d, Tv), (H, d, Tv), (H, d, N)))
-    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
-    run = lambda: sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)  # noqa: E731
-    plain = lambda: sliding_window_attention_packed_bwd_plain(  # noqa: E731
-        q, k, v, g, out, stats, W, m)
-    rtol, atol = TOL["swa_packed_bwd"]
-    err = max(check_grads(f"attention bwd T={T} {n}", [a], [b], rtol, atol)
-              for n, a, b in zip(("dq", "dk", "dv"), run(), plain()))
-
-    # yardstick: autograd backward of one library call, same function
-    qs = q.permute(0, 2, 1)[None].detach().requires_grad_()
-    ks = F.pad(k, (W - 1, 0)).permute(0, 2, 1)[None].detach().requires_grad_()
-    vs = F.pad(v, (W - 1, 0)).permute(0, 2, 1)[None].detach().requires_grad_()
-    frame = torch.arange(N, device="cuda")[:, None] // m
-    col = torch.arange(Tv + W - 1, device="cuda")[None, :]
-    band = (col >= frame) & (col < frame + W)
-    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band)
-    gs = g.permute(0, 2, 1)[None]
-    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), gs, retain_graph=True)  # noqa: E731
-    check_close(f"attention bwd T={T} library yardstick dq",
-                lib()[0][0].permute(0, 2, 1), run()[0], 5e-3, 5e-3)
-
-    # bytes: q, g and out read, the lse row of stats read, dq written (per
-    # query; delta = out.g is formed from out, so stats' second row is not
-    # read); k, v read, dk, dv written (per key). Operations per (query,
-    # key) pair: score, g.v, dq, dk, dv (2d each) and ~4 for a, ds
-    nbytes = 4 * (4 * H * d * N + H * N + 4 * H * d * Tv)
-    flops = H * N * W * (10 * d + 4) + 2 * H * d * N
-    b_ms, b_by = bound(nbytes, flops)
-    _same_bits(f"attention bwd T={T}", run)
-    device = _device_launches(run, "swa_packed_bwd")
-    device["phase_note"] += "; two runs equal bit for bit"
-    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
 def _tcn_bwd_flops_bytes(T: int, C: int, layers, n_g: int, n_dx: int):
@@ -725,100 +658,8 @@ def _head_major_bwd_case(T: int, gen: torch.Generator):
                 bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
 
 
-# TransSVNet's encoder attention: 8 heads of its model width (the 2
-# classes), each of a frame's m = 30 window positions attending the W = 30
-# frames of its window (zero before frame 0): q (8, 2, 30*T), k, v (8, 2, T)
-TSVN_HEADS = dict(H=8, d=2, m=30, W=30)
 # one TeCNo stage's stack: 8 layers at C=64 over the whole trial
 TECNO_STACK = dict(L=8, C=64)
-
-
-def _tsvn_attention_inputs(T: int, gen: torch.Generator, grad: bool = False):
-    H, d, m = TSVN_HEADS["H"], TSVN_HEADS["d"], TSVN_HEADS["m"]
-    shapes = [(H, d, T * m), (H, d, T), (H, d, T)] + ([(H, d, T * m)] if grad else [])
-    return [torch.randn(s, generator=gen).cuda() for s in shapes]
-
-
-def _window_sdpa(q, k, v, T: int):
-    """The library's yardstick for TransSVNet's attention: one
-    ``scaled_dot_product_attention`` call over the frames' windows as its
-    batch, (T, H, m, d) queries against (T, H, W, d) keys and values (the
-    windows of the zero-padded frames, as views), no mask. Returns the
-    call and its leaves (queries, windowed keys and values)."""
-    H, d, m, W = (TSVN_HEADS[k_] for k_ in ("H", "d", "m", "W"))
-    q4 = q.reshape(H, d, T, m).permute(2, 0, 3, 1)
-    kw, vw = (F.pad(x, (W - 1, 0)).unfold(2, W, 1).permute(2, 0, 3, 1) for x in (k, v))
-    return q4, kw, vw
-
-
-def _tsvn_attention_case(T: int, gen: torch.Generator):
-    """K1's D=2 instance at TransSVNet's encoder shapes (TSVN_HEADS) over T
-    frames."""
-    from med_tpu_torch.ops.attention import (
-        sliding_window_attention_packed, sliding_window_attention_packed_plain)
-
-    H, d, m, W = (TSVN_HEADS[k] for k in ("H", "d", "m", "W"))
-    N = T * m
-    q, k, v = _tsvn_attention_inputs(T, gen)
-    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
-    p_out, p_stats = sliding_window_attention_packed_plain(q, k, v, W, m)
-    tol = TOL["swa_packed_fwd/d2"]
-    err = max(check_close(f"attention d=2 T={T} out", out, p_out, *tol),
-              check_close(f"attention d=2 T={T} stats", stats, p_stats, *tol))
-    q4, kw, vw = _window_sdpa(q, k, v, T)
-    lib = lambda: F.scaled_dot_product_attention(q4, kw, vw)  # noqa: E731
-    check_close(f"attention d=2 T={T} library yardstick",
-                lib().permute(1, 3, 0, 2).reshape(H, d, N), out, 5e-3, 5e-3)
-    # bytes: q read, out and stats written per query; k, v read per frame.
-    # Operations per (query, key) pair: score and values 2d each, ~4 for the
-    # exp and the sums
-    nbytes = 4 * (2 * H * d * N + 2 * H * N + 2 * H * d * T)
-    flops = H * N * W * (4 * d + 4)
-    b_ms, b_by = bound(nbytes, flops)
-    run = lambda: sliding_window_attention_packed(q, k, v, W, m)  # noqa: E731
-    return dict(
-        run=run, max_abs_err=err, ms=cuda_ms(run, 50),
-        plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 5, warmup=1),
-        **_device_launches(run, "swa_packed_fwd"))
-
-
-def _tsvn_attention_bwd_case(T: int, gen: torch.Generator):
-    """K3's D=2 instance at TransSVNet's encoder shapes, a cotangent on
-    every query; two runs equal bit for bit."""
-    from med_tpu_torch.ops.attention import (
-        sliding_window_attention_packed, sliding_window_attention_packed_bwd,
-        sliding_window_attention_packed_bwd_plain)
-
-    H, d, m, W = (TSVN_HEADS[k] for k in ("H", "d", "m", "W"))
-    N = T * m
-    q, k, v, g = _tsvn_attention_inputs(T, gen, grad=True)
-    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
-    run = lambda: sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)  # noqa: E731
-    plain = lambda: sliding_window_attention_packed_bwd_plain(  # noqa: E731
-        q, k, v, g, out, stats, W, m)
-    rtol, atol = TOL["swa_packed_bwd/d2"]
-    err = max(check_grads(f"attention d=2 bwd T={T} {n}", [a], [b], rtol, atol)
-              for n, a, b in zip(("dq", "dk", "dv"), run(), plain()))
-    # yardstick: autograd backward of the one library call, to its leaves
-    # (the windowed keys' gradients per window slot; no fold onto frames)
-    leaves = [t.detach().requires_grad_() for t in _window_sdpa(q, k, v, T)]
-    lib_out = F.scaled_dot_product_attention(*leaves)
-    g4 = g.reshape(H, d, T, m).permute(2, 0, 3, 1)
-    lib = lambda: torch.autograd.grad(lib_out, leaves, g4, retain_graph=True)  # noqa: E731
-    check_close(f"attention d=2 bwd T={T} library yardstick dq",
-                lib()[0].permute(1, 3, 0, 2).reshape(H, d, N), run()[0], 5e-3, 5e-3)
-    # bytes: q, g and out read, the lse row read, dq written per query; k, v
-    # read, dk, dv written per frame. Operations per pair: score, g.v, dq,
-    # dk, dv (2d each) and ~4 for a, ds
-    nbytes = 4 * (4 * H * d * N + H * N + 4 * H * d * T)
-    flops = H * N * W * (10 * d + 4) + 2 * H * d * N
-    b_ms, b_by = bound(nbytes, flops)
-    _same_bits(f"attention d=2 bwd T={T}", run)
-    device = _device_launches(run, "swa_packed_bwd")
-    device["phase_note"] += "; two runs equal bit for bit"
-    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
-                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 5, warmup=1), **device)
 
 
 def _tecno_stack_case(T: int, gen: torch.Generator):
@@ -870,20 +711,154 @@ def _tecno_stack_bwd_case(T: int, gen: torch.Generator):
                 **_device_launches(run, "tcn_bwd_kernel"))
 
 
-KERNEL_CASES = (("swa_packed_fwd", _attention_case),
+# K1 and K3's cases: heads, head width, queries a frame and window; the
+# key frames (COG's visual sequence has W - 1 pad frames before the T of
+# the trial, TransSVNet's keys are the T frames); the library yardstick:
+# one scaled_dot_product_attention call with a band mask over all frames,
+# or over the frames' windows as its batch where the band mask's scores
+# would not fit (TransSVNet's at T=4096: 16 GB; m = 45: 25 GB). Beside
+# COG's own shape: TransSVNet's encoder (8 heads of its 2 classes, each of
+# a frame's m = 30 window positions attending the W = 30 frames of its
+# window), COG's skill-prompt (m = 45) and observed-gesture (m = 8) tables
+# and a trial group of two on the head axis (16 heads)
+PACKED = {"cog": dict(H=8, d=8, m=15, W=30, pad=True, library="band"),
+          "d2": dict(H=8, d=2, m=30, W=30, pad=False, library="windows"),
+          "m45": dict(H=8, d=8, m=45, W=30, pad=True, library="windows"),
+          "m8": dict(H=8, d=8, m=8, W=30, pad=True, library="windows"),
+          "heads16": dict(H=16, d=8, m=15, W=30, pad=True, library="windows")}
+ES_ATTENTION = ("m45", "m8", "heads16")
+
+
+def _windowed_sdpa(q, k, v, W: int, m: int):
+    """The frames' windows as the library call's batch: (F, H, m, d) queries
+    against (F, H, W, d) keys and values (the windows of the zero-padded
+    key frames, as views), no mask."""
+    H, d, Fk = k.shape
+    q4 = q.reshape(H, d, Fk, m).permute(2, 0, 3, 1)
+    kw, vw = (F.pad(x, (W - 1, 0)).unfold(2, W, 1).permute(2, 0, 3, 1) for x in (k, v))
+    return q4, kw, vw
+
+
+def _yardstick(q, k, v, shape: str):
+    """PACKED[shape]'s library call: (its leaves, the call, its output in
+    the packed (H, d, N) layout, a packed cotangent in its output's)."""
+    s = PACKED[shape]
+    H, d, Fk = k.shape
+    W, m = s["W"], s["m"]
+    if s["library"] == "windows":
+        return (_windowed_sdpa(q, k, v, W, m), F.scaled_dot_product_attention,
+                lambda o: o.permute(1, 3, 0, 2).reshape(H, d, Fk * m),
+                lambda g: g.reshape(H, d, Fk, m).permute(2, 0, 3, 1))
+    leaves = (q.permute(0, 2, 1)[None], F.pad(k, (W - 1, 0)).permute(0, 2, 1)[None],
+              F.pad(v, (W - 1, 0)).permute(0, 2, 1)[None])
+    frame = torch.arange(Fk * m, device="cuda")[:, None] // m
+    col = torch.arange(Fk + W - 1, device="cuda")[None, :]
+    band = (col >= frame) & (col < frame + W)
+    return (leaves, lambda *x: F.scaled_dot_product_attention(*x, attn_mask=band),
+            lambda o: o[0].permute(0, 2, 1), lambda g: g.permute(0, 2, 1)[None])
+
+
+def _packed_inputs(shape: str, T: int, gen: torch.Generator, grad: bool = False):
+    s = PACKED[shape]
+    H, d = s["H"], s["d"]
+    Fk = T + s["W"] - 1 if s["pad"] else T
+    N = Fk * s["m"]
+    shapes = [(H, d, N), (H, d, Fk), (H, d, Fk)] + ([(H, d, N)] if grad else [])
+    return [torch.randn(sh, generator=gen).cuda() for sh in shapes]
+
+
+def _attention_case(shape: str, T: int, gen: torch.Generator):
+    """K1 at PACKED[shape] over a T-frame trial, one launch a call, against
+    its plain version and the library yardstick."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed, sliding_window_attention_packed_plain)
+
+    s = PACKED[shape]
+    H, d, m, W = s["H"], s["d"], s["m"], s["W"]
+    q, k, v = _packed_inputs(shape, T, gen)
+    Fk, N = k.shape[2], q.shape[2]
+    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    p_out, p_stats = sliding_window_attention_packed_plain(q, k, v, W, m)
+    tol = TOL["swa_packed_fwd"]
+    err = max(check_close(f"attention {shape} T={T} out", out, p_out, *tol),
+              check_close(f"attention {shape} T={T} stats", stats, p_stats, *tol))
+    leaves, call, packed, _ = _yardstick(q, k, v, shape)
+    lib = lambda: call(*leaves)  # noqa: E731
+    # sanity only: the library may take other summation paths
+    check_close(f"attention {shape} T={T} library yardstick", packed(lib()), out, 5e-3, 5e-3)
+    # bytes: q read, out and stats written per query; k, v read per key
+    # frame. Operations per (query, key) pair: score and values 2d each, ~4
+    # for the exp and the sums
+    nbytes = 4 * (2 * H * d * N + 2 * H * d * Fk + 2 * H * N)
+    flops = H * N * W * (4 * d + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    run = lambda: sliding_window_attention_packed(q, k, v, W, m)  # noqa: E731
+    return dict(
+        run=run, max_abs_err=err, ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: sliding_window_attention_packed_plain(q, k, v, W, m), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1),
+        **_device_launches(run, "swa_packed_fwd"))
+
+
+def _attention_bwd_case(shape: str, T: int, gen: torch.Generator):
+    """K3 at PACKED[shape], a cotangent on every query, against its plain
+    version and the library call's autograd backward (to its leaves: the
+    windowed keys' gradients stay per window slot); two runs equal bit for
+    bit."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed, sliding_window_attention_packed_bwd,
+        sliding_window_attention_packed_bwd_plain)
+
+    s = PACKED[shape]
+    H, d, m, W = s["H"], s["d"], s["m"], s["W"]
+    q, k, v, g = _packed_inputs(shape, T, gen, grad=True)
+    Fk, N = k.shape[2], q.shape[2]
+    out, stats = sliding_window_attention_packed(q, k, v, W, m, return_stats=True)
+    run = lambda: sliding_window_attention_packed_bwd(q, k, v, g, out, stats, W, m)  # noqa: E731
+    plain = lambda: sliding_window_attention_packed_bwd_plain(  # noqa: E731
+        q, k, v, g, out, stats, W, m)
+    rtol, atol = TOL["swa_packed_bwd"]
+    err = max(check_grads(f"attention {shape} bwd T={T} {n}", [a], [b], rtol, atol)
+              for n, a, b in zip(("dq", "dk", "dv"), run(), plain()))
+    leaves, call, packed, cotangent = _yardstick(q, k, v, shape)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    lib_out = call(*leaves)
+    lib = lambda: torch.autograd.grad(lib_out, leaves, cotangent(g),  # noqa: E731
+                                      retain_graph=True)
+    check_close(f"attention {shape} bwd T={T} library yardstick dq",
+                packed(lib()[0]), run()[0], 5e-3, 5e-3)
+    # bytes: q, g and out read, the lse row of stats read, dq written (per
+    # query; delta = out.g is formed from out, so stats' second row is not
+    # read); k, v read, dk, dv written (per key frame). Operations per
+    # (query, key) pair: score, g.v, dq, dk, dv (2d each) and ~4 for a, ds
+    nbytes = 4 * (4 * H * d * N + H * N + 4 * H * d * Fk)
+    flops = H * N * W * (10 * d + 4) + 2 * H * d * N
+    b_ms, b_by = bound(nbytes, flops)
+    _same_bits(f"attention {shape} bwd T={T}", run)
+    device = _device_launches(run, "swa_packed_bwd")
+    device["phase_note"] += "; two runs equal bit for bit"
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, 3, warmup=1), **device)
+
+
+KERNEL_CASES = (("swa_packed_fwd", functools.partial(_attention_case, "cog")),
                 ("tcn_stack_fwd/multistack", _multistack_case),
                 ("tcn_stack_fwd/stack", _fast_stacks_case),
-                ("swa_packed_bwd", _attention_bwd_case),
+                ("swa_packed_bwd", functools.partial(_attention_bwd_case, "cog")),
                 ("tcn_stack_bwd/multistack", _multistack_bwd_case),
                 ("tcn_stack_bwd/stack", _fast_stacks_bwd_case),
                 ("tcn_stack_fwd/concatenated", _concat_multistack_case),
                 ("tcn_stack_bwd/concatenated", _concat_multistack_bwd_case),
                 ("swa_headmajor_fwd", _head_major_case),
                 ("swa_headmajor_bwd", _head_major_bwd_case),
-                ("swa_packed_fwd/d2", _tsvn_attention_case),
-                ("swa_packed_bwd/d2", _tsvn_attention_bwd_case),
+                *((f"swa_packed_{way}/{shape}", functools.partial(case, shape))
+                  for shape in ("d2",)
+                  for way, case in (("fwd", _attention_case), ("bwd", _attention_bwd_case))),
                 ("tcn_stack_fwd/tecno", _tecno_stack_case),
-                ("tcn_stack_bwd/tecno", _tecno_stack_bwd_case))
+                ("tcn_stack_bwd/tecno", _tecno_stack_bwd_case),
+                *((f"swa_packed_{way}/{shape}", functools.partial(case, shape))
+                  for way, case in (("fwd", _attention_case), ("bwd", _attention_bwd_case))
+                  for shape in ES_ATTENTION))
 
 
 def phase_kernels(profile: bool):
@@ -1004,15 +979,28 @@ def _request(rng: np.random.Generator, T: int):
             rng.standard_normal((T, 26), dtype=np.float32))
 
 
-def _check_served(name: str, preds, probs, T: int) -> None:
-    if preds.shape != (T,) or probs.shape != (T,):
-        raise RuntimeError(f"{name}: shapes {preds.shape}, {probs.shape} != ({T},)")
+def _check_served(name: str, preds, probs, T: int, classes: int = 2, first: int = 0) -> None:
+    """Raise unless T predictions and probabilities agree: binary, the class-1
+    probability (T,) and predictions 0/1; else every class's (T, classes),
+    rows summing to 1, and predictions ``first`` + their argmax (the
+    sequential stage predicts error classes 1..5)."""
+    want = (T,) if classes == 2 else (T, classes)
+    if preds.shape != (T,) or probs.shape != want:
+        raise RuntimeError(f"{name}: shapes {preds.shape}, {probs.shape} != ({T},), {want}")
     if not np.isfinite(probs).all() or probs.min() < 0 or probs.max() > 1:
         raise RuntimeError(f"{name}: probabilities outside [0, 1]")
-    if not set(np.unique(preds)) <= {0, 1}:
-        raise RuntimeError(f"{name}: predictions outside {{0, 1}}")
-    disagree = preds != (probs > 0.5)
-    if bool((disagree & (np.abs(probs - 0.5) > 1e-6)).any()):
+    if not set(np.unique(preds)) <= set(range(first, first + classes)):
+        raise RuntimeError(f"{name}: predictions outside {first}..{first + classes - 1}")
+    if classes == 2:
+        disagree = preds != (probs > 0.5)
+        sure = np.abs(probs - 0.5) > 1e-6
+    else:
+        if np.abs(probs.sum(axis=1) - 1).max() > 1e-4:
+            raise RuntimeError(f"{name}: class probabilities do not sum to 1")
+        top = np.sort(probs, axis=1)
+        disagree = preds - first != probs.argmax(axis=1)
+        sure = top[:, -1] - top[:, -2] > 1e-6
+    if bool((disagree & sure).any()):
         raise RuntimeError(f"{name}: predictions disagree with probabilities")
 
 
@@ -1215,29 +1203,88 @@ def _ffn_relu(record=None, pin=None, flips=None):
         cog._FFNT.forward = plain
 
 
-def _card_vs_cpu_step(cfg, trial) -> None:
-    """One train step at full width on the card and on the CPU, same weights
-    and dropout masks: the loss must agree, and every gradient leaf once the
-    card's encoder FFN relu pattern is pinned to the CPU's (TRAIN_TOL)."""
-    from med_tpu_torch.data.datasets import frame_batch
+@contextlib.contextmanager
+def _tcn_relu(record=None, pin=None, flips=None):
+    """The TCN stacks' counterpart of :func:`_ffn_relu`: within the block,
+    every saving TCN forward (one a slow path, one a fast stack, in call
+    order) appends its saved post-relu activations y to ``record``, or,
+    given ``pin``, hands the backward its y with the relu pattern of the
+    same call in another run (where that run's y is 0, 0; where it is
+    positive and this one's is not, that run's value) and appends (flipped
+    entries, their largest |y| over the call's largest) to ``flips``. The
+    forward's own outputs are untouched: only the derivative the backward
+    reads from y is pinned."""
+    from med_tpu_torch.ops import tcn_fused
+
+    plain = tcn_fused._stages_fwd
+    calls = iter(range(1 << 30))
+
+    def stages_fwd(x, stage_weights, masks, causal, counter, save):
+        out = plain(x, stage_weights, masks, causal, counter, save)
+        if not save:
+            return out
+        hs, h_saved, y_saved = out
+        if pin is None:
+            record.append(y_saved.cpu())
+            return out
+        other = pin[next(calls)].to(y_saved.device)
+        flip = (other > 0) != (y_saved > 0)
+        near = (torch.maximum(other.abs(), y_saved.abs())[flip].max().item()
+                if bool(flip.any()) else 0.0)
+        flips.append((int(flip.sum()), near / y_saved.abs().max().item()))
+        pinned = torch.where(other > 0, torch.where(y_saved > 0, y_saved, other),
+                             torch.zeros_like(y_saved))
+        return hs, h_saved, pinned.contiguous()
+
+    tcn_fused._stages_fwd = stages_fwd
+    try:
+        yield
+    finally:
+        tcn_fused._stages_fwd = plain
+
+
+def _step_inputs(cfg, trials):
+    """A train step's batch and dropout masks (drawn on the CPU from SEED):
+    one trial's, or with ``trial_batch`` > 1 the group of ``trials`` padded
+    to one 256-frame bucket."""
+    from med_tpu_torch.data.datasets import bucket_length, frame_batch
     from med_tpu_torch.train.engine import Experiment
 
-    batch = frame_batch(trial, cfg)
-    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
-        batch["images"].shape[1], torch.Generator().manual_seed(SEED))
-    patterns, flips = [], []
-    with _ffn_relu(record=patterns):
+    model = Experiment(cfg, device="cpu").net.model
+    if cfg.trial_batch <= 1:
+        batch = frame_batch(trials[0], cfg)
+        return batch, model.dropout_masks(batch["images"].shape[1],
+                                          torch.Generator().manual_seed(SEED))
+    bucket = bucket_length(max(t.n_frames for t in trials))
+    batches = [frame_batch(t, cfg, bucket=bucket) for t in trials]
+    group = {k: np.stack([b[k] for b in batches]) for k in batches[0] if not k.startswith("_")}
+    group["trial_weight"] = np.ones(len(trials), np.float32)
+    return group, model.dropout_masks(bucket, torch.Generator().manual_seed(SEED),
+                                      B=len(trials))
+
+
+def _card_vs_cpu_step(cfg, trials, tag: str = "[training]") -> None:
+    """One train step at full width on the card and on the CPU, same weights
+    and dropout masks (one trial, or a group of ``trials``): the loss must
+    agree, and every gradient leaf once the card's encoder FFN and TCN relu
+    patterns are pinned to the CPU's (TRAIN_TOL)."""
+    batch, masks = _step_inputs(cfg, trials)
+    patterns, flips, tcn_patterns, tcn_flips = [], [], [], []
+    with _ffn_relu(record=patterns), _tcn_relu(record=tcn_patterns):
         cpu_loss, cpu = _step_gradients(cfg, batch, masks, "cpu")
     card_loss, card = _step_gradients(cfg, batch, masks, "cuda")
-    with _ffn_relu(pin=patterns, flips=flips):
+    with _ffn_relu(pin=patterns, flips=flips), _tcn_relu(pin=tcn_patterns, flips=tcn_flips):
         _, pinned = _step_gradients(cfg, batch, masks, "cuda")
 
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    log(f"[training] card vs CPU train step at T={trial.n_frames}: loss "
+    frames = "+".join(str(t.n_frames) for t in trials)
+    log(f"{tag} card vs CPU train step at T={frames}: loss "
         f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e}, tol {TRAIN_TOL['loss']}); "
         f"encoder FFN relu flips per call {[n for n, _ in flips]} of "
         f"{patterns[0].numel()}, at |pre-activation| up to "
-        f"{max(r for _, r in flips):.2e} of the call's largest (tol {FLIP_PRE})")
+        f"{max(r for _, r in flips):.2e} of the call's largest (tol {FLIP_PRE}); "
+        f"TCN relu flips per saving forward {[n for n, _ in tcn_flips]}, at |y| up to "
+        f"{max(r for _, r in tcn_flips):.2e} of the call's largest")
     rows, failed = [], []
     for n in sorted(cpu):
         scale = max(cpu[n].abs().max().item(), 1e-30)
@@ -1248,16 +1295,16 @@ def _card_vs_cpu_step(cfg, trial) -> None:
             failed.append(n)
     # per leaf, max |card - CPU| over the leaf's own largest |value|
     for free, pin_rel, n in sorted(rows, reverse=True)[:10]:
-        log(f"[training]   {n}: {free:.2e} free, {pin_rel:.2e} pinned")
-    log(f"[training] {len(rows)} gradient leaves: {sum(r[0] > TRAIN_TOL['grad_atol'] for r in rows)}"
+        log(f"{tag}   {n}: {free:.2e} free, {pin_rel:.2e} pinned")
+    log(f"{tag} {len(rows)} gradient leaves: {sum(r[0] > TRAIN_TOL['grad_atol'] for r in rows)}"
         f" off the CPU by more than {TRAIN_TOL['grad_atol']} of their max with the relu "
         f"pattern free, largest pinned {max(r[1] for r in rows):.2e} (tol rtol "
         f"{TRAIN_TOL['grad_rtol']}, atol {TRAIN_TOL['grad_atol']} x leaf max, every leaf)")
     if rel > TRAIN_TOL["loss"]:
         raise RuntimeError(f"card vs CPU loss {card_loss} vs {cpu_loss}: "
                            f"relative difference {rel:.3e} > {TRAIN_TOL['loss']}")
-    if max(r for _, r in flips) > FLIP_PRE:
-        raise RuntimeError(f"encoder FFN relu flips away from 0: {flips}")
+    if max(r for _, r in flips + tcn_flips) > FLIP_PRE:
+        raise RuntimeError(f"relu flips away from 0: FFN {flips}, TCN {tcn_flips}")
     if failed:
         raise RuntimeError(f"card vs CPU gradients (relu pattern pinned) out of "
                            f"tolerance: {failed}")
@@ -1332,7 +1379,7 @@ def phase_training(profile: bool):
     if one != {**forward_launches(1), **backward_launches(1)}:
         raise RuntimeError(f"launches per train step {one} differ from the design")
 
-    _card_vs_cpu_step(cfg, _trial(rng, CPU_TRAIN_FRAMES, "Needle_Passing_G001"))
+    _card_vs_cpu_step(cfg, [_trial(rng, CPU_TRAIN_FRAMES, "Needle_Passing_G001")])
     if profile:
         for trial in (train[1], train[3]):
             batch = frame_batch(trial, cfg)
@@ -1986,95 +2033,101 @@ def _finite_numbers(obj) -> int:
     return 1
 
 
-def phase_driver():
+def phase_driver(root: Path):
     """The fold driver's command line on the card (phase 8 of the module
-    docstring). Returns the launch counts of COG's first run and, per
-    family, of the TeCNo and TransSVNet runs."""
+    docstring), its folds and runs under ``root``. Returns the launch
+    counts of COG's first run and, per family, of the TeCNo and TransSVNet
+    runs; the folds' splits; and the id of COG's run."""
     from med_tpu_torch import ops
     from med_tpu_torch.cli import train_frame
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
+    t0 = time.perf_counter()
+    splits = _write_driver_folds(root / "data")
+    log(f"[driver] {len(splits)} folds of {len(DRIVER_FRAMES)} trials "
+        f"({min(DRIVER_FRAMES)}-{max(DRIVER_FRAMES)} frames) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    argv = ["--model-name", "COG", "--data-type", "multimodal",
+            "--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+            "--folds", ",".join(splits)]
+    n_train = sum(len(tr) for tr, _ in splits.values())
+    n_test = sum(len(te) for _, te in splits.values())
+
+    def drive(epochs_run: int, *extra):
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
-        splits = _write_driver_folds(root / "data")
-        log(f"[driver] {len(splits)} folds of {len(DRIVER_FRAMES)} trials "
-            f"({min(DRIVER_FRAMES)}-{max(DRIVER_FRAMES)} frames) written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        argv = ["--model-name", "COG", "--data-type", "multimodal",
-                "--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
-                "--folds", ",".join(splits)]
-        n_train = sum(len(tr) for tr, _ in splits.values())
-        n_test = sum(len(te) for _, te in splits.values())
+        results, tracker = train_frame.main([*argv, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        steps, evals = epochs_run * n_train, epochs_run * n_test
+        want = {**forward_launches(steps + evals), **backward_launches(steps)}
+        log(f"[driver] launches over {steps} train steps and {evals} eval passes: "
+            f"{launches} (expected {want})")
+        if launches != want:
+            raise RuntimeError(f"kernel launches {launches} != {want}")
+        return results, tracker, wall, launches
 
-        def drive(epochs_run: int, *extra):
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            results, tracker = train_frame.main([*argv, *extra])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ops.launch_counts()
-            steps, evals = epochs_run * n_train, epochs_run * n_test
-            want = {**forward_launches(steps + evals), **backward_launches(steps)}
-            log(f"[driver] launches over {steps} train steps and {evals} eval passes: "
-                f"{launches} (expected {want})")
-            if launches != want:
-                raise RuntimeError(f"kernel launches {launches} != {want}")
-            return results, tracker, wall, launches
+    results, tracker, wall, launches = drive(2, "--n-epochs", "2")
+    run = Path(tracker.dir)
+    _check_driver_run(run, "COG_5Hz_multimodal", splits, results, wall, {
+        "model_name": "COG", "data_type": "multimodal", "video_dims": 2048,
+        "d_model": 64, "d_q": 8, "sequence_length": 30, "num_layers_Basic": 11,
+        "num_layers_R": 10, "num_R": 3, "mstcn_f_maps": 64, "n_epochs": 2})
 
-        results, tracker, wall, launches = drive(2, "--n-epochs", "2")
-        run = Path(tracker.dir)
-        _check_driver_run(run, "COG_5Hz_multimodal", splits, results, wall, {
-            "model_name": "COG", "data_type": "multimodal", "video_dims": 2048,
-            "d_model": 64, "d_q": 8, "sequence_length": 30, "num_layers_Basic": 11,
-            "num_layers_R": 10, "num_R": 3, "mstcn_f_maps": 64, "n_epochs": 2})
+    _, resumed, wall_resume, _ = drive(1, "--n-epochs", "3", "--resume")
+    if resumed.dir != tracker.dir:
+        raise RuntimeError(f"--resume made a new run {resumed.dir}")
+    steps = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
+             .splitlines() if json.loads(line)["key"] == "epoch"]
+    if sorted(steps) != sorted([0, 1, 2] * len(splits)):
+        raise RuntimeError(f"--resume --n-epochs 3 did not start at epoch 2: the run's "
+                           f"epoch rows are {steps}")
+    log(f"[driver] --resume --n-epochs 3 trained epoch 2 alone in every fold "
+        f"(epoch rows {steps}): {wall_resume:.2f} s of wall, "
+        f"{wall_resume / len(splits):.2f} s a fold")
 
-        _, resumed, wall_resume, _ = drive(1, "--n-epochs", "3", "--resume")
-        if resumed.dir != tracker.dir:
-            raise RuntimeError(f"--resume made a new run {resumed.dir}")
-        steps = [json.loads(line)["step"] for line in (run / "metrics.jsonl").read_text()
-                 .splitlines() if json.loads(line)["key"] == "epoch"]
-        if sorted(steps) != sorted([0, 1, 2] * len(splits)):
-            raise RuntimeError(f"--resume --n-epochs 3 did not start at epoch 2: the run's "
-                               f"epoch rows are {steps}")
-        log(f"[driver] --resume --n-epochs 3 trained epoch 2 alone in every fold "
-            f"(epoch rows {steps}): {wall_resume:.2f} s of wall, "
-            f"{wall_resume / len(splits):.2f} s a fold")
-
-        # the frame CLI's default (TeCNo), then TransSVNet on that run
-        family_runs, tecno_id = {}, None
-        for name in FAMILIES:
-            extra = ([] if name == "TeCNo"
-                     else ["--model-name", "TransSVNet", "--run-id", tecno_id])
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            results, tracker = train_frame.main(
-                ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
-                 "--folds", ",".join(splits), "--n-epochs", "2", *extra])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            family_runs[name] = ops.launch_counts()
-            want = family_launches(name, passes=2 * n_test, steps=2 * n_train)
-            log(f"[driver] {name}: launches over {2 * n_train} train steps and "
-                f"{2 * n_test} eval passes: {_nonzero(family_runs[name])} (expected "
-                f"{_nonzero(want)}, no other)")
-            if family_runs[name] != want:
-                raise RuntimeError(f"{name} kernel launches {family_runs[name]} != {want}")
-            tecno_id = tecno_id or tracker.run_id
-            _check_driver_run(Path(tracker.dir), f"{name}_5Hz_video", splits, results, wall, {
-                "model_name": name, "data_type": "video", "video_dims": 2048,
-                "mstcn_stages": 2, "mstcn_layers": 8, "mstcn_f_maps": 64,
-                "sequence_length": 30, "n_epochs": 2,
-                "run_id": None if name == "TeCNo" else tecno_id})
-    return launches, family_runs
+    # the frame CLI's default (TeCNo), then TransSVNet on that run
+    family_runs, tecno_id = {}, None
+    for name in FAMILIES:
+        extra = ([] if name == "TeCNo"
+                 else ["--model-name", "TransSVNet", "--run-id", tecno_id])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, tracker = train_frame.main(
+            ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+             "--folds", ",".join(splits), "--n-epochs", "2", *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        family_runs[name] = ops.launch_counts()
+        want = family_launches(name, passes=2 * n_test, steps=2 * n_train)
+        log(f"[driver] {name}: launches over {2 * n_train} train steps and "
+            f"{2 * n_test} eval passes: {_nonzero(family_runs[name])} (expected "
+            f"{_nonzero(want)}, no other)")
+        if family_runs[name] != want:
+            raise RuntimeError(f"{name} kernel launches {family_runs[name]} != {want}")
+        tecno_id = tecno_id or tracker.run_id
+        _check_driver_run(Path(tracker.dir), f"{name}_5Hz_video", splits, results, wall, {
+            "model_name": name, "data_type": "video", "video_dims": 2048,
+            "mstcn_stages": 2, "mstcn_layers": 8, "mstcn_f_maps": 64,
+            "sequence_length": 30, "n_epochs": 2,
+            "run_id": None if name == "TeCNo" else tecno_id})
+    return launches, family_runs, splits, run.name
 
 
 def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
-                      width: dict) -> None:
+                      width: dict, classes: int = 2, first: int = 0, tag: str = None,
+                      test_frames=None) -> None:
     """Raise unless a driver run's directory is whole, its config has
     ``width``, its summaries are finite and its best predictions served
-    numbers; log the run's wall split (train steps, eval passes and the rest
-    from its own metrics.jsonl)."""
-    tag = f"[driver] {width['model_name']}"
+    numbers (``classes`` and ``first`` as :func:`_check_served` takes them,
+    the windowed confusion matrix over 2 or 6 classes); log the run's wall
+    split (train steps, eval passes and the rest from its own
+    metrics.jsonl). ``test_frames``: each fold's test frames, where the run
+    dropped some (Needle-Drop); by default all of DRIVER_FRAMES'."""
+    tag = tag or f"[driver] {width['model_name']}"
+    if test_frames is None:
+        test_frames = {fold: sum(DRIVER_FRAMES[int(t[-1]) - 1] for t in test)
+                       for fold, (_, test) in splits.items()}
     if run.parent.name != experiment:
         raise RuntimeError(f"run directory {run} is not under {experiment}")
     want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json",
@@ -2094,10 +2147,13 @@ def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
         raise RuntimeError(f"the driver did not run {width}: {got}")
     counted = {name: _finite_numbers(json.loads((run / "artifacts" / name).read_text()))
                for name in ("summary.json", "windowed_metrics.json")}
-    for fold, (_, test) in splits.items():
+    windowed = json.loads((run / "artifacts" / "windowed_metrics.json").read_text())
+    if np.asarray(windowed["cm"]).shape != ((2, 2) if classes == 2 else (6, 6)):
+        raise RuntimeError(f"{tag}: windowed confusion matrix {np.shape(windowed['cm'])}")
+    for fold in splits:
         best = results[fold]
-        n = sum(DRIVER_FRAMES[int(t[-1]) - 1] for t in test)
-        _check_served(f"driver fold {fold}", best["preds"], best["probs"], n)
+        _check_served(f"driver fold {fold}", best["preds"], best["probs"], test_frames[fold],
+                      classes, first)
         if not (math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
             raise RuntimeError(f"driver fold {fold}: non-finite loss {best}")
     log(f"{tag} run layout ok ({len(files)} files); summary.json holds "
@@ -2107,13 +2163,306 @@ def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
     rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     train_s = sum(r["value"] for r in rows if r["key"] == "train_time")
     # the eval rows come fold by fold, 2 epochs each, as ms per test frame
-    test_frames = [sum(DRIVER_FRAMES[i] for i in test) for test in DRIVER_TEST.values()]
+    frames = [test_frames[fold] for fold in splits]
     per_frame = [r["value"] for r in rows if r["key"] == "test_inference_ms_per_frame"]
-    eval_s = sum(v * test_frames[j // 2] for j, v in enumerate(per_frame)) / 1e3
-    log(f"{tag} train_frame.main, {len(splits)} folds x 2 epochs: {wall:.2f} s of "
+    eval_s = sum(v * frames[j // 2] for j, v in enumerate(per_frame)) / 1e3
+    log(f"{tag} {run.parent.name} run, {len(splits)} folds x 2 epochs: {wall:.2f} s of "
         f"wall, {wall / len(splits):.2f} s a fold: train steps {train_s:.2f} s, eval "
         f"passes {eval_s:.2f} s, the rest (loading the folds, snapshots, checkpoints "
         f"and artifacts) {wall - train_s - eval_s:.2f} s")
+
+
+# the error-specific frame regime (phase 9): COG's prompt variants, served
+# and stepped at full width; which K1/K3 entry of the kernels line each
+# variant's path feeds (ES_ATTENTION's shapes)
+ES_VARIANTS = {"observed": dict(use_all_gestures=False),
+               "skill_prompt": dict(use_skill_prompt=True), "srm": dict(SRM=True)}
+ES_VARIANT_SHAPE = {"m8": "observed", "m45": "skill_prompt"}
+BF16_BOUND = 0.1          # bf16 logits within 0.1 of the fp32 logits' largest |value|
+
+
+def variant_launches(chains: int, passes: int = 0, steps: int = 0, trials: int = 1):
+    """Launches of ``passes`` COG forward passes and ``steps`` train steps,
+    each of ``trials`` trials (a group's, padding repeats included): the
+    attention's ``chains`` chains (2 with SRM) of 2 layers take one K1 (and
+    K3) a layer for the whole pass; the TCN kernels run as
+    forward_launches and backward_launches, once a trial."""
+    counts = {**forward_launches(trials * passes), **backward_launches(trials * steps)}
+    counts["sliding_window_attention_packed"] = 2 * chains * passes
+    counts["sliding_window_attention_packed_bwd"] = 2 * chains * steps
+    return counts
+
+
+def _es_variants(stats) -> dict:
+    """COG's observed-gesture, skill-prompt and SRM variants at full width:
+    served at REQUEST_FRAMES (latency, launches), card against CPU
+    probabilities at CPU_CHECK_FRAMES, one train step counted on the card
+    and one card against CPU. Returns {variant: {"serving", "step"}}."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.train.engine import Experiment
+
+    rng = np.random.default_rng(SEED + 11)
+    out = {}
+    for name, variant in ES_VARIANTS.items():
+        cfg = _serving_config(2048).replace(**variant)
+        chains = 2 if cfg.SRM else 1
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = _seeded_checkpoint(cfg, tmp)
+        server = FrameModelServer(cfg, ckpt, stats=stats)
+        M = server.exp.net.model.gest_embed.shape[0]
+        server.predict_trial(*_request(rng, 256))              # warm-up
+        requests = {T: _request(rng, T) for T in REQUEST_FRAMES}
+        ops.reset_launch_counts()
+        served, first = {}, {}
+        for T, req in requests.items():
+            t0 = time.perf_counter()
+            served[T] = server.predict_trial(*req)
+            first[T] = (time.perf_counter() - t0) * 1e3
+            _check_served(f"{name} request T={T}", *served[T], T)
+        serving = ops.launch_counts()
+        want = variant_launches(chains, passes=len(requests))
+        if serving != want:
+            raise RuntimeError(f"{name}: serving launches {serving} != {want}")
+        for T, req in requests.items():
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                server.predict_trial(*req)
+                times.append((time.perf_counter() - t0) * 1e3)
+            log(f"[es] {name} (M={M} prompts, {chains} chain(s)) request T={T}: "
+                f"median {statistics.median(times):.2f} ms of 3 (first {first[T]:.2f} ms)")
+        log(f"[es] {name}: launches over {len(requests)} requests {_nonzero(serving)} "
+            f"(as designed)")
+        cpu = FrameModelServer(cfg, ckpt, stats=stats, device="cpu")
+        c_preds, c_probs = cpu.predict_trial(*requests[CPU_CHECK_FRAMES])
+        g_preds, g_probs = served[CPU_CHECK_FRAMES]
+        err = float(np.abs(g_probs - c_probs).max())
+        flips = g_preds != c_preds
+        if err > 1e-4 or bool((flips & (np.abs(c_probs - 0.5) > 1e-4)).any()):
+            raise RuntimeError(f"{name}: card vs CPU probabilities differ by {err:.3e}")
+        log(f"[es] {name} card vs CPU at T={CPU_CHECK_FRAMES}: max prob diff {err:.3e} "
+            f"(tol 1e-4), {int(flips.sum())} predictions differ")
+
+        train_cfg = _train_config().replace(**variant)
+        trial = _trial(rng, CPU_TRAIN_FRAMES, "Needle_Passing_H001")
+        exp = Experiment(train_cfg)
+        exp.init_weights(SEED)
+        exp.train_step(frame_batch(trial, train_cfg))          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        exp.train_step(frame_batch(trial, train_cfg))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step = ops.launch_counts()
+        if step != variant_launches(chains, passes=1, steps=1):
+            raise RuntimeError(f"{name}: train step launches {step}")
+        log(f"[es] {name} train step T={CPU_TRAIN_FRAMES}: {step_ms:.2f} ms, launches "
+            f"{_nonzero(step)}")
+        _card_vs_cpu_step(train_cfg, [trial], tag=f"[es] {name}")
+        out[name] = {"serving": serving, "step": step}
+    return out
+
+
+def _es_clis(root: Path, splits, cog_run: str) -> dict:
+    """``train_frame_es.main`` and ``train_frame_es_sequential.main --run-id``
+    phase 8's COG run, each 2 epochs on phase 8's folds at full width on
+    the card: launches as designed (the sequential stage adds the binary
+    stage's eval pass over each test trial, its gates), the run layout,
+    finite summaries, 6-class windowed metrics. Returns each run's launch
+    counts."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import train_frame_es, train_frame_es_sequential
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.data.datasets import build_frame_fold
+
+    argv = ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+            "--folds", ",".join(splits), "--n-epochs", "2"]
+    es_cfg = ExperimentConfig(dataset_type="frame", error_type="all_errors", delete_ND=True)
+    trials = {fold: (build_frame_fold(str(root / "data" / fold), es_cfg, "train.csv"),
+                     build_frame_fold(str(root / "data" / fold), es_cfg, "test.csv"))
+              for fold in splits}
+    n_train = sum(len(tr) for tr, _ in trials.values())
+    n_test = sum(len(te) for _, te in trials.values())
+    test_frames = {fold: sum(t.n_frames for t in te) for fold, (_, te) in trials.items()}
+    runs = {}
+    for name, main, extra, fixed, classes, first in (
+            ("train_frame_es", train_frame_es.main, [],
+             {"error_type": "all_errors", "out_features": 6, "smooth_lambda": 0.15}, 6, 0),
+            ("train_frame_es_sequential", train_frame_es_sequential.main,
+             ["--run-id", cog_run],
+             {"error_type": "sequential", "out_features": 5, "smooth_lambda": 0.0,
+              "run_id": cog_run}, 5, 1)):
+        gates = n_test if extra else 0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, tracker = main([*argv, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = ops.launch_counts()
+        want = {**forward_launches(2 * n_train + 2 * n_test + gates),
+                **backward_launches(2 * n_train)}
+        log(f"[es] {name}: launches over {2 * n_train} train steps, {2 * n_test} eval "
+            f"passes and {gates} gate passes of the binary stage: {_nonzero(runs[name])}")
+        if runs[name] != want:
+            raise RuntimeError(f"{name} kernel launches {runs[name]} != {want}")
+        _check_driver_run(Path(tracker.dir), "COG_5Hz_multimodal", splits, results, wall, {
+            # the ES command lines keep the config's video_dims (32: the
+            # FeatureExtractor), as med_tpu's do
+            "model_name": "COG", "data_type": "multimodal", "video_dims": 32,
+            "d_model": 64, "num_R": 3, "delete_ND": True, "mstcn_stages": 8,
+            "n_epochs": 2, **fixed}, classes=classes, first=first, tag=f"[es] {name}",
+            test_frames=test_frames)
+    return runs
+
+
+def _es_bf16(train, test) -> dict:
+    """COG and TeCNo with compute_dtype="bfloat16" on the card: served at
+    T = 4096 (latency, launches: no TCN kernel), their logits within
+    BF16_BOUND of the fp32 model's on the same weights and input, and a
+    2-epoch fold on phase 5's trials (launches, finite losses, wall).
+    Returns the fold runs' launch counts by model."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.train.loop import train_frame_fold
+
+    rng = np.random.default_rng(SEED + 12)
+    T = REQUEST_FRAMES[-1]
+    out = {}
+    for name in ("COG", "TeCNo"):
+        cfg = _serving_config(2048) if name == "COG" else _family_config("TeCNo")
+        bf16 = cfg.replace(compute_dtype="bfloat16")
+        with tempfile.TemporaryDirectory() as tmp:
+            if name == "COG":
+                ckpt = _seeded_checkpoint(cfg, tmp)
+            else:
+                ckpt = _family_checkpoints(tmp)[0]["TeCNo"]
+        servers = {dt: FrameModelServer(c, ckpt) for dt, c in (("fp32", cfg), ("bf16", bf16))}
+        req = _request(rng, T)
+        servers["bf16"].predict_trial(*req)                     # warm-up
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        preds, probs = servers["bf16"].predict_trial(*req)
+        ms = (time.perf_counter() - t0) * 1e3
+        served = ops.launch_counts()
+        _check_served(f"bf16 {name} request", preds, probs, T)
+        attention = 2 if name == "COG" else 0
+        want = {**dict.fromkeys(served, 0), "sliding_window_attention_packed": attention}
+        if served != want:
+            raise RuntimeError(f"bf16 {name} request launches {served} != {want}")
+        x = torch.randn(1, T, cfg.in_features(), generator=torch.Generator().manual_seed(SEED)
+                        ).cuda()
+        with torch.no_grad():
+            logits = {dt: s.exp.net.model(x) for dt, s in servers.items()}
+        tracks = {dt: (o[0] if name == "COG" else list(o)) for dt, o in logits.items()}
+        worst = 0.0
+        for lo, hi in zip(tracks["bf16"], tracks["fp32"]):
+            if lo.dtype != torch.float32:
+                raise RuntimeError(f"bf16 {name}: logits in {lo.dtype}")
+            worst = max(worst, ((lo - hi).abs().max() / hi.abs().max()).item())
+        log(f"[es] bf16 {name} request T={T}: {ms:.2f} ms, launches {_nonzero(served)}; "
+            f"logits within {worst:.3e} of the fp32 logits' largest (bound {BF16_BOUND})")
+        if worst > BF16_BOUND:
+            raise RuntimeError(f"bf16 {name} logits {worst:.3e} from fp32 > {BF16_BOUND}")
+
+        fold_cfg = (_train_config() if name == "COG" else _family_config("TeCNo")).replace(
+            compute_dtype="bfloat16")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_frame_fold(fold_cfg, train, test)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = ops.launch_counts()
+        steps = fold_cfg.n_epochs * len(train)
+        passes = steps + fold_cfg.n_epochs * len(test)
+        want = {**dict.fromkeys(out[name], 0),
+                "sliding_window_attention_packed": attention * passes,
+                "sliding_window_attention_packed_bwd": attention * steps}
+        if out[name] != want:
+            raise RuntimeError(f"bf16 {name} fold launches {out[name]} != {want}")
+        for row in res["history"]:
+            if not (math.isfinite(row["train_loss"]) and math.isfinite(row["test_loss"])):
+                raise RuntimeError(f"bf16 {name}: non-finite loss in {row}")
+        log(f"[es] bf16 {name} fold: {fold_cfg.n_epochs} epochs x {len(train)} trials in "
+            f"{wall:.2f} s, train losses {[round(r['train_loss'], 5) for r in res['history']]}"
+            f", launches {_nonzero(out[name])}; step T={train[-1].n_frames}: "
+            f"{_step_ms(res['exp'], frame_batch(train[-1], fold_cfg)):.2f} ms (median of 3)")
+    return out
+
+
+def _step_ms(exp, batch, runs: int = 3) -> float:
+    """Median host milliseconds of ``runs`` train steps on ``batch``, each
+    ending in a device sync, after one warm step."""
+    times = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        exp.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def _es_groups(train, test) -> dict:
+    """COG with trial_batch = 2: a 2-epoch fold on phase 5's trials (every
+    trial padded to the fold's 4096-frame bucket), K1 and K3 once a group
+    and encoder layer, the TCN kernels once a trial; one grouped step card
+    against CPU. Returns the fold's launch counts."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.datasets import bucket_length, frame_batch
+    from med_tpu_torch.train.loop import train_frame_fold
+
+    cfg = _train_config().replace(trial_batch=2)
+    G = cfg.trial_batch
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_frame_fold(cfg, train, test)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    train_groups, test_groups = -(-len(train) // G), -(-len(test) // G)
+    steps = cfg.n_epochs * train_groups
+    passes = steps + cfg.n_epochs * test_groups
+    want = variant_launches(1, passes=passes, steps=steps, trials=G)
+    log(f"[es] trial_batch={G} fold: {steps} group steps and {passes - steps} group eval "
+        f"passes, launches {_nonzero(launches)} (expected {_nonzero(want)})")
+    if launches != want:
+        raise RuntimeError(f"grouped fold launches {launches} != {want}")
+    for row in res["history"]:
+        if not (math.isfinite(row["train_loss"]) and math.isfinite(row["test_loss"])):
+            raise RuntimeError(f"grouped fold: non-finite loss in {row}")
+        log(f"[es] trial_batch={G} epoch {row['epoch']}: train_loss {row['train_loss']:.6f},"
+            f" test_loss {row['test_loss']:.6f}, train {row['train_time']:.2f} s")
+    # a group of the two longest trials, at the fold's bucket
+    bucket = bucket_length(max(t.n_frames for t in train + test), cap=cfg.max_frames)
+    batches = [frame_batch(t, cfg, bucket=bucket) for t in train[-G:]]
+    group = {k: np.stack([b[k] for b in batches]) for k in batches[0] if not k.startswith("_")}
+    group["trial_weight"] = np.ones(G, np.float32)
+    log(f"[es] trial_batch={G} fold: {wall:.2f} s of wall; best epoch {res['best']['epoch']}; "
+        f"group step of T={'+'.join(str(t.n_frames) for t in train[-G:])} at bucket {bucket}: "
+        f"{_step_ms(res['exp'], group):.2f} ms (median of 3)")
+    rng = np.random.default_rng(SEED + 13)
+    _card_vs_cpu_step(cfg, [_trial(rng, T, f"Needle_Passing_{c}002")
+                            for T, c in ((200, "B"), (250, "C"))], tag="[es] group")
+    return launches
+
+
+def phase_es(root: Path, splits, cog_run: str):
+    """The error-specific frame regime on the card (phase 9 of the module
+    docstring). Returns (variants' launches, the ES CLIs', bf16 folds',
+    the grouped fold's)."""
+    rng = np.random.default_rng(SEED)
+    stats = {"kinematics": {"mean": rng.standard_normal(26, dtype=np.float32),
+                            "std": rng.uniform(0.5, 2.0, 26).astype(np.float32)}}
+    variants = _es_variants(stats)
+    clis = _es_clis(root, splits, cog_run)
+    rng = np.random.default_rng(SEED)
+    train = [_trial(rng, T, f"Needle_Passing_{'BCDE'[i]}00{i + 1}")
+             for i, T in enumerate(TRAIN_FRAMES)]
+    test = [_trial(rng, T, f"Needle_Passing_F00{i + 1}") for i, T in enumerate(TEST_FRAMES)]
+    return variants, clis, _es_bf16(train, test), _es_groups(train, test)
 
 
 def main(argv) -> int:
@@ -2145,7 +2494,10 @@ def main(argv) -> int:
     families = timed("families", phase_families, profile)
     fused_trunk, pixels, stage_kernel = timed("pixels", phase_pixels, profile)
     kernels["resnet_stage"] = stage_kernel
-    driver, driver_families = timed("driver", phase_driver)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver, driver_families, splits, cog_run = timed("driver", phase_driver, Path(tmp))
+        variants, es_clis, bf16_folds, group_fold = timed("es", phase_es, Path(tmp), splits,
+                                                          cog_run)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -2191,19 +2543,35 @@ def main(argv) -> int:
                                        "dilated_residual_stack"),
                "tcn_stack_bwd/tecno": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
                                        "med_tpu/ops/tcn_fused.py:193",
-                                       "dilated_residual_stack_bwd")}
+                                       "dilated_residual_stack_bwd"),
+               **{f"swa_packed_fwd/{shape}": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
+                                              "med_tpu/ops/attention.py:390",
+                                              "sliding_window_attention_packed")
+                  for shape in ES_ATTENTION},
+               **{f"swa_packed_bwd/{shape}": ("med_tpu_torch/csrc/swa_packed_bwd.cu",
+                                              "med_tpu/ops/attention.py:506",
+                                              "sliding_window_attention_packed_bwd")
+                  for shape in ES_ATTENTION}}
     # launches: each kernel's own path: one 128-frame batch of
     # resnet50_fused_apply for K10, one forward and backward through the
     # public op entry points for K6-K9, the TransSVNet and TeCNo fold runs
-    # for the D=2 attention and the TeCNo stacks, and COG's training run for
-    # the others; every phase's count beside it (the pixel request's trunk is
-    # ResNet50; the driver's COG count is its first run, 2 folds x 2 epochs)
+    # for the D=2 attention and the TeCNo stacks, the skill-prompt (m = 45)
+    # and observed-gesture (m = 8) variants' served requests (K1) and train
+    # step (K3), the trial_batch = 2 fold for 16 heads, and COG's training
+    # run for the others; every phase's count beside it (the pixel request's
+    # trunk is ResNet50; the driver's COG count is its first run, 2 folds x 2
+    # epochs)
     own_path = {"resnet_stage": fused_trunk, "tcn_stack_fwd/concatenated": op_api,
                 "tcn_stack_bwd/concatenated": op_api, "swa_headmajor_fwd": op_api,
                 "swa_headmajor_bwd": op_api, "swa_packed_fwd/d2": families["TransSVNet"],
                 "swa_packed_bwd/d2": families["TransSVNet"],
                 "tcn_stack_fwd/tecno": families["TeCNo"],
-                "tcn_stack_bwd/tecno": families["TeCNo"]}
+                "tcn_stack_bwd/tecno": families["TeCNo"],
+                **{f"swa_packed_fwd/{shape}": variants[v]["serving"]
+                   for shape, v in ES_VARIANT_SHAPE.items()},
+                **{f"swa_packed_bwd/{shape}": variants[v]["step"]
+                   for shape, v in ES_VARIANT_SHAPE.items()},
+                "swa_packed_fwd/heads16": group_fold, "swa_packed_bwd/heads16": group_fold}
     line = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
              "launches": own_path.get(name, training)[wrapper],
              "launches_serving": serving[wrapper], "launches_training": training[wrapper],
@@ -2214,6 +2582,13 @@ def main(argv) -> int:
              "launches_tsvn_fold": families["TransSVNet"][wrapper],
              "launches_driver_tecno": driver_families["TeCNo"][wrapper],
              "launches_driver_tsvn": driver_families["TransSVNet"][wrapper],
+             **{f"launches_{v}_serving": variants[v]["serving"][wrapper] for v in ES_VARIANTS},
+             **{f"launches_{v}_step": variants[v]["step"][wrapper] for v in ES_VARIANTS},
+             "launches_es_cli": es_clis["train_frame_es"][wrapper],
+             "launches_es_sequential_cli": es_clis["train_frame_es_sequential"][wrapper],
+             "launches_bf16_cog_fold": bf16_folds["COG"][wrapper],
+             "launches_bf16_tecno_fold": bf16_folds["TeCNo"][wrapper],
+             "launches_group_fold": group_fold[wrapper],
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     idle = [k["name"] for k in line if k["launches"] < 1]

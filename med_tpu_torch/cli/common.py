@@ -126,11 +126,15 @@ def _dump_best(tracker: RunTracker, tag: str, best: dict, cfg) -> None:
 
 
 def run_frame_folds(args, cfg: ExperimentConfig,
-                    frozen_fn: Optional[Callable[[str], dict]] = None) -> Dict[str, dict]:
+                    frozen_fn: Optional[Callable[[str], dict]] = None,
+                    gates_fn: Optional[Callable[[str, list, list], dict]] = None
+                    ) -> Dict[str, dict]:
     """Train all folds of a frame experiment; save checkpoints, artifacts,
     the weighted summary and the frame->window rollup (the fold loop of
     train_frame.ipynb cells 2-4). ``frozen_fn(fold)`` gives a fold's frozen
-    stage (TransSVNet's TeCNo). Returns (fold_results, tracker)."""
+    stage (TransSVNet's TeCNo); ``gates_fn(fold, train_trials,
+    test_trials)`` its gates (the sequential regime's, see
+    ``train_frame_fold``). Returns (fold_results, tracker)."""
     for name in _MULTI_GPU_FLAGS:
         if getattr(args, name, None):
             raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
@@ -150,6 +154,8 @@ def run_frame_folds(args, cfg: ExperimentConfig,
         print(f"[{tag}] train trials={len(train_trials)} test={len(test_trials)}")
         res = train_frame_fold(cfg, train_trials, test_trials, tracker=tracker,
                                frozen=frozen_fn(out) if frozen_fn else None,
+                               gates=gates_fn(out, train_trials, test_trials)
+                               if gates_fn else None,
                                tag=tag, exp=shared_exp,
                                resume=getattr(args, "resume", False))
         best = res["best"]

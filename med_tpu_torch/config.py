@@ -107,16 +107,17 @@ class ExperimentConfig:
     save_local: bool = False
 
     # --- the JAX package's device knobs, kept so both packages write the
-    # same params.json; the port reads fused_epoch, fused_run, trial_batch,
-    # max_frames, and build_model refuses compute_dtype="bfloat16" ---
-    compute_dtype: str = "float32"
+    # same params.json; the port reads compute_dtype, fused_epoch,
+    # fused_run, trial_batch and max_frames ---
+    compute_dtype: str = "float32"    # "bfloat16": the TCN paths compute in bf16
     mesh_shape: Optional[Tuple[int, ...]] = None
     use_pallas: bool = True
     prefetch_depth: int = 2
     fused_epoch: bool = True          # frame folds: every trial padded to one
                                       # common bucket (the per-trial loop runs)
     fused_run: bool = True
-    trial_batch: int = 1              # frame families: trials per step
+    trial_batch: int = 1              # frame families: trials per step (groups
+                                      # padded with zero-weight repeats)
     max_frames: int = 4096            # frame-model padding bucket ceiling
     flat_params: bool = False
     fold_pad_quantum: int = 512
@@ -130,10 +131,6 @@ class ExperimentConfig:
             raise ValueError(f"unknown dataset_type {self.dataset_type!r}")
         if self.error_type not in ERROR_TYPE_TO_COLUMN and self.error_type != "sequential":
             raise ValueError(f"unknown error_type {self.error_type!r}")
-        if self.trial_batch > 1:
-            raise NotImplementedError(
-                "trial_batch > 1 is not ported yet: ROADMAP.md Queue A6 "
-                "(other frame families)")
 
     @property
     def window_size(self) -> int:

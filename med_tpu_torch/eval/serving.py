@@ -104,8 +104,10 @@ class PixelFrontEnd:
 
 class FrameModelServer:
     """Standardize kinematics with the fold statistics, bucket-pad the trial,
-    run the eval step, return per-frame predictions and positive-class
-    probabilities.
+    run the eval step, return per-frame predictions and probabilities: the
+    positive class's of a binary model, every class's otherwise (a 6-class
+    or named-error-type COG with ``out_features`` > 2). Any COG variant and
+    ``compute_dtype`` of the config serves the same way.
 
     ``checkpoint`` is a ``med_tpu`` checkpoint tree (``load_checkpoint`` of
     a ``best_model_<setting>_<fold>.npz``); ``frozen`` TransSVNet's frozen
@@ -121,11 +123,7 @@ class FrameModelServer:
         self.cfg = cfg
         self.stats = stats
         self.exp = Experiment(cfg, device=device)
-        state, constants = load_jax_params(checkpoint, self.exp.net)
-        self.exp.net.load_state_dict(state, strict=True)
-        with torch.no_grad():
-            for name, value in constants.items():
-                self.exp.net.get_buffer(name).copy_(value)
+        self.exp.load_params(checkpoint)
         if frozen is not None:
             self.exp.load_frozen(frozen)
 
@@ -135,8 +133,9 @@ class FrameModelServer:
         return self.predict_trial(frontend.features(frames), kinematics)
 
     def predict_trial(self, images, kinematics):
-        """images (T, 2048), kinematics (T, 26) raw -> (preds (T,), probs (T,))
-        as numpy arrays; a trial longer than ``cfg.max_frames`` is cut there."""
+        """images (T, 2048), kinematics (T, 26) raw -> (preds (T,), probs (T,)
+        or (T, classes)) as numpy arrays; a trial longer than
+        ``cfg.max_frames`` is cut there."""
         kin = kinematics
         if self.stats is not None:
             kin = (kinematics - self.stats["kinematics"]["mean"]) / (

@@ -1,10 +1,13 @@
-"""Model factory (port of ``med_tpu.models``): the frame families COG,
-TeCNo and TransSVNet; the window families are queued in ROADMAP.md."""
+"""Model factory (port of ``med_tpu.models``): the frame families COG (with
+its observed-gesture, skill-prompt and SRM variants), TeCNo and
+TransSVNet, in float32 or with ``compute_dtype="bfloat16"``; the window
+families are queued in ROADMAP.md."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn as nn
 
 from ..config import ExperimentConfig
@@ -22,13 +25,20 @@ _QUEUED = {
 }
 
 
-def build_tecno(cfg: ExperimentConfig) -> TeCNo:
+def compute_dtype(cfg: ExperimentConfig) -> Optional[torch.dtype]:
+    """The TCN paths' compute type: None (float32) or torch.bfloat16."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def build_tecno(cfg: ExperimentConfig, dtype: Optional[torch.dtype] = None) -> TeCNo:
     """TeCNo at the config's mstcn_* sizes: the model of the TeCNo family,
-    and the frozen stage under TransSVNet (reference
+    and, in float32 whatever the config's compute type (as med_tpu builds
+    it), the frozen stage under TransSVNet (reference
     modeling_utils.py:2263-2268)."""
     return TeCNo(num_stages=cfg.mstcn_stages, num_layers=cfg.mstcn_layers,
                  f_maps=cfg.mstcn_f_maps, in_dim=cfg.in_features(),
-                 out_classes=cfg.out_features, causal=cfg.mstcn_causal_conv)
+                 out_classes=cfg.out_features, causal=cfg.mstcn_causal_conv,
+                 dtype=dtype)
 
 
 def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> nn.Module:
@@ -38,19 +48,11 @@ def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> nn.
     if name in _QUEUED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet: ROADMAP.md {_QUEUED[name]}")
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' (bf16 matmuls) is not ported yet: the "
-            "port trains and serves in float32; ROADMAP.md Queue A6")
     if name == "TeCNo":
-        return build_tecno(cfg)
+        return build_tecno(cfg, compute_dtype(cfg))
     if name == "TransSVNet":
         return TransSVNet(f_maps=cfg.mstcn_f_maps, out_classes=cfg.out_features,
                           len_q=cfg.sequence_length, in_dim=cfg.in_features())
-    if cfg.SRM or cfg.use_skill_prompt or not cfg.use_all_gestures:
-        raise NotImplementedError(
-            "COG's SRM, skill-prompt and observed-gesture variants are not "
-            "ported yet: ROADMAP.md Queue A6 (other frame families)")
     return COG(
         num_layers_basic=cfg.num_layers_Basic,
         num_layers_r=cfg.num_layers_R,
@@ -63,6 +65,10 @@ def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> nn.
         d_q=cfg.d_q,
         len_q=cfg.sequence_length,
         prompt_path=prompt_path,
+        use_all_gestures=cfg.use_all_gestures,
+        use_skill_prompt=cfg.use_skill_prompt,
+        srm=cfg.SRM,
+        dtype=compute_dtype(cfg),
     )
 
 

@@ -1,19 +1,26 @@
 """COG — Chain-of-Gesture vision-language frame model (port of
 ``med_tpu.models.cog``; reference ``MED/modeling/models_COG.py``).
 
-Per trial (B=1, T frames):
+Per trial (T frames; B trials of one length go together, see below):
 
 1. *Chain-of-gesture block*: project the visual features (T, F) and the
-   frozen 15x512 gesture-prompt table to d_model; for every frame the 15
-   text tokens cross-attend the last len_q=30 visual frames (2 encoder
-   layers, 8 heads, d_q=8, banded attention kernel), then one single-head
-   attention over the text tokens. Output (T, 15*d_model). The encoder runs
-   feature-major and 2-D, (d, N = T*15), as in the JAX package.
+   frozen M x 512 prompt table (M = 15 gestures by default; 8 or 45 in the
+   variants, see :class:`COG`) to d_model; for every frame the M text
+   tokens cross-attend the last len_q=30 visual frames (2 encoder layers,
+   8 heads, d_q=8, banded attention kernel), then one single-head attention
+   over the text tokens. Output (T, M*d_model). The encoder runs
+   feature-major, (d, N = T*M), as in the JAX package. SRM adds a second
+   chain over 15 skill statements, concatenated on the feature axis.
 2. *Slow path*: the TCN stage (11 layers) and num_R refinement stages (10
    layers, fed features) run back to back through the multi-stage TCN
    kernel; an FPN over the stage outputs gives 4 logit tracks at T.
 3. *Fast path*: 16x average-pooled features through its own TCN stage and
    num_R refinements (fed softmaxed logits) -> 1 + num_R tracks at T/16.
+
+A batch of B trials (a trial group, ``trial_batch`` > 1) folds into the
+attention's head axis, B*8 heads in one kernel launch, as ``med_tpu``'s
+batching rule of the attention op does; the TCN kernels take one launch a
+trial.
 
 Reference quirks kept on purpose: the MHA has no output projection and its
 LayerNorm is unlearned; ``enc_norm`` is a flax ``nn.LayerNorm`` (eps 1e-6)
@@ -35,7 +42,8 @@ from ..ops.interpolate import interp1d_linear
 from ..ops.tcn_fused import dilated_residual_multistack_stages
 from .layers import Conv1d, Dense, ResidualStack
 from .layers import ln0 as _ln0
-from .prompts import EMBED_DIM, GESTURES, load_prompt_embeddings
+from .prompts import (EMBED_DIM, GESTURES, GESTURES_OBSERVED, SKILL_LEVEL_PROMPTS,
+                      SKILL_STATEMENTS, load_prompt_embeddings)
 
 
 class _Norm(nn.Module):
@@ -66,7 +74,8 @@ class LayerNorm(_Norm):
 
 
 class _LayerNormD(_Norm):
-    """Learned LayerNorm over AXIS 0 of a (d, N) feature-major tensor."""
+    """Learned LayerNorm over the feature axis of a (B, d, N) feature-major
+    tensor."""
 
     def forward(self, x):
         return _ln0(x) * self.weight[:, None] + self.bias[:, None]
@@ -74,16 +83,16 @@ class _LayerNormD(_Norm):
 
 class _PackedProj(Dense):
     """Bias-free QKV projection emitting the attention kernel's packed
-    layout (H, dk, N): from feature-major (d, N) input when ``transposed``,
-    else from (N, d)."""
+    layout with the batch folded into the heads, (B*H, dk, N): from
+    feature-major (B, d, N) input when ``transposed``, else from (B, N, d)."""
 
     def __init__(self, d_in: int, d_q: int, n_heads: int, transposed: bool = False):
         super().__init__(d_in, d_q * n_heads, bias=False)
         self.d_q, self.n_heads, self.transposed = d_q, n_heads, transposed
 
     def forward(self, x):
-        y = self.weight @ (x if self.transposed else x.T)          # (H*dk, N)
-        return y.reshape(self.n_heads, self.d_q, -1)
+        y = self.weight @ (x if self.transposed else x.transpose(-1, -2))  # (B, H*dk, N)
+        return y.reshape(-1, self.d_q, y.shape[-1])
 
 
 class _FFNT(nn.Module):
@@ -113,18 +122,20 @@ class _COGAttentionD(nn.Module):
         self.W_V = Dense(d_model, d_model, bias=False)
 
     def forward(self, text, text0):
-        """text (d, N) feature-major queries; text0 (M, d) shared K/V rows."""
-        qp = self.W_Q.weight @ text                   # (d, N)
+        """text (B, d, N) feature-major queries; text0 (M, d) shared K/V rows."""
+        qp = self.W_Q.weight @ text                   # (B, d, N)
         k0 = self.W_K(text0)                          # (M, d)
         v0 = self.W_V(text0)
-        scores = k0 @ qp / math.sqrt(self.d_model)    # (M, N)
-        ctx = v0.T @ torch.softmax(scores, dim=0)     # (d, N)
+        scores = k0 @ qp / math.sqrt(self.d_model)    # (B, M, N)
+        ctx = v0.T @ torch.softmax(scores, dim=-2)    # (B, d, N)
         return _ln0(ctx + text)
 
 
 class COGEncoderLayer(nn.Module):
     """EncoderLayer_COG: learned pre-norms around the banded local attention
-    of the per-frame text queries over the whole visual sequence."""
+    of the per-frame text queries over the whole visual sequence. The trials
+    of a batch ride the attention's head axis: one kernel launch for all of
+    them, as med_tpu's batching rule of the op does."""
 
     def __init__(self, d_model: int, d_ff: int, d_q: int, n_heads: int,
                  window: int, m_tokens: int = 15):
@@ -138,25 +149,26 @@ class COGEncoderLayer(nn.Module):
         self.ffn = _FFNT(d_model, d_ff)
 
     def forward(self, text, visual_seq):
-        """text (d_model, N = T*M) feature-major; visual_seq (T + window - 1,
-        d_model) with its left pad rows -> (d_model, N)."""
+        """text (B, d_model, N = T*M) feature-major; visual_seq (B, T +
+        window - 1, d_model) with its left pad rows -> (B, d_model, N)."""
         M = self.m_tokens
         q_in = self.norm1(text)
         q = self.W_Q(q_in)
         k = self.W_K(visual_seq)
         v = self.W_V(visual_seq)
         pad = self.window - 1
-        T = visual_seq.shape[0] - pad
+        B, T = visual_seq.shape[0], visual_seq.shape[1] - pad
         # dummy queries for the pad frames, dropped after the attention
         q = F.pad(q, (pad * M, 0))
         ctx = sliding_window_attention_packed(q, k, v, self.window, M)[:, :, pad * M:]
-        ctx = ctx.reshape(self.n_heads * self.d_q, T * M)
+        ctx = ctx.reshape(B, self.n_heads * self.d_q, T * M)
         out = self.norm3(_ln0(ctx + q_in))
         return self.ffn(out)
 
 
 class ChainOfGestureTransformer(nn.Module):
-    """MyTransformer + TransformerCOT: the chain-of-gesture block."""
+    """MyTransformer + TransformerCOT: the chain-of-gesture block over the
+    ``m_tokens`` rows of its prompt table."""
 
     def __init__(self, f_dim: int, gest_dim: int, d_model: int, d_q: int,
                  len_q: int, n_heads: int = 8, n_layers: int = 2,
@@ -173,35 +185,39 @@ class ChainOfGestureTransformer(nn.Module):
         self.atten = _COGAttentionD(d_model)
 
     def forward(self, gest_embed, long_feature):
-        """gest_embed (M, gest_dim), long_feature (T, f_dim) -> (T, M*d_model)."""
+        """gest_embed (M, gest_dim), long_feature (B, T, f_dim) -> (B, T,
+        M*d_model); one trial's (T, f_dim) -> (T, M*d_model)."""
+        if long_feature.dim() == 2:
+            return self(gest_embed, long_feature[None])[0]
         visual = self.linear1(long_feature)
         text0 = self.linear2(gest_embed)
-        T, M = visual.shape[0], text0.shape[0]
+        B, T, M = visual.shape[0], visual.shape[1], text0.shape[0]
         # the reference norms its zero-padded windows, so pad rows become
         # enc_norm(0) = its bias: pad first, then norm
         visual = self.enc_norm(F.pad(visual, (0, 0, self.len_q - 1, 0)))
-        text = text0.T.repeat(1, T)                   # token n = t*M + m
+        text = text0.T.repeat(1, T).expand(B, -1, -1)  # token n = t*M + m
         for i in range(self.n_layers):
             text = getattr(self, f"layer{i}")(text, visual)
         out = self.atten(text, text0)
-        return out.T.reshape(T, M * out.shape[0])
+        return out.transpose(-1, -2).reshape(B, T, M * out.shape[1])
 
 
 class COGStage(nn.Module):
     """SingleStageModel1_COG: optional 1x1 input conv, optional channel
     dropout, dilated residual stack, 1x1 class conv. Returns (features,
-    logits). A training forward takes its dropout masks from ``masks``
-    ({"channel": (B, 1, C) keep, "stack": (L, B, T, C) uint8}, as
-    :meth:`dropout_masks` draws them)."""
+    logits), the logits float32 in any ``dtype``. A training forward takes
+    its dropout masks from ``masks`` ({"channel": (B, 1, C) keep, "stack":
+    (L, B, T, C) uint8}, as :meth:`dropout_masks` draws them)."""
 
     def __init__(self, num_layers: int, in_dim: int, f_maps: int,
                  out_classes: int, causal: bool = True,
-                 use_input_conv: bool = True, channel_dropout: bool = False):
+                 use_input_conv: bool = True, channel_dropout: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.channel_dropout = channel_dropout
-        self.conv_in = Conv1d(in_dim, f_maps) if use_input_conv else None
-        self.stack = ResidualStack(num_layers, f_maps, causal=causal)
-        self.conv_out = Conv1d(f_maps, out_classes)
+        self.channel_dropout, self.dtype = channel_dropout, dtype
+        self.conv_in = Conv1d(in_dim, f_maps, dtype=dtype) if use_input_conv else None
+        self.stack = ResidualStack(num_layers, f_maps, causal=causal, dtype=dtype)
+        self.conv_out = Conv1d(f_maps, out_classes, dtype=dtype)
 
     def dropout_masks(self, B: int, T: int, generator: torch.Generator):
         masks = {}
@@ -215,100 +231,144 @@ class COGStage(nn.Module):
         return masks
 
     def pre(self, x, train: bool = False, keep=None):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         out = self.conv_in(x) if self.conv_in is not None else x
         if self.channel_dropout and train:
-            out = out * keep * 2.0
+            out = out * keep.to(out.dtype) * 2.0
         return out
 
-    def forward(self, x, train: bool = False, masks=None):
+    def features(self, x, train: bool = False, masks=None):
         if train:
-            out = self.stack(self.pre(x, True, masks.get("channel")), masks["stack"])
-        else:
-            out = self.stack(self.pre(x))
-        return out, self.conv_out(out)
+            return self.stack(self.pre(x, True, masks.get("channel")), masks["stack"])
+        return self.stack(self.pre(x))
+
+    def forward(self, x, train: bool = False, masks=None):
+        out = self.features(x, train, masks)
+        return out, self.conv_out(out).to(torch.float32)
 
 
 class COG(nn.Module):
-    """The default COG configuration: 15 gesture prompts, one chain. The
-    gesture table is a buffer outside the state_dict, as it sits outside
-    'params' in the JAX package; serving copies a checkpoint's table in."""
+    """COG and its configuration variants (reference models_COG.py:262-480,
+    med_tpu's ``COG``):
+
+    - default: the 15 gesture prompts through the chain-of-gesture block;
+    - ``use_all_gestures=False``: the 8 gestures observed in the dataset;
+    - ``use_skill_prompt=True``: the skill-conditioned prompts, 3 skill
+      levels x the gestures (45 rows with all of them);
+    - ``srm=True``: a second chain, ``cot_skill``, over the 15 skill
+      statements, concatenated with the gesture chain before the TCN paths.
+
+    The prompt tables are buffers outside the state_dict, as they sit in
+    'constants' in the JAX package; serving copies a checkpoint's tables
+    in. ``dtype=torch.bfloat16`` computes the TCN paths, the FPN and the
+    class convs in bfloat16 (the chains stay float32, through the attention
+    kernels); the stacks then run the plain layer loop, stage by stage, as
+    ``med_tpu``'s unfused path does, and the logits are float32."""
 
     def __init__(self, num_layers_basic: int = 11, num_layers_r: int = 10,
                  num_r: int = 3, f_maps: int = 64, f_dim: int = 2048,
                  out_classes: int = 2, causal: bool = True, d_model: int = 64,
                  d_q: int = 8, len_q: int = 30, gest_dim: int = EMBED_DIM,
-                 fast_pool: int = 16, prompt_path: Optional[str] = None):
+                 fast_pool: int = 16, prompt_path: Optional[str] = None,
+                 use_all_gestures: bool = True, use_skill_prompt: bool = False,
+                 srm: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_layers_basic, self.num_layers_r = num_layers_basic, num_layers_r
         self.num_r, self.causal, self.fast_pool = num_r, causal, fast_pool
-        gest = load_prompt_embeddings(prompt_path, GESTURES, gest_dim)
+        self.dtype = dtype
+        texts = prompt_texts(use_all_gestures, use_skill_prompt, srm)
+        gest = load_prompt_embeddings(prompt_path, texts, gest_dim)
         self.register_buffer("gest_embed", torch.from_numpy(gest), persistent=False)
-        M = len(GESTURES)
         self.cot = ChainOfGestureTransformer(f_dim, gest_dim, d_model, d_q, len_q,
-                                             m_tokens=M)
-        width = M * d_model
+                                             m_tokens=len(texts))
+        width = len(texts) * d_model
+        self.cot_skill = None
+        if srm:
+            skill = load_prompt_embeddings(
+                prompt_path.replace("gest", "skill") if prompt_path else None,
+                SKILL_STATEMENTS, gest_dim)
+            self.register_buffer("skill_embed", torch.from_numpy(skill), persistent=False)
+            self.cot_skill = ChainOfGestureTransformer(
+                f_dim, gest_dim, d_model, d_q, len_q, m_tokens=len(SKILL_STATEMENTS))
+            width += len(SKILL_STATEMENTS) * d_model
         self.slow_names = ["TCN"] + [f"R{r}" for r in range(num_r)]
         self.add_module("TCN", COGStage(num_layers_basic, width, f_maps,
-                                        out_classes, causal, channel_dropout=True))
+                                        out_classes, causal, channel_dropout=True,
+                                        dtype=dtype))
         for r in range(num_r):
             self.add_module(f"R{r}", COGStage(num_layers_r, f_maps, f_maps,
                                               out_classes, causal,
-                                              use_input_conv=False))
-        self.latlayer1 = Conv1d(f_maps, f_maps)
-        self.conv_out = Conv1d(f_maps, out_classes)
+                                              use_input_conv=False, dtype=dtype))
+        self.latlayer1 = Conv1d(f_maps, f_maps, dtype=dtype)
+        self.conv_out = Conv1d(f_maps, out_classes, dtype=dtype)
         self.fast_names = ["fast_stage1"] + [f"fast_R{r}" for r in range(num_r)]
         self.add_module("fast_stage1", COGStage(num_layers_basic, width, f_maps,
                                                 out_classes, causal,
-                                                channel_dropout=True))
+                                                channel_dropout=True, dtype=dtype))
         for r in range(num_r):
             self.add_module(f"fast_R{r}", COGStage(num_layers_r, out_classes,
-                                                   f_maps, out_classes, causal))
+                                                   f_maps, out_classes, causal,
+                                                   dtype=dtype))
 
-    def dropout_masks(self, T: int, generator: torch.Generator):
-        """One training forward's dropout masks, by stage name (see
-        :class:`COGStage`), drawn from ``generator`` on the model's device:
-        channel dropout on the TCN and fast_stage1 stages, stack masks on all
-        eight stacks."""
+    def dropout_masks(self, T: int, generator: torch.Generator, B: int = 1):
+        """One training forward's dropout masks for B trials, by stage name
+        (see :class:`COGStage`), drawn from ``generator`` on the model's
+        device: channel dropout on the TCN and fast_stage1 stages, stack
+        masks on all eight stacks."""
         Tf = T // self.fast_pool
         return {name: getattr(self, name).dropout_masks(
-                    1, T if name in self.slow_names else Tf, generator)
+                    B, T if name in self.slow_names else Tf, generator)
                 for name in self.slow_names + self.fast_names}
+
+    def _slow_path(self, xx, train: bool, masks):
+        """The slow stages' features, each (B, T, C). In float32 all stages
+        of a trial run back to back through the multi-stage kernel, one
+        launch a trial (the stages' own class convs are dead here, as in the
+        JAX package); in another dtype stage by stage."""
+        slow = [getattr(self, n) for n in self.slow_names]
+        if self.dtype is not None:
+            f, f_list = xx, []
+            for name, stage in zip(self.slow_names, slow):
+                f = stage.features(f, train, masks[name] if train else None)
+                f_list.append(f)
+            return f_list
+        keep = masks["TCN"].get("channel") if train else None
+        x0 = slow[0].pre(xx, train, keep)
+        per_trial = []
+        for b in range(x0.shape[0]):
+            stack_masks = ([masks[n]["stack"][:, b].contiguous() for n in self.slow_names]
+                           if train else None)
+            per_trial.append(dilated_residual_multistack_stages(
+                x0[b], [s.stack.weights() for s in slow],
+                self.num_layers_basic, self.num_layers_r, causal=self.causal,
+                masks=stack_masks))
+        return [torch.stack(hs) for hs in zip(*per_trial)]
 
     def forward(self, x, train: bool = False, masks=None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """x (1, T, f_dim), one trial -> (out_list, f_list): 4 slow FPN logit
-        tracks at T and 1 + num_r fast tracks at T // fast_pool, each
-        (1, T_i, out_classes). ``train`` applies dropout with ``masks``
-        (:meth:`dropout_masks`' layout), or with masks drawn from
-        ``generator`` when none are given."""
-        if x.shape[0] != 1:
-            raise ValueError("COG processes one trial at a time (B=1)")
+        """x (B, T, f_dim), B trials of one length (one, outside a trial
+        group) -> (out_list, f_list): 4 slow FPN logit tracks at T and 1 +
+        num_r fast tracks at T // fast_pool, each (B, T_i, out_classes).
+        ``train`` applies dropout with ``masks`` (:meth:`dropout_masks`'
+        layout), or with masks drawn from ``generator`` when none are given."""
         if train and masks is None:
             if generator is None:
                 raise ValueError("a training forward needs masks or a generator")
-            masks = self.dropout_masks(x.shape[1], generator)
-        xx = self.cot(self.gest_embed, x[0])[None]    # (1, T, M*d_model)
+            masks = self.dropout_masks(x.shape[1], generator, x.shape[0])
+        xx = self.cot(self.gest_embed, x)             # (B, T, M*d_model)
+        if self.cot_skill is not None:
+            xx = torch.cat([xx, self.cot_skill(self.skill_embed, x)], dim=-1)
 
-        # slow path: all stages back to back through the multi-stage kernel;
-        # the stages' own class convs are dead here, as in the JAX package
-        slow = [getattr(self, n) for n in self.slow_names]
-        keep = masks["TCN"].get("channel") if train else None
-        stack_masks = ([masks[n]["stack"][:, 0].contiguous() for n in self.slow_names]
-                       if train else None)
-        hs = dilated_residual_multistack_stages(
-            slow[0].pre(xx, train, keep)[0], [s.stack.weights() for s in slow],
-            self.num_layers_basic, self.num_layers_r, causal=self.causal,
-            masks=stack_masks)
-        f_list = [h[None] for h in hs]
-
+        f_list = self._slow_path(xx, train, masks)
         # FPN upsample-add with a single shared lateral conv
         p = f_list[-1]
         pyramid = [p]
         for c in reversed(f_list[:-1]):
             p = interp1d_linear(p, c.shape[1], axis=1) + self.latlayer1(c)
             pyramid.insert(0, p)
-        out_list = [self.conv_out(p) for p in pyramid]
+        out_list = [self.conv_out(p).to(torch.float32) for p in pyramid]
 
         # fast path
         fast = F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
@@ -323,3 +383,14 @@ class COG(nn.Module):
             out_list.append(fast_out)
         return out_list, f_list
 
+
+def prompt_texts(use_all_gestures: bool = True, use_skill_prompt: bool = False,
+                 srm: bool = False):
+    """The rows of COG's gesture-prompt table (med_tpu's
+    ``COG._prompt_texts``): the 15 gestures or the 8 observed ones; with
+    the skill prompt and no SRM, each of them for each skill level."""
+    gestures = GESTURES if use_all_gestures else GESTURES_OBSERVED
+    if use_skill_prompt and not srm:
+        return tuple(f"A self-reported {skill}-skilled surgeon is {g} ..."
+                     for skill in SKILL_LEVEL_PROMPTS for g in gestures)
+    return gestures

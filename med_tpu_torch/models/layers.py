@@ -9,11 +9,18 @@ Parameters are created as zeros (norm scales as ones): serving loads its
 weights, and :func:`init_weights` draws fresh ones from an explicit
 ``torch.Generator`` with the reference's torch-default scheme,
 U(±1/sqrt(fan_in)).
+
+``dtype`` (None or ``torch.bfloat16``) is the compute type of the convs and
+stacks, as in the JAX package: parameters stay float32 and are cast, with
+the input, at each op. The TCN kernels take float32 alone, so a stack in
+bfloat16 runs the plain layer loop of ``med_tpu``'s unfused stack: the
+model picks it by its dtype, never a kernel wrapper.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -30,10 +37,11 @@ def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
 
 
 def ln0(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Affine-free layer norm over axis 0, the feature axis of a
-    feature-major (d, N) tensor (the packed attention layout)."""
-    mean = x.mean(dim=0, keepdim=True)
-    var = (x - mean).square().mean(dim=0, keepdim=True)
+    """Affine-free layer norm over the feature axis of a feature-major
+    (d, N) tensor (the packed attention layout), or of each (d, N) of a
+    (B, d, N) batch: axis -2."""
+    mean = x.mean(dim=-2, keepdim=True)
+    var = (x - mean).square().mean(dim=-2, keepdim=True)
     return (x - mean) * torch.rsqrt(var + eps)
 
 
@@ -73,9 +81,10 @@ class Conv1d(nn.Module):
     flax_layout = "conv"
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
-                 dilation: int = 1, padding="VALID", use_bias: bool = True):
+                 dilation: int = 1, padding="VALID", use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.kernel_size, self.dilation = kernel_size, dilation
+        self.kernel_size, self.dilation, self.dtype = kernel_size, dilation, dtype
         if padding == "VALID":
             self.pad = (0, 0)
         elif padding == "SAME":
@@ -94,15 +103,19 @@ class Conv1d(nn.Module):
 
     def forward(self, x):
         k, d = self.kernel_size, self.dilation
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
         left, right = self.pad
         if left or right:
             x = F.pad(x, (0, 0, left, right))
         t_out = x.shape[1] - d * (k - 1)
-        y = x[:, :t_out] @ self.weight[:, :, 0].T
+        y = x[:, :t_out] @ w[:, :, 0].T
         for j in range(1, k):
-            y = y + x[:, j * d: j * d + t_out] @ self.weight[:, :, j].T
-        if self.bias is not None:
-            y = y + self.bias
+            y = y + x[:, j * d: j * d + t_out] @ w[:, :, j].T
+        if b is not None:
+            y = y + b
         return y
 
 
@@ -110,14 +123,17 @@ class ResidualStack(nn.Module):
     """``num_layers`` dilated residual layers (dilation 2^i) over (B, T, C),
     weights stacked per stage: w3 (L, 3, C, C), b3 (L, C), w1 (L, C, C),
     b1 (L, C) — the layout the TCN kernel takes. Training passes a dropout
-    keep-mask (rate 0.5, scale 2.0 in the kernel)."""
+    keep-mask (rate 0.5, scale 2.0 in the kernel). In float32 each trial's
+    stack is one call of the kernel; with a ``dtype`` the whole batch runs
+    the plain layer loop in that type (see the module docstring)."""
 
     flax_layout = "stack"
 
-    def __init__(self, num_layers: int, channels: int, causal: bool = True):
+    def __init__(self, num_layers: int, channels: int, causal: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         L, C = num_layers, channels
-        self.causal = causal
+        self.causal, self.dtype = causal, dtype
         self.w3 = nn.Parameter(torch.zeros(L, 3, C, C))
         self.b3 = nn.Parameter(torch.zeros(L, C))
         self.w1 = nn.Parameter(torch.zeros(L, C, C))
@@ -147,6 +163,8 @@ class ResidualStack(nn.Module):
 
     def forward(self, x, mask=None):
         """x (B, T, C); ``mask`` the (L, B, T, C) keep-mask, or None (eval)."""
+        if self.dtype is not None:
+            return self._layers_in(self.dtype, x, mask)
         return torch.stack([
             dilated_residual_stack(xb, *self.weights(), causal=self.causal,
                                    mask=None if mask is None else mask[:, b].contiguous())
@@ -154,19 +172,40 @@ class ResidualStack(nn.Module):
         ])
 
 
+    def _layers_in(self, dtype: torch.dtype, x, mask):
+        """med_tpu's unfused stack (layers.py ResidualStack.__call__), every
+        op in ``dtype``: per layer the three dilated taps summed, relu, the
+        1x1 conv, dropout, the residual add."""
+        w3, b3, w1, b1 = (t.to(dtype) for t in self.weights())
+        x = x.to(dtype)
+        T = x.shape[1]
+        for i in range(w3.shape[0]):
+            d = 2 ** i
+            xp = F.pad(x, (0, 0, 2 * d, 0) if self.causal else (0, 0, d, d))
+            y = xp[:, :T] @ w3[i, 0]
+            for j in (1, 2):
+                y = y + xp[:, j * d: j * d + T] @ w3[i, j]
+            y = torch.relu(y + b3[i]) @ w1[i] + b1[i]
+            if mask is not None:
+                y = y * mask[i].to(dtype) * 2.0
+            x = x + y
+        return x
+
+
 class SingleStageTCN(nn.Module):
     """One MS-TCN stage: conv1x1 in -> dilated residual stack -> conv1x1 out.
-    Returns (features, logits)."""
+    Returns (features, logits); the logits are float32 in any ``dtype``."""
 
     def __init__(self, num_layers: int, in_dim: int, f_maps: int,
-                 out_classes: int, causal: bool = True):
+                 out_classes: int, causal: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv_in = Conv1d(in_dim, f_maps)
-        self.stack = ResidualStack(num_layers, f_maps, causal=causal)
-        self.conv_out = Conv1d(f_maps, out_classes)
+        self.conv_in = Conv1d(in_dim, f_maps, dtype=dtype)
+        self.stack = ResidualStack(num_layers, f_maps, causal=causal, dtype=dtype)
+        self.conv_out = Conv1d(f_maps, out_classes, dtype=dtype)
 
     def forward(self, x, mask=None):
         """x (B, T, in_dim); ``mask`` the stack's (L, B, T, C) keep-mask in
         training, or None -> (features, logits)."""
         out = self.stack(self.conv_in(x), mask)
-        return out, self.conv_out(out)
+        return out, self.conv_out(out).to(torch.float32)

@@ -1,12 +1,14 @@
-"""Frozen gesture-prompt embeddings for COG (port of the table part of
+"""Frozen prompt embeddings for COG (port of the table part of
 ``med_tpu.models.prompts``).
 
-The reference encodes 15 gesture prompts with the CLIP ViT-B/32 text encoder
-and freezes them (models_COG.py:408-445); the model only consumes them
-through a trainable projection. Two sources, in priority order: a table file
-(``.npy``, ``.npz`` with an ``embeddings`` array, or a torch-saved tensor
-such as the reference's ``gest_prompt.pt``), else a deterministic surrogate
-table. The CLIP text tower is not ported yet.
+The reference encodes 15 gesture prompts (8 with only the gestures observed
+in the dataset, 45 skill-conditioned ones, and the skill-reasoning module's
+15 skill statements) with the CLIP ViT-B/32 text encoder and freezes them
+(models_COG.py:392-445); the model only consumes them through a trainable
+projection. Two sources, in priority order: a table file (``.npy``,
+``.npz`` with an ``embeddings`` array, or a torch-saved tensor such as the
+reference's ``gest_prompt.pt``), else a deterministic surrogate table seeded
+by each text. The CLIP text tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +37,39 @@ GESTURES = (
     "reaching for suture with right hand",
     "pulling suture with both hands",
 )
+
+# The reduced gesture set (only gestures observed in the dataset,
+# reference models_COG.py:392-403).
+GESTURES_OBSERVED = (
+    "reaching for needle with right hand",
+    "positioning needle",
+    "pushing needle through tissue",
+    "transferring needle from left to right",
+    "moving to center with needle in grip",
+    "pulling suture with left hand",
+    "orienting needle",
+    "using right hand to help tighten suture",
+)
+
+SKILL_STATEMENTS = (
+    "Surgeon frequently uses excessive force on the tissue",
+    "Surgeon had careful tissue handling but occasionally caused inadvertent damage",
+    "Surgeon consistently respects the tissue",
+    "Surgeon is awkward and unsure with repeated entanglement and poor knot tying",
+    "Surgeon placed majority of knots with appropriate tension",
+    "Surgeon has excellent suture control",
+    "Surgeon made unnecessary moves",
+    "Surgeon had efficient time/motion but some unnecessary moves",
+    "Surgeon has a clear economy of movement and maximum efficiency",
+    "Surgeon frequently interrupts the flow",
+    "Surgeon demonstrates some forward planning and reasonable procedure progression",
+    "Surgeon has efficient transitions in procedure",
+    "Surgeon overall performance is poor",
+    "Surgeon overall performance is competent",
+    "Surgeon overall performance is clearly superior",
+)
+
+SKILL_LEVEL_PROMPTS = ("novice", "intermediate", "expert")
 
 EMBED_DIM = 512
 _CLIP_TYPICAL_NORM = 9.0  # typical L2 norm of CLIP ViT-B/32 text embeddings

@@ -6,7 +6,9 @@ Stage 0 maps the (B, T, in_dim) feature stream to class logits through
 stage refines the softmax of the stage before. The output is every stage's
 logits stacked, (S, B, T, out_classes); the loss averages over the stages.
 Each stage's stack is one call of the TCN kernel (K2b) on the card, and its
-backward one call of K5 where autograd needs it.
+backward one call of K5 where autograd needs it. With ``dtype=torch.bfloat16``
+the stages compute in bfloat16 through the plain layer loop, as ``med_tpu``'s
+unfused TeCNo does, with float32 logits.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ class TeCNo(nn.Module):
     """Stages ``stage0`` .. ``stage{S-1}``, the flax module's names."""
 
     def __init__(self, num_stages: int = 2, num_layers: int = 8, f_maps: int = 64,
-                 in_dim: int = 2048, out_classes: int = 2, causal: bool = True):
+                 in_dim: int = 2048, out_classes: int = 2, causal: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_stages = num_stages
         for s in range(num_stages):
             self.add_module(f"stage{s}", SingleStageTCN(
                 num_layers, in_dim if s == 0 else out_classes, f_maps, out_classes,
-                causal))
+                causal, dtype=dtype))
 
     def stages(self):
         return [getattr(self, f"stage{s}") for s in range(self.num_stages)]

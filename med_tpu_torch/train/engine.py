@@ -1,15 +1,24 @@
 """Train and eval steps of the frame families (port of the frame part of
 ``med_tpu.train.engine``): input assembly, each family's loss with its
-confusion matrices, and one optimiser step per trial.
+confusion matrices, and one optimiser step per trial or trial group.
 
 =========  ===========================================================
 family     model and loss
 =========  ===========================================================
-cog        COG: multi-track CE + smoothing (train_..._COG)
+cog        COG: multi-track CE + smoothing (train_..._COG), for the
+           global, all_errors or one named error type; the sequential
+           regime's gated 5-class loss (train_..._Sequential)
 tecno      TeCNo: soft CE averaged over the stages (compute_loss)
 tsvn       a frozen TeCNo, then TransSVNet on its last stage's logits:
            soft CE (train_..._TSVN)
 =========  ===========================================================
+
+With ``trial_batch`` = G > 1 a step takes a group of G trials stacked on a
+new leading axis, with their ``trial_weight`` (0 for the repeats that pad a
+short group): the loss is the weighted mean of the trials' losses and each
+confusion matrix their weighted sum, as ``med_tpu``'s trial-parallel step
+computes them. COG runs the group as one batch, so its attention takes the
+G trials in one launch a layer.
 """
 
 from __future__ import annotations
@@ -40,18 +49,16 @@ class FrameNet(nn.Module):
 
 
 def cog_loss(cfg: ExperimentConfig, out_list, batch: Dict[str, torch.Tensor]):
-    """The COG branch of med_tpu's ``_loss_for_family`` ('global' and
-    'all_errors'): CE and smoothing summed over every track and divided by
-    the number of tracks; metrics from the first slow track. Returns
-    (loss, {"cm", ["cm_binary"], "preds", "probs"})."""
-    if cfg.error_type == "global":
-        n_classes = 2
-    elif cfg.error_type == "all_errors":
-        n_classes = cfg.out_features
-    else:
-        raise NotImplementedError(
-            f"COG error_type {cfg.error_type!r} is not ported yet: ROADMAP.md "
-            "Queue A6 (other frame families)")
+    """The COG branch of med_tpu's ``_loss_for_family``: CE and smoothing
+    summed over every track and divided by the number of tracks; metrics
+    from the first slow track, over 2 classes for 'global' and
+    ``out_features`` for 'all_errors' or a named error type ('all_errors'
+    adds "cm_binary", error against none). The 'sequential' regime takes
+    :func:`cog_sequential_loss`. Returns (loss, {"cm", ["cm_binary"],
+    "preds", "probs"})."""
+    if cfg.error_type == "sequential":
+        return cog_sequential_loss(cfg, out_list, batch)
+    n_classes = 2 if cfg.error_type == "global" else cfg.out_features
     labels, true_len, mask = batch["labels"], batch["true_len"], batch.get("mask")
     n_stages = len(out_list)
     ce_total = sm_total = 0.0
@@ -69,6 +76,44 @@ def cog_loss(cfg: ExperimentConfig, out_list, batch: Dict[str, torch.Tensor]):
         metrics["cm_binary"] = confusion_matrix(
             (labels > 0).to(torch.int32), (preds > 0).to(torch.int32), 2, mask)
     return loss, metrics
+
+
+def cog_sequential_loss(cfg: ExperimentConfig, out_list, batch: Dict[str, torch.Tensor]):
+    """Stage 2 of the sequential regime (med_tpu's ``_cog_sequential_loss``;
+    reference modeling_utils.py:1761-2187): over the frames its ``gate``
+    opens (true errors in training, the binary stage's predictions at
+    eval), each track's 5-class CE and smoothing against the powerset
+    labels shifted to 0..4, labels and gate nearest-resampled to the track.
+    Predictions are argmax + 1; "cm" is over 6 classes with the closed
+    frames predicted 0, "cm_specific" over the 5 error classes on the open
+    ones. Returns (loss, {"cm", "cm_specific", "preds", "probs"})."""
+    if "gate" not in batch:
+        raise ValueError("the sequential regime needs each trial's gate: pass "
+                         "gates= (train_frame_fold) or a batch with 'gate'")
+    labels, true_len, mask = batch["labels"], batch["true_len"], batch.get("mask")
+    gate = batch["gate"].to(torch.float32)
+    m = gate if mask is None else gate * mask
+    t_pad = labels.shape[0]
+    shifted = torch.clamp(labels - 1, min=0)
+    n_stages = len(out_list)
+    ce_total = sm_total = 0.0
+    for track in out_list:
+        logits = track[0]
+        t_track = logits.shape[0]
+        track_labels = losses.nearest_resample_dynamic(shifted, true_len, t_track)
+        track_gate = losses.nearest_resample_dynamic(m, true_len, t_track)
+        true_out = torch.clamp((true_len * t_track) // t_pad, min=1)
+        valid = (torch.arange(t_track, device=logits.device) < true_out).to(torch.float32)
+        tm = track_gate * valid
+        ce_total = ce_total + losses.cross_entropy(logits, track_labels, tm)
+        sm_total = sm_total + losses.smooth_loss(logits, tm[1:] * tm[:-1])
+    loss = ce_total / n_stages + cfg.smooth_lambda * (sm_total / n_stages)
+    track0 = out_list[0][0].detach()
+    preds = torch.argmax(track0, dim=-1) + 1
+    gated = torch.where(gate > 0, preds, torch.zeros_like(preds))
+    return loss, {"cm": confusion_matrix(labels, gated, 6, mask),
+                  "cm_specific": confusion_matrix(shifted, preds - 1, 5, m),
+                  "preds": preds, "probs": torch.softmax(track0, dim=-1)}
 
 
 def binary_frame_loss(family: str, out, batch: Dict[str, torch.Tensor]):
@@ -133,6 +178,15 @@ class Experiment:
         tecno.load_state_dict(state, strict=True)
         self.frozen = tecno.to(self.device).eval().requires_grad_(False)
 
+    def load_params(self, checkpoint: Dict) -> None:
+        """Take a ``med_tpu`` checkpoint tree's parameters and frozen prompt
+        tables (``load_best_checkpoint`` of a run of either package)."""
+        state, constants = load_jax_params(checkpoint, self.net)
+        self.net.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            for name, value in constants.items():
+                self.net.get_buffer(name).copy_(value)
+
     def init_weights(self, seed: int) -> None:
         """Draw every parameter from ``seed`` (U(±1/sqrt(fan_in)), on the
         CPU so the draw is the same on every device) and restart the
@@ -147,7 +201,8 @@ class Experiment:
         for k, v in batch.items():
             if k.startswith("_"):
                 continue
-            dtype = torch.float32 if k in ("images", "kinematics", "mask") else None
+            dtype = (torch.float32 if k in ("images", "kinematics", "mask", "gate",
+                                            "trial_weight") else None)
             out[k] = torch.as_tensor(v, dtype=dtype, device=self.device)
         return out
 
@@ -186,22 +241,52 @@ class Experiment:
             return cog_loss(self.cfg, out, data)
         return binary_frame_loss(self.family, out, data)
 
+    def _trial_loss(self, data: Dict[str, torch.Tensor], train: bool, masks=None):
+        """One trial's (loss, metrics), or a trial group's (see the module
+        docstring) when ``trial_batch`` > 1."""
+        if self.cfg.trial_batch <= 1:
+            return self._loss(self._forward(data, train, masks), data)
+        weight = data.pop("trial_weight", None)
+        G = data["labels"].shape[0]
+        trials = [{k: v[g] for k, v in data.items()} for g in range(G)]
+        if self.family == "cog":
+            # one batch of G trials: the attention folds them into its heads
+            out_list, _ = self.net.model(self._assemble(data)[:, 0], train=train,
+                                         masks=masks, generator=self.generator)
+            results = [self._loss([t[g:g + 1] for t in out_list], trials[g])
+                       for g in range(G)]
+        else:
+            results = [self._loss(self._forward(trial, train, _trial_masks(masks, g)), trial)
+                       for g, trial in enumerate(trials)]
+        if weight is None:
+            weight = torch.ones(G, device=self.device)
+        per_trial = torch.stack([loss for loss, _ in results])
+        loss = (per_trial * weight).sum() / torch.clamp(weight.sum(), min=1e-12)
+        metrics = {}
+        for key in results[0][1]:
+            values = torch.stack([m[key] for _, m in results])
+            if key.startswith("cm"):
+                values = (values * weight.to(torch.int32)[:, None, None]).sum(dim=0)
+            metrics[key] = values
+        return loss, metrics
+
     def compute_gradients(self, batch: Dict[str, np.ndarray], masks=None):
         """Forward in training mode (dropout ``masks`` in the model's
-        ``dropout_masks`` layout, or drawn from the experiment's generator;
+        ``dropout_masks`` layout, with the group's trials on its batch axis
+        when ``trial_batch`` > 1, or drawn from the experiment's generator;
         TransSVNet has no dropout), the loss, and its backward into every
         parameter's ``.grad``. Returns (loss, metrics)."""
         data = self._tensors(batch)
         self.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = self._loss(self._forward(data, True, masks), data)
+        loss, metrics = self._trial_loss(data, True, masks)
         loss.backward()
         return loss.detach(), metrics
 
     def train_step(self, batch: Dict[str, np.ndarray], masks=None
                    ) -> Dict[str, torch.Tensor]:
-        """One trial: forward, loss, backward and one optimiser step. Returns
-        the metrics ("loss", "cm", ...) as device tensors: nothing syncs the
-        host."""
+        """One trial or trial group: forward, loss, backward and one
+        optimiser step. Returns the metrics ("loss", "cm", ...) as device
+        tensors: nothing syncs the host."""
         loss, metrics = self.compute_gradients(batch, masks)
         self.optimizer.step()
         metrics["loss"] = loss
@@ -209,21 +294,20 @@ class Experiment:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One padded trial -> {"preds", "probs"} over its frames, from the
-        family's final output (COG's first slow track): argmax, and the
-        class-1 softmax when binary; with "loss" and "cm" too when the batch
-        carries labels."""
+        """One padded trial (or trial group, with its labels) -> {"preds",
+        "probs"} over its frames, from the family's final output (COG's
+        first slow track): argmax, and the class-1 softmax when binary; with
+        "loss" and "cm" too when the batch carries labels."""
         cfg = self.cfg
-        if cfg.error_type == "sequential":
-            raise NotImplementedError(
-                "the sequential COG regime is not ported yet: ROADMAP.md "
-                "Queue A6 (other frame families)")
         data = self._tensors(batch)
-        out = self._forward(data, False)
         if "labels" in data:
-            loss, metrics = self._loss(out, data)
+            loss, metrics = self._trial_loss(data, False)
             metrics["loss"] = loss
             return metrics
+        if cfg.error_type == "sequential" or cfg.trial_batch > 1:
+            raise ValueError("a sequential or trial-group eval step takes the "
+                             "batch's labels (and the sequential regime its gate)")
+        out = self._forward(data, False)
         if self.family == "cog":
             n_classes = 2 if cfg.error_type == "global" else cfg.out_features
             final = out[0]
@@ -231,3 +315,13 @@ class Experiment:
             n_classes, final = 2, out[-1] if self.family == "tecno" else out
         preds, probs = _predictions(final, n_classes)
         return {"preds": preds, "probs": probs}
+
+
+def _trial_masks(masks, g: int):
+    """Trial ``g``'s dropout masks of a group's (stage -> {"stack": (L, G,
+    T, C), "channel": (G, 1, C)}), with a batch axis of one."""
+    if masks is None:
+        return None
+    return {name: {k: v[:, g:g + 1] if k == "stack" else v[g:g + 1]
+                   for k, v in stage.items()}
+            for name, stage in masks.items()}

@@ -44,9 +44,18 @@ def _epoch_metrics(cms: List[np.ndarray], average: str, per_batch: bool) -> Dict
 
 
 def _average_for(cfg: ExperimentConfig) -> str:
+    """The window families' rule (med_tpu/train/loop.py:73-76): a siamese
+    model is binary whatever its error type. The frame path does not use
+    it: see :func:`_frame_average`."""
     if cfg.error_type == "global" or cfg.siamese:
         return "binary"
     return "macro"
+
+
+def _frame_average(cfg: ExperimentConfig) -> str:
+    """The frame families' F1 average, as med_tpu's frame loop takes it:
+    binary for the global error type alone, macro otherwise."""
+    return "binary" if cfg.error_type == "global" else "macro"
 
 
 def _score(cfg: ExperimentConfig, row: Dict) -> float:
@@ -67,11 +76,49 @@ def _better(cfg: ExperimentConfig, candidate: Dict, best: Optional[Dict]) -> boo
 
 def _common_bucket(cfg: ExperimentConfig, trials: List[FrameTrial]) -> Optional[int]:
     """med_tpu pads every trial of a fold to one bucket when it fuses the
-    epoch; the bucket length changes the fast path and the FPN, so the port
-    pads the same way to get the same numbers."""
-    if not cfg.fused_epoch:
+    epoch or stacks trial groups; the bucket length changes the fast path
+    and the FPN, so the port pads the same way to get the same numbers."""
+    if not cfg.fused_epoch and cfg.trial_batch <= 1:
         return None
     return bucket_length(max(t.n_frames for t in trials), cap=cfg.max_frames)
+
+
+def _with_true_gates(cfg: ExperimentConfig, gates, train_trials, test_trials):
+    """``gates`` with med_tpu's fallback filled in: in the sequential regime
+    a trial without a gate takes its true-error gate (labels != 0) — every
+    train trial, and the test trials too where med_tpu builds the fold's
+    batches in one place (``fused_epoch``; its unfused eval pass has no
+    fallback)."""
+    if gates is None or cfg.error_type != "sequential":
+        return gates
+    out = {split: dict(gates.get(split, {})) for split in ("train", "test")}
+    for split, trials in (("train", train_trials),
+                          ("test", test_trials if cfg.fused_epoch else [])):
+        for trial in trials:
+            if trial.name not in out[split]:
+                out[split][trial.name] = (
+                    trial.labels_for("sequential") != 0).astype(np.float32)
+    return out
+
+
+def _batches(cfg: ExperimentConfig, trials: List[FrameTrial], bucket: int,
+             gates=None) -> List[Dict[str, np.ndarray]]:
+    """Each trial's frame batch, with its gate from ``gates`` where there is
+    one."""
+    return [frame_batch(t, cfg, bucket=bucket,
+                        gate=None if gates is None else gates.get(t.name))
+            for t in trials]
+
+
+def _group(batches: List[Dict[str, np.ndarray]], G: int) -> Dict[str, np.ndarray]:
+    """<= G trial batches stacked on a new leading axis, a short group padded
+    with zero-weight repeats of its first trial (med_tpu's make_group)."""
+    weights = [1.0] * len(batches) + [0.0] * (G - len(batches))
+    batches = batches + [batches[0]] * (G - len(batches))
+    out = {k: np.stack([b[k] for b in batches]) for k in batches[0]
+           if not k.startswith("_")}
+    out["trial_weight"] = np.asarray(weights, np.float32)
+    return out
 
 
 def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
@@ -102,20 +149,28 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
     ``last_state_<tag>.npz`` after every epoch. ``resume``: restore that
     snapshot and go on at the epoch after it; ``best`` starts empty again,
     as in med_tpu. ``frozen``: TransSVNet's frozen TeCNo as med_tpu's
-    ``{"tecno_params": <params tree>}``. ``gates`` and ``mesh`` belong to
-    regimes and layouts the port does not have yet."""
-    for name, value, item in (("gates", gates, "A6 (other frame families)"),
-                              ("mesh", mesh, "A12 (multi-GPU)")):
-        if value is not None:
-            raise NotImplementedError(
-                f"train_frame_fold({name}=...) is not ported yet: ROADMAP.md "
-                f"Queue {item}")
+    ``{"tecno_params": <params tree>}``. ``gates``: the sequential regime's
+    {"train": {trial name: (T,) 0/1}, "test": {...}} (see
+    :func:`_with_true_gates`). ``mesh`` belongs to a layout the port does
+    not have yet.
+
+    With ``trial_batch`` = G > 1 every trial is padded to the fold's common
+    bucket; a step takes the next G trials of the epoch's order and the
+    eval pass the test trials G at a time, short groups padded with
+    zero-weight repeats (see :mod:`.engine`)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_frame_fold(mesh=...) is not ported yet: ROADMAP.md Queue A12 "
+            "(multi-GPU)")
     exp = exp or Experiment(cfg, device=device)
     if frozen is not None:
         exp.load_frozen(frozen)
     exp.init_weights(cfg.seed)
-    average = _average_for(cfg)
+    average = _frame_average(cfg)
     bucket = _common_bucket(cfg, train_trials + test_trials) or 256
+    G = cfg.trial_batch
+    gates = _with_true_gates(cfg, gates, train_trials, test_trials)
+    train_gates = None if gates is None else gates["train"]
 
     start_epoch = 0
     resume_path = (tracker.checkpoint_path(f"last_state_{tag}.npz")
@@ -135,14 +190,16 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
         set_lr(exp.optimizer, epoch_lr(cfg, epoch))
         t0 = time.time()
         order = np.random.default_rng(cfg.seed + epoch).permutation(len(train_trials))
-        steps = [exp.train_step(frame_batch(train_trials[i], cfg, bucket=bucket))
-                 for i in order]
+        batches = _batches(cfg, [train_trials[i] for i in order], bucket, train_gates)
+        if G > 1:
+            batches = [_group(batches[s:s + G], G) for s in range(0, len(batches), G)]
+        steps = [exp.train_step(b) for b in batches]
         cms = torch.stack([m["cm"] for m in steps]).cpu().numpy()
         step_losses = torch.stack([m["loss"] for m in steps]).cpu().numpy()
         train_time = time.time() - t0
         train_m = _epoch_metrics(list(cms), average, per_batch=False)
 
-        ev = evaluate_frame_fold(cfg, exp, test_trials, common_bucket=bucket)
+        ev = evaluate_frame_fold(cfg, exp, test_trials, gates, common_bucket=bucket)
         row = {
             "epoch": epoch,
             "train_loss": float(np.mean(step_losses.astype(np.float64))),
@@ -180,17 +237,28 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
 
 
 def evaluate_frame_fold(cfg: ExperimentConfig, exp: Experiment,
-                        test_trials: List[FrameTrial],
+                        test_trials: List[FrameTrial], gates=None,
                         common_bucket: Optional[int] = None) -> Dict:
-    """Eval pass over the test trials: pooled metrics, the mean loss, the
-    inference time per frame, and the per-frame prediction dump."""
-    average = _average_for(cfg)
+    """Eval pass over the test trials (G at a time with ``trial_batch`` =
+    G > 1; each with its gate from ``gates["test"]`` in the sequential
+    regime): pooled metrics, the mean loss, the inference time per frame,
+    and the per-frame prediction dump."""
+    average = _frame_average(cfg)
+    G = cfg.trial_batch
     t0 = time.time()
-    batches = [frame_batch(t, cfg, bucket=common_bucket or 256) for t in test_trials]
-    outs = [exp.eval_step(b) for b in batches]
+    batches = _batches(cfg, test_trials, common_bucket or 256,
+                       None if gates is None else gates["test"])
+    if G > 1:
+        outs = [exp.eval_step(_group(batches[s:s + G], G))
+                for s in range(0, len(batches), G)]
+    else:
+        outs = [exp.eval_step(b) for b in batches]
     cms = torch.stack([m["cm"] for m in outs]).cpu().numpy()
     losses = torch.stack([m["loss"] for m in outs]).cpu().numpy()
-    host = [(m["preds"].cpu().numpy(), m["probs"].cpu().numpy()) for m in outs]
+    host = []     # (preds, probs) a trial; a group's padding repeats come last
+    for m in outs:
+        p, q = m["preds"].cpu().numpy(), m["probs"].cpu().numpy()
+        host.extend(zip(p, q) if G > 1 else [(p, q)])
     t_infer = time.time() - t0
 
     preds, probs, labels, gests, subjects, raw_labels = [], [], [], [], [], []

@@ -16,9 +16,10 @@ port module names its flax layout (``flax_layout``, see
 
 Module paths are the same on both sides ("model.cot.layer0.W_Q" is
 "params/model/cot/layer0/W_Q", "layer1_0.bn1.running_mean" is
-"batch_stats/layer1_0/bn1/mean"); frozen tables such as ``gest_embed`` are
-buffers on the port side and ``constants`` on the JAX side. Each rule has
-a transform into the port's layout and one back.
+"batch_stats/layer1_0/bn1/mean"); frozen tables (COG's ``gest_embed`` and
+SRM's ``skill_embed``) are buffers on the port side and ``constants`` on
+the JAX side. Each rule has a transform into the port's layout and one
+back.
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ def param_table(net: nn.Module) -> Dict[str, Tuple[str, _Transform, _Transform]]
 def _constant_table(net: nn.Module) -> Dict[str, str]:
     """port buffer name -> flax 'constants/...' path, for the frozen tables."""
     return {name: "/".join(("constants", *name.split(".")))
-            for name, _ in net.named_buffers() if name.endswith("gest_embed")}
+            for name, _ in net.named_buffers()
+            if name.endswith(("gest_embed", "skill_embed"))}
 
 
 def load_jax_params(tree: Dict, net: nn.Module):

@@ -226,7 +226,10 @@ def _pallas_tile(W):
 # m=1 and m=30; T shorter than a tile of 16 frames, and T=1; TransSVNet's
 # d=2, m=W=30 (4 slots a thread)
 FWD_CASES = [(8, 8, 15, 30, 48), (2, 8, 3, 40, 70), (2, 4, 1, 5, 40), (2, 16, 30, 7, 20),
-             (2, 8, 15, 30, 5), (2, 8, 15, 30, 1), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9)]
+             (2, 8, 15, 30, 5), (2, 8, 15, 30, 1), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9),
+             # COG's skill-prompt (45) and observed-gesture (8) tables; a trial
+             # group of two on the head axis (16 heads)
+             (2, 8, 45, 30, 21), (16, 8, 8, 30, 33)]
 
 
 @pytest.mark.parametrize("H,d,m,W,T", FWD_CASES)
@@ -252,7 +255,8 @@ def test_forward_schedule_matches_plain_and_pallas(rng, H, d, m, W, T, order):
 # (F=16, all 30 slots, one slot group) over three tiles and within one
 BWD_CASES = [(8, 8, 15, 30, 48), (2, 8, 15, 30, 17), (2, 8, 15, 30, 5), (2, 8, 15, 30, 1),
              (2, 8, 3, 40, 70), (2, 4, 1, 5, 40), (2, 16, 30, 7, 22), (1, 32, 512, 30, 3),
-             (1, 32, 1, 400, 20), (1, 32, 2, 310, 40), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9)]
+             (1, 32, 1, 400, 20), (1, 32, 2, 310, 40), (8, 2, 30, 30, 47), (2, 2, 30, 30, 9),
+             (2, 8, 45, 30, 21), (16, 8, 8, 30, 33)]
 
 
 def test_bwd_plan_mirrors_the_kernels_choices():
@@ -263,6 +267,8 @@ def test_bwd_plan_mirrors_the_kernels_choices():
     assert _bwd_plan(32, 1, 400) == (16, 1, 1, 13)
     assert _bwd_plan(32, 2, 310) == (16, 2, 1, 20)
     assert _bwd_plan(2, 30, 30) == (16, 30, 1, 30)
+    assert _bwd_plan(8, 45, 30) == (4, 45, 3, 30)
+    assert _bwd_plan(8, 8, 30) == (16, 8, 1, 30)
 
 
 @pytest.mark.parametrize("H,d,m,W,T", BWD_CASES)

@@ -10,7 +10,11 @@ for bit; operands in views 4 bytes past a 16-byte boundary, which the
 head-major kernels read through their 4-byte instance and the TCN
 wrappers refuse by name), the small COG
 served on the card against the CPU, and a small ResNet trunk and pixel
-front end on the card against the CPU. They need an NVIDIA GPU and skip without one. This file imports no
+front end on the card against the CPU; K1 and K3 at the error-specific
+regime's shapes (m = 45 and 8 queries a frame, a trial group's 16 heads),
+the bf16 path launching no TCN kernel, and a trial group's step launching
+the attention once a layer for both trials, its gradients equal to the
+CPU's. They need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -79,7 +83,12 @@ ATTENTION_SHAPES = [(8, 8, 15, 30, 100), (2, 4, 3, 5, 41), (3, 16, 1, 7, 300),
                     (8, 8, 15, 30, 1), (8, 8, 15, 30, 16), (8, 8, 15, 30, 17),
                     (1, 4, 1, 3000, 40), (1, 8, 15, 3600, 40), (1, 16, 1, 800, 40),
                     (1, 32, 1, 400, 40), (8, 2, 30, 30, 100), (8, 2, 30, 30, 1),
-                    (2, 2, 30, 30, 17), (1, 2, 7, 5, 41), (1, 2, 30, 6000, 40)]
+                    (2, 2, 30, 30, 17), (1, 2, 7, 5, 41), (1, 2, 30, 6000, 40),
+                    # COG's skill-prompt (m = 45, 5 frames a K1 block, 4 a K3
+                    # tile) and observed-gesture (m = 8) tables, and a trial
+                    # group of two on the head axis (16 heads)
+                    (8, 8, 45, 30, 100), (8, 8, 8, 30, 100), (16, 8, 15, 30, 100),
+                    (16, 8, 45, 30, 33)]
 
 
 @pytest.mark.parametrize("H,d,m,W,T", ATTENTION_SHAPES)
@@ -1180,3 +1189,104 @@ def test_small_tecno_and_transsvnet_same_on_card_and_cpu(cuda_device, rng, model
         scale = gmax if path.endswith(NULL_LEAVES) else np.abs(want[path]).max()
         np.testing.assert_allclose(got, want[path], rtol=1e-4, atol=atol * scale,
                                    err_msg=path)
+
+
+def _small_cog_config(**kw):
+    from med_tpu_torch.config import ExperimentConfig
+
+    fields = dict(model_name="COG", dataset_type="frame", out_features=2, video_dims=32,
+                  num_layers_Basic=4, num_layers_R=3, num_R=2, mstcn_f_maps=32,
+                  d_model=32, d_q=4, sequence_length=5, weight_decay=0.0,
+                  lr_scheduler=False)
+    return ExperimentConfig(**{**fields, **kw})
+
+
+def _small_trial(rng, T, name):
+    from med_tpu_torch.data.datasets import FrameTrial
+    from med_tpu_torch.data.labels import skill_one_hot
+
+    e = np.zeros((T, 7), np.int32)
+    e[:, -1] = rng.integers(0, 2, T)
+    return FrameTrial(name, rng.normal(size=(T, 2048)).astype(np.float32),
+                      rng.normal(size=(T, 26)).astype(np.float32),
+                      rng.integers(0, 15, T), e, skill_one_hot(name, T))
+
+
+@pytest.mark.parametrize("model_name", ["COG", "TeCNo"])
+def test_bfloat16_path_launches_no_tcn_kernel(cuda_device, rng, model_name):
+    """compute_dtype="bfloat16": the TCN stacks run the model's own bf16
+    layer loop, so a served trial and a train step launch no TCN kernel;
+    COG's attention stays float32 through K1 and K3. The wrappers refuse
+    bf16 operands on the card."""
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    cfg = _small_cog_config(model_name=model_name, compute_dtype="bfloat16")
+    exp = Experiment(cfg, device=cuda_device)
+    exp.init_weights(5)
+    ops.reset_launch_counts()
+    served = FrameModelServer(cfg, export_jax_params(exp.net)).predict_trial(
+        rng.normal(size=(300, 2048)).astype(np.float32),
+        rng.normal(size=(300, 26)).astype(np.float32))
+    exp.train_step(frame_batch(_small_trial(rng, 300, "Needle_Passing_B001"), cfg))
+    torch.cuda.synchronize()
+    attention = 2 if model_name == "COG" else 0
+    assert ops.launch_counts() == {k: 0 for k in ops.launch_counts()} | {
+        "sliding_window_attention_packed": 2 * attention,
+        "sliding_window_attention_packed_bwd": attention}
+    assert np.isfinite(served[1]).all()
+    x = torch.zeros(64, 32, device=cuda_device, dtype=torch.bfloat16)
+    w3, b3, w1, b1, _ = _stack(rng, 2, 64, 32, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        ttcn.dilated_residual_stack(x, w3, b3, w1, b1)
+
+
+def test_trial_group_step_launches_the_attention_once_a_group(cuda_device, rng):
+    """trial_batch = 2: one train step on a group launches K1 and K3 once a
+    encoder layer for both trials (16 heads), the TCN kernels once a trial;
+    its loss and gradients equal the CPU's on the same masks (rtol 1e-4,
+    atol 1e-5 of each leaf's largest value, 5e-4 for the encoder FFN)."""
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    cfg = _small_cog_config(trial_batch=2)
+    batches = [frame_batch(_small_trial(rng, T, f"Needle_Passing_{c}001"), cfg, bucket=512)
+               for T, c in ((300, "B"), (420, "C"))]
+    group = {k: np.stack([b[k] for b in batches]) for k in batches[0] if not k.startswith("_")}
+    group["trial_weight"] = np.ones(2, np.float32)
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        512, torch.Generator().manual_seed(1), B=2)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        exp = Experiment(cfg, device=device)
+        exp.init_weights(5)
+        ops.reset_launch_counts()
+        m = exp.train_step(group, masks={n: {k: v.to(device) for k, v in d.items()}
+                                         for n, d in masks.items()})
+        counts = ops.launch_counts()
+        results.append((m["loss"].item(), export_jax_params(exp.net, grads=True)["params"]))
+        if device.type == "cuda":
+            assert counts == {**OP_API_IDLE,
+                              "sliding_window_attention_packed": 2,
+                              "sliding_window_attention_packed_bwd": 2,
+                              "dilated_residual_multistack_stages": 2,
+                              "dilated_residual_multistack_stages_bwd": 2,
+                              "dilated_residual_stack": 2 * 3,
+                              "dilated_residual_stack_bwd": 2 * 3,
+                              "fused_bottleneck_stage": 0}
+    assert results[0][0] == pytest.approx(results[1][0], rel=1e-5)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    want = dict(leaves(results[1][1]))
+    for path, got in leaves(results[0][1]):
+        atol = (5e-4 if "/ffn/Dense_" in path else 1e-5) * np.abs(want[path]).max()
+        np.testing.assert_allclose(got, want[path], rtol=1e-4, atol=atol, err_msg=path)

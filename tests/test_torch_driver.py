@@ -411,21 +411,40 @@ def test_best_checkpoint_is_not_overwritten_by_later_steps(rng):
 
 def test_train_frame_fold_refuses_what_is_not_ported(rng):
     cfg = ExperimentConfig(model_name="COG", dataset_type="frame", out_features=2)
-    for kw, item in (({"gates": {}}, "A6"), ({"mesh": object()}, "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_frame_fold(cfg, [], [], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A12"):
+        train_frame_fold(cfg, [], [], device="cpu", mesh=object())
     # a frozen stage is TransSVNet's alone
     with pytest.raises(ValueError, match="TransSVNet"):
         train_frame_fold(cfg, [], [], device="cpu", frozen={"tecno_params": {}})
 
 
+def test_train_frame_fold_takes_the_sequential_gates(two_folds):
+    """gates= (once refused, naming A6) drives the sequential regime: a test
+    trial's gate closes its frames (predicted 0 in the 6-class cm), and a
+    train trial without one takes its true-error gate."""
+    cfg = ExperimentConfig(model_name="COG", dataset_type="frame", data_type="kinematics",
+                           error_type="sequential", out_features=5, delete_ND=True,
+                           num_layers_Basic=2, num_layers_R=2, num_R=1, d_model=16,
+                           d_q=2, sequence_length=6, n_epochs=1)
+    fold = os.path.join(two_folds, "1Out")
+    train = tdata.build_frame_fold(fold, cfg, "train.csv")
+    test = tdata.build_frame_fold(fold, cfg, "test.csv")
+    closed = {"train": {}, "test": {t.name: np.zeros(t.n_frames, np.float32) for t in test}}
+    res = train_frame_fold(cfg, train, test, device="cpu", gates=closed)
+    best = res["best"]
+    n = sum(t.n_frames for t in test)
+    assert best["preds"].shape == (n,) and set(np.unique(best["preds"])) <= set(range(1, 6))
+    assert best["probs"].shape == (n, 5) and np.isfinite(res["history"][0]["train_loss"])
+    # every test frame is gated shut: the cm puts them all in column 0
+    cm = np.asarray(best["cm"])
+    assert cm.shape == (6, 6) and cm.sum() == n and cm[:, 1:].sum() == 0
+
+
 @pytest.mark.parametrize("flags, item", [
     (("--mesh", "auto"), "A12"), (("--trial-dp",), "A12"),
     (("--sequence-parallel",), "A12"), (("--fold-parallel",), "A12"),
-    (("--model-name", "COG", "--use-skill-prompt"), "A6"), (("--model-name", "SimpleCNN"), "A7"),
+    (("--model-name", "SimpleCNN"), "A7"),
     (("--model-name", "TransSVNet"), "--run-id"),  # its frozen TeCNo's run
-    (("--model-name", "COG", "--trial-batch", "2"), "A6"),
-    (("--model-name", "COG", "--srm"), "A6"),
 ])
 def test_cli_names_the_roadmap_item_of_what_is_not_ported(two_folds, tmp_path, flags, item):
     argv = ["--data-root", two_folds, "--runs-root", str(tmp_path / "runs"),
@@ -433,6 +452,27 @@ def test_cli_names_the_roadmap_item_of_what_is_not_ported(two_folds, tmp_path, f
     with pytest.raises((SystemExit, NotImplementedError), match=item):
         tcli.main(argv)
     assert not os.path.exists(tmp_path / "runs")
+
+
+@pytest.mark.parametrize("flags, params", [
+    (("--use-skill-prompt",), {"use_skill_prompt": True}),
+    (("--trial-batch", "2"), {"trial_batch": 2}),
+    (("--srm",), {"SRM": True}),
+])
+def test_cli_runs_the_flags_that_were_refused_as_a6(two_folds, tmp_path, flags, params):
+    """The COG flags the CLI once refused, naming A6, run one epoch of both
+    folds at a small size and write the run layout."""
+    argv = ["--data-root", two_folds, "--runs-root", str(tmp_path / "runs"),
+            "--folds", "1Out,2Out", "--n-epochs", "1", *SMALL_FLAGS, *flags]
+    results, tracker = tcli.main(argv)
+    assert set(results) == {"1Out", "2Out"}
+    with open(os.path.join(tracker.dir, "params.json")) as f:
+        written = json.load(f)
+    assert {k: written[k] for k in params} == params
+    for fold in results:
+        assert os.path.exists(tracker.checkpoint_path(f"best_model_LOSO_{fold}.npz"))
+        assert np.isfinite(results[fold]["test_loss"])
+    assert os.path.exists(os.path.join(tracker.dir, "artifacts", "summary.json"))
 
 
 def test_cli_takes_the_reference_defaults_and_needs_a_gpu(two_folds, tmp_path):

@@ -1,5 +1,5 @@
 """Best-epoch selection of the port's frame loop against the JAX package's,
-and the config fields the port refuses.
+and the bf16 compute type.
 
 med_tpu's frame driver runs its whole-run program with fused epochs (the
 default): the score starts at +inf (loss) or -inf (F1), only a strict
@@ -123,11 +123,23 @@ def test_without_the_whole_run_epoch_zero_wins_as_in_jax(monkeypatch, flags):
     assert "all_epochs_non_finite" not in res["best"]
 
 
-def test_bfloat16_compute_raises_naming_its_roadmap_item():
+def test_bfloat16_compute_keeps_float32_parameters_and_logits():
+    """compute_dtype="bfloat16" (once refused, naming A6) builds COG with
+    float32 parameters whose TCN paths compute in bf16 through the model's
+    own layer loop; its logits are float32, and a train step runs."""
     cfg = _cfg(compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A6"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="A6"):
-        Experiment(cfg, device="cpu")
     assert cfg.to_dict()["compute_dtype"] == "bfloat16"
-    assert isinstance(build_model(_cfg()), torch.nn.Module)
+    net = build_model(cfg)
+    assert {p.dtype for p in net.parameters()} == {torch.float32}
+    assert net.TCN.stack.dtype == torch.bfloat16 and build_model(_cfg()).TCN.stack.dtype is None
+    exp = Experiment(cfg, device="cpu")
+    exp.init_weights(0)
+    rng = np.random.default_rng(0)
+    from med_tpu_torch.data.datasets import frame_batch
+    batch = frame_batch(_trial(rng, "Needle_Passing_B001", 40), cfg, bucket=64)
+    out_list, f_list = exp.net.model(torch.from_numpy(batch["kinematics"]))
+    assert {t.dtype for t in out_list} == {torch.float32}
+    assert f_list[0].dtype == torch.bfloat16
+    m = exp.train_step(batch)
+    assert np.isfinite(m["loss"].item())
+    assert {p.dtype for p in exp.net.parameters()} == {torch.float32}

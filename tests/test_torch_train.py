@@ -352,10 +352,20 @@ def test_training_entry_points_need_cuda_unless_asked_for_cpu(rng):
         train_frame_fold(cfg, [_trial(rng, 20)], [_trial(rng, 20)])
 
 
-@pytest.mark.parametrize("option, roadmap", [({"trial_batch": 2}, "A6")])
-def test_unported_training_options_raise(option, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        ExperimentConfig(**{**SMALL, **option})
+def test_trial_batch_steps_take_a_group_of_trials(rng):
+    """trial_batch = 2 (once refused, naming A6): a train step takes two
+    stacked trials, its loss the mean of theirs and its cm the sum, and
+    the attention runs them as one batch (tests/test_torch_groups.py holds
+    the numbers against med_tpu)."""
+    cfg = ExperimentConfig(**{**SMALL, "trial_batch": 2})
+    exp = Experiment(cfg, device="cpu")
+    exp.init_weights(3)
+    one = [frame_batch(_trial(rng, T), cfg, bucket=64) for T in (40, 50)]
+    group = {k: np.stack([b[k] for b in one]) for k in one[0] if not k.startswith("_")}
+    group["trial_weight"] = np.ones(2, np.float32)
+    m = exp.train_step(group)
+    assert m["preds"].shape == (2, 64) and m["probs"].shape == (2, 64)
+    assert int(m["cm"].sum()) == 90 and np.isfinite(m["loss"].item())
 
 
 def test_pos_weight_changes_nothing_on_the_frame_path_as_in_jax(rng):
