@@ -100,7 +100,23 @@ non-zero and the last line is not printed:
    for a 2-epoch fold on phase 5's trials; COG with ``trial_batch=2`` for
    a 2-epoch fold on phase 5's trials (K1 and K3 once a group and layer)
    and one grouped step card against CPU;
-10. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+10. window (``[window]`` lines): SimpleCNN, SimpleLSTM, Siamese_CNN and
+   Siamese_LSTM as ``med_tpu_torch.cli.train_window`` configures them
+   (FeatureExtractor 2048 -> 32 and 26 kinematics, B = 512), SimpleCNN at
+   15 Hz (30-frame windows, a third conv block), SimpleLSTM with the ES
+   and sequential CLIs' heads: one train step each on the card (fp32)
+   against the CPU (float64; same weights, batch and dropout masks: loss,
+   running statistics, and every gradient leaf with the card's relu,
+   max-pool and |f1 - f2| choices pinned to the CPU's; the CPU's fp32
+   step and cuDNN's convs and RNN beside it); train-step and eval times
+   (also on cuDNN's convs and RNN, a yardstick); a
+   2-epoch ``train_window_fold`` of each on phase 8's first fold (the
+   twins on 20,000 pairs; SimpleLSTM with ``fused_epoch`` on and off);
+   ``train_window.main`` (SimpleLSTM, Siamese_CNN), ``train_window_es.main``
+   and ``train_window_es_sequential.main --run-id`` the SimpleLSTM run on
+   phase 8's folds; no kernel launched in the whole phase (the window path
+   reaches none of the eleven; cuDNN and cuBLAS compute it);
+11. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 A ``[time]`` line gives each phase's wall time.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
@@ -2465,6 +2481,406 @@ def phase_es(root: Path, splits, cog_run: str):
     return variants, clis, _es_bf16(train, test), _es_groups(train, test)
 
 
+# the window families (phase 10): the smoke's configurations, the CLI
+# defaults at full width (FeatureExtractor 2048 -> 512 -> 256 -> 32 and 26
+# kinematics, B = 512); SimpleCNN also at 15 Hz, whose 30-frame windows take
+# a third conv block
+WINDOW_MODELS = (("SimpleCNN", 5), ("SimpleLSTM", 5), ("Siamese_CNN", 5),
+                 ("Siamese_LSTM", 5), ("SimpleCNN", 15))
+WINDOW_BATCH = 512
+WINDOW_TOL = {"loss": 1e-5, "grad_atol": 1e-5, "stats": 1e-5}
+
+
+def _window_config(model_name: str, frequency: int = 5, error_type: str = "global"):
+    """A window model as its CLI configures it (``train_window``, or the ES
+    and sequential CLIs' 6- and 5-class heads over the Needle-Drop filtered
+    windows), 2 epochs."""
+    from med_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(model_name=model_name, frequency=frequency, error_type=error_type,
+                            out_features={"global": 1, "all_errors": 6, "sequential": 5}[
+                                error_type],
+                            siamese=model_name.startswith("Siamese"),
+                            delete_ND=error_type != "global", n_epochs=2)
+
+
+def _window_label(cfg) -> str:
+    return (f"{cfg.model_name} W={cfg.window_size}"
+            + ("" if cfg.error_type == "global" else f" {cfg.error_type}"))
+
+
+def _window_batch(cfg, rng: np.random.Generator) -> dict:
+    """A full-width batch of B windows (or pairs), its last 12 rows padding
+    (window 0 repeated, masked out), labels of the config's classes and,
+    in the sequential regime, a gate that is not the true errors."""
+    B = WINDOW_BATCH
+    shape = (B, 2, cfg.window_size) if cfg.siamese else (B, cfg.window_size)
+    n_classes = 2 if cfg.error_type == "global" else 6
+    batch = {"images": rng.standard_normal(shape + (2048,), dtype=np.float32),
+             "kinematics": rng.standard_normal(shape + (26,), dtype=np.float32),
+             "labels": rng.integers(0, n_classes, B),
+             "mask": (np.arange(B) < B - 12).astype(np.float32)}
+    for k in ("images", "kinematics", "labels"):
+        batch[k][B - 12:] = batch[k][0]
+    if cfg.error_type == "sequential":
+        batch["gate"] = (rng.random(B) > 0.5).astype(np.float32)
+    return batch
+
+
+@contextlib.contextmanager
+def _window_pins(record=None, pin=None, flips=None):
+    """The window path's counterpart of :func:`_ffn_relu`: within the block,
+    each call of ``torch.relu`` (the FeatureExtractor, the heads, the
+    LSTM's output), ``F.max_pool1d`` (the CNN blocks) and ``torch.abs`` (a
+    twin's |f1 - f2|) appends its choice to ``record`` (the relu pattern,
+    the pool's argmax, the sign), or, given ``pin``, takes the choice of
+    the same call in another run and appends (entries chosen otherwise,
+    the largest gap at them over the call's largest value) to ``flips``.
+    Only which entry the derivative follows is pinned: the values stay
+    this run's wherever the two runs choose alike."""
+    plain = (torch.relu, F.max_pool1d, torch.abs)
+    calls = iter(range(1 << 30))
+
+    def chosen(mine, gap, scale):
+        other = pin[next(calls)].to(mine.device)
+        flip = other != mine
+        flips.append((int(flip.sum()), (gap[flip].max().item() if bool(flip.any()) else 0.0)
+                      / max(scale, 1e-30)))
+        return other
+
+    def relu(x):
+        mine = x > 0
+        if pin is None:
+            record.append(mine.cpu())
+            return plain[0](x)
+        keep = chosen(mine, x.abs(), x.abs().max().item())
+        return x * keep.to(x.dtype)
+
+    def max_pool1d(x, kernel, stride):
+        y, idx = plain[1](x, kernel, stride, return_indices=True)
+        if pin is None:
+            record.append(idx.cpu())
+            return y
+        pairs = x[..., :2 * y.shape[-1]].reshape(*x.shape[:-1], -1, 2)
+        other = chosen(idx, (pairs[..., 0] - pairs[..., 1]).abs(), x.abs().max().item())
+        return x.gather(-1, other)
+
+    def abs_(x):
+        mine = x >= 0
+        if pin is None:
+            record.append(mine.cpu())
+            return plain[2](x)
+        sign = chosen(mine, x.abs(), x.abs().max().item())
+        return x * (2.0 * sign.to(x.dtype) - 1.0)
+
+    torch.relu, F.max_pool1d, torch.abs = relu, max_pool1d, abs_
+    try:
+        yield
+    finally:
+        torch.relu, F.max_pool1d, torch.abs = plain
+
+
+def _window_step(cfg, batch, masks, device: str, dtype=torch.float32):
+    """Loss, every gradient leaf and every running statistic (JAX tree
+    paths) after one train step from seeded weights on ``device``, in
+    ``dtype`` (float64: the net, the batch and the step)."""
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    exp = Experiment(cfg, device=device)
+    exp.init_weights(SEED)
+    exp.net.to(dtype)
+    data = {k: torch.as_tensor(v, device=exp.device,
+                               dtype=dtype if v.dtype == np.float32 else None)
+            for k, v in batch.items()}
+    exp._tensors = dict             # the batch as made here, in ``dtype``
+    moved = (tuple([m.to(exp.device) for m in ms] for ms in masks) if cfg.siamese
+             else [m.to(exp.device) for m in masks])
+    loss, _ = exp.compute_gradients(data, masks=moved)
+    grads = _flat(export_jax_params(exp.net, grads=True)["params"])
+    stats = _flat(export_jax_params(exp.net)["batch_stats"])
+    return loss.item(), *({k: torch.from_numpy(v).double() for k, v in t.items()}
+                          for t in (grads, stats))
+
+
+@contextlib.contextmanager
+def _cudnn_paths():
+    """Within the block the window models' convs run on cuDNN's
+    ``F.conv1d`` and their LSTMs on cuDNN's RNN: a yardstick, since the
+    port computes the convs as tap-form matmuls and the LSTMs on PyTorch's
+    own CUDA LSTM, for their precision."""
+    from med_tpu_torch.models import window_models
+
+    plain = window_models.WindowConv.forward, window_models.LSTMLayer.forward
+
+    def conv(self, x):
+        return F.conv1d(x.transpose(1, 2), self.weight, self.bias).transpose(1, 2)
+
+    def lstm(self, x):
+        h0 = torch.zeros(1, x.shape[0], self.w_hh.shape[1], dtype=x.dtype, device=x.device)
+        out, _, _ = torch.lstm(x, (h0, h0), [self.w_ih, self.w_hh, torch.zeros_like(self.b),
+                                             self.b], True, 1, 0.0, torch.is_grad_enabled(),
+                               False, True)
+        return out
+
+    window_models.WindowConv.forward, window_models.LSTMLayer.forward = conv, lstm
+    try:
+        yield
+    finally:
+        window_models.WindowConv.forward, window_models.LSTMLayer.forward = plain
+
+
+def _leaf_errors(got: dict, want: dict) -> list:
+    """(max |got - want| over the leaf's largest |want|, leaf), worst first."""
+    return sorted(((got[n] - w).abs().max().item() / max(w.abs().max().item(), 1e-300), n)
+                  for n, w in want.items())[::-1]
+
+
+def _window_card_vs_cpu(cfg) -> None:
+    """One train step at full width on the card in float32 against the same
+    step on the CPU in float64 (same weights, batch and dropout masks): the
+    loss and the running statistics (WINDOW_TOL), and every gradient leaf
+    once the card's relu, max-pool and |f1 - f2| choices are pinned to the
+    CPU's (:func:`_window_pins`): within 1e-5 of its largest value, or
+    within twice the CPU's float32 error on that leaf where float32 itself
+    does no better. The CPU's float32 step (its choices pinned too) is
+    logged beside it, as is the step on cuDNN's convs and RNN
+    (:func:`_cudnn_paths`). The reference
+    is float64 because the CPU's float32 gradients sit up to ~2e-5 of a
+    leaf's largest from it (a twin's FE, the LSTMs)."""
+    from med_tpu_torch.train.engine import Experiment
+
+    tag = f"[window] {_window_label(cfg)}"
+    batch = _window_batch(cfg, np.random.default_rng(SEED))
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        WINDOW_BATCH, torch.Generator().manual_seed(SEED))
+    record, flips = [], []
+    with _window_pins(record=record):
+        ref_loss, ref, ref_stats = _window_step(cfg, batch, masks, "cpu", torch.float64)
+    with _window_pins(pin=record, flips=[]):
+        cpu_loss, cpu, _ = _window_step(cfg, batch, masks, "cpu")
+    card_loss, card, card_stats = _window_step(cfg, batch, masks, "cuda")
+    with _window_pins(pin=record, flips=flips):
+        _, pinned, _ = _window_step(cfg, batch, masks, "cuda")
+    with _cudnn_paths(), _window_pins(pin=record, flips=[]):
+        _, on_cudnn, _ = _window_step(cfg, batch, masks, "cuda")
+    worst = _leaf_errors(on_cudnn, ref)[0]
+    yardstick = f"; on cuDNN's convs and RNN instead {worst[0]:.2e} ({worst[1]})"
+    rel = abs(card_loss - ref_loss) / abs(ref_loss)
+    stats_err = _leaf_errors(card_stats, ref_stats)[0][0]
+    free, pin, own = (_leaf_errors(g, ref) for g in (card, pinned, cpu))
+    # a leaf passes within grad_atol of its largest value, or within twice
+    # the CPU's own fp32 error on it where fp32 does no better (a twin's FE
+    # gradient sums the two branches' nearly cancelling terms)
+    own_err = {n: e for e, n in own}
+    failed = [n for e, n in pin if e > max(WINDOW_TOL["grad_atol"], 2 * own_err[n])]
+    flipped = [n for n, _ in flips if n]
+    log(f"{tag} train step, B={WINDOW_BATCH}, card (fp32) vs CPU (float64): loss "
+        f"{card_loss:.9f} vs {ref_loss:.9f} (rel {rel:.2e}, tol {WINDOW_TOL['loss']}); "
+        f"running statistics {stats_err:.2e} of each one's largest (tol "
+        f"{WINDOW_TOL['stats']}); {len(flips)} relu/pool/abs calls, {sum(flipped)} entries "
+        f"chosen otherwise in {len(flipped)} of them, at a gap up to "
+        f"{max(r for _, r in flips):.2e} of the call's largest (tol {FLIP_PRE}); "
+        f"{len(ref)} gradient leaves, the largest error of a leaf over its largest value "
+        f"{free[0][0]:.2e} free ({free[0][1]}), {pin[0][0]:.2e} pinned ({pin[0][1]}; tol "
+        f"{WINDOW_TOL['grad_atol']}, or twice the CPU's fp32 error on the leaf); the "
+        f"CPU's fp32 step {own[0][0]:.2e} ({own[0][1]}), loss rel "
+        f"{abs(cpu_loss - ref_loss) / abs(ref_loss):.2e}{yardstick}")
+    if rel > WINDOW_TOL["loss"]:
+        raise RuntimeError(f"{tag}: card vs CPU loss {card_loss} vs {ref_loss}")
+    if stats_err > WINDOW_TOL["stats"]:
+        raise RuntimeError(f"{tag}: card vs CPU running statistics off by {stats_err:.3e}")
+    if max(r for _, r in flips) > FLIP_PRE:
+        raise RuntimeError(f"{tag}: choices flipped away from a tie: {flips}")
+    if failed:
+        raise RuntimeError(f"{tag}: card vs CPU gradients (choices pinned) out of "
+                           f"tolerance: {failed}")
+
+
+def _window_timing(cfg, profile: bool) -> dict:
+    """Train-step ms at B = 512 (median of 5, host clock ending in a sync,
+    after a warm step) with the batch on the device (``fused_epoch``'s
+    path) and from the host (its upload in the step), windows trained a
+    second, and eval ms a window (the eval step's median of 5 over B, batch
+    on the device); under ``--profile`` the device busy share of a train
+    step, both ways."""
+    from med_tpu_torch.train.engine import Experiment
+
+    exp = Experiment(cfg)
+    exp.init_weights(SEED)
+    batch = _window_batch(cfg, np.random.default_rng(SEED + 1))
+    resident = exp._tensors(batch)
+    step = _step_ms(exp, resident, runs=5)
+    host_step = _step_ms(exp, batch, runs=5)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        exp.eval_step(resident)["preds"].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    eval_ms = statistics.median(times[1:]) / WINDOW_BATCH
+    unit = "pairs" if cfg.siamese else "windows"
+    with _cudnn_paths():
+        yardstick = f"; on cuDNN's convs and RNN {_step_ms(exp, resident, runs=5):.3f} ms"
+    log(f"[window] {_window_label(cfg)}: train step {step:.3f} ms at B={WINDOW_BATCH} "
+        f"with the batch on the card ({WINDOW_BATCH / step * 1e3:.0f} {unit} trained a "
+        f"second), {host_step:.3f} ms from the host "
+        f"({sum(v.nbytes for v in batch.values()) / 1e6:.0f} MB uploaded){yardstick}; eval "
+        f"{eval_ms * 1e3:.3f} us a {unit[:-1]} ({eval_ms * WINDOW_BATCH:.3f} ms a batch)")
+    if profile:
+        _profile(f"[window] {_window_label(cfg)} train step, batch on the card",
+                 lambda: exp.train_step(resident))
+        _profile(f"[window] {_window_label(cfg)} train step, batch from the host",
+                 lambda: exp.train_step(batch))
+    return {"step_ms": step, "host_step_ms": host_step, "eval_ms_per_window": eval_ms}
+
+
+def _window_folds(root: Path, splits, profile: bool) -> None:
+    """Each model 2 epochs by ``train_window_fold`` on the card, on the
+    first fold of phase 8 (the twins on its default 20,000 pairs):
+    finite history rows, and no kernel launch (the window path reaches
+    none of the eleven); SimpleLSTM with ``fused_epoch`` on and off."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli.train_window import _siamese_data_fn
+    from med_tpu_torch.data.datasets import build_window_fold
+    from med_tpu_torch.train.loop import train_window_fold
+
+    fold = next(iter(splits))
+    for name, freq in WINDOW_MODELS:
+        cfg = _window_config(name, freq)
+        train, test = build_window_fold(str(root / "data" / fold), cfg)
+        runs = [cfg, cfg.replace(fused_epoch=False)] if name == "SimpleLSTM" else [cfg]
+        t0 = time.perf_counter()
+        data = _siamese_data_fn(cfg)(fold, train, test) if cfg.siamese else None
+        made = time.perf_counter() - t0
+        for run in runs:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_window_fold(run, train, test, siamese_data=data)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if any(ops.launch_counts().values()):
+                raise RuntimeError(f"the window path launched {ops.launch_counts()}")
+            for row in res["history"]:
+                bad = [k for k, v in row.items() if np.isscalar(v) and not math.isfinite(v)]
+                if bad:
+                    raise RuntimeError(f"[window] {name}: non-finite {bad} in {row}")
+            hist = res["history"]
+            n = (f"{len(data['train'][2])} train and {len(data['test'][2])} test pairs "
+                 f"(made in {made:.2f} s)" if cfg.siamese
+                 else f"{len(train)} train and {len(test)} test windows")
+            log(f"[window] {_window_label(run)} fold {fold}, {n}, fused_epoch "
+                f"{run.fused_epoch}: {wall:.2f} s for 2 epochs (train "
+                f"{sum(r['train_time'] for r in hist):.2f} s); losses "
+                f"{[round(r['train_loss'], 4) for r in hist]} / "
+                f"{[round(r['test_loss'], 4) for r in hist]}, best epoch "
+                f"{res['best']['epoch']}, no kernel launched")
+            if profile and name == "SimpleLSTM" and run.fused_epoch:
+                _profile(f"[window] {_window_label(run)} 2-epoch fold",
+                         lambda: train_window_fold(run, train, test))
+
+
+def _check_window_run(run: Path, experiment: str, splits, results, wall: float,
+                      width: dict, classes: int, tag: str) -> None:
+    """Raise unless a window run's directory is whole (med_tpu's layout:
+    no windowed metrics, no plots yet), its config has ``width``, its
+    summary is finite and its best rows carry finite losses and a
+    ``classes`` confusion matrix; log its wall split."""
+    if run.parent.name != experiment:
+        raise RuntimeError(f"run directory {run} is not under {experiment}")
+    want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json"}
+    for fold in splits:
+        want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
+                       f"checkpoints/best_model_LOSO_{fold}.npz",
+                       f"checkpoints/best_model_LOSO_{fold}.npz.json",
+                       f"checkpoints/last_state_LOSO_{fold}.npz"}
+    files = {str(f.relative_to(run)) for f in run.rglob("*") if f.is_file()}
+    if files != want_files:
+        raise RuntimeError(f"{tag} run layout: missing {sorted(want_files - files)}, "
+                           f"unexpected {sorted(files - want_files)}")
+    params = json.loads((run / "params.json").read_text())
+    got = {k: params[k] for k in width}
+    if got != width:
+        raise RuntimeError(f"{tag}: the CLI did not run {width}: {got}")
+    counted = _finite_numbers(json.loads((run / "artifacts" / "summary.json").read_text()))
+    for fold in splits:
+        best = results[fold]
+        if not (math.isfinite(best["train_loss"]) and math.isfinite(best["test_loss"])):
+            raise RuntimeError(f"{tag} fold {fold}: non-finite loss {best}")
+        if np.asarray(best["cm"]).shape != (classes, classes):
+            raise RuntimeError(f"{tag} fold {fold}: confusion matrix {np.shape(best['cm'])}")
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    train_s = sum(r["value"] for r in rows if r["key"] == "train_time")
+    units = [len(results[fold]["preds"]) for fold in splits]
+    per_unit = [r["value"] for r in rows if r["key"] == "test_inference_ms_per_window"]
+    eval_s = sum(v * units[j // 2] for j, v in enumerate(per_unit)) / 1e3
+    log(f"{tag} run layout ok ({len(files)} files), summary.json holds {counted} finite "
+        f"numbers, best test F1 { {f: round(results[f]['test_f1'], 4) for f in splits} }; "
+        f"{len(splits)} folds x 2 epochs: {wall:.2f} s of wall, {wall / len(splits):.2f} s "
+        f"a fold: train steps {train_s:.2f} s, eval passes {eval_s:.2f} s, the rest "
+        f"(loading and windowing the folds, pairs, snapshots, checkpoints and "
+        f"artifacts) {wall - train_s - eval_s:.2f} s")
+
+
+def _window_clis(root: Path, splits) -> None:
+    """``train_window.main`` for SimpleLSTM and Siamese_CNN (its default
+    20,000 pairs), ``train_window_es.main`` and
+    ``train_window_es_sequential.main --run-id`` the SimpleLSTM run, 2
+    epochs on phase 8's folds on the card: the run layout, finite
+    summaries, no kernel launch."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import train_window, train_window_es, train_window_es_sequential
+
+    argv = ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+            "--folds", ",".join(splits), "--n-epochs", "2"]
+    binary = None
+    for name, main, extra, width, classes in (
+            ("train_window SimpleLSTM", train_window.main, ["--model-name", "SimpleLSTM"],
+             {"model_name": "SimpleLSTM", "error_type": "global", "siamese": False}, 2),
+            ("train_window Siamese_CNN", train_window.main, ["--model-name", "Siamese_CNN"],
+             {"model_name": "Siamese_CNN", "siamese": True, "n_pairs": 20000}, 2),
+            ("train_window_es", train_window_es.main, [],
+             {"model_name": "SimpleLSTM", "error_type": "all_errors", "out_features": 6,
+              "delete_ND": True}, 6),
+            ("train_window_es_sequential", train_window_es_sequential.main, None,
+             {"model_name": "SimpleLSTM", "error_type": "sequential", "out_features": 5,
+              "delete_ND": True}, 6)):
+        if extra is None:           # gated by the SimpleLSTM run
+            extra, width["run_id"] = ["--run-id", binary], binary
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        results, tracker = main([*argv, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(ops.launch_counts().values()):
+            raise RuntimeError(f"{name} launched {ops.launch_counts()}")
+        binary = binary or tracker.run_id
+        _check_window_run(Path(tracker.dir), f"{width['model_name']}_5Hz_multimodal", splits,
+                          results, wall, {"video_dims": 32, "batch_size": 512,
+                                          "n_epochs": 2, **width}, classes, f"[window] {name}")
+
+
+def phase_window(root: Path, splits, profile: bool) -> dict:
+    """The window families on the card (phase 10 of the module docstring).
+    Returns the kernel launches of the whole phase: none."""
+    from med_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    for name, freq in WINDOW_MODELS:
+        _window_card_vs_cpu(_window_config(name, freq))
+    for error_type in ("all_errors", "sequential"):
+        _window_card_vs_cpu(_window_config("SimpleLSTM", error_type=error_type))
+    for name, freq in WINDOW_MODELS:
+        _window_timing(_window_config(name, freq), profile)
+    _window_folds(root, splits, profile)
+    _window_clis(root, splits)
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise RuntimeError(f"the window phase launched {launches}")
+    log(f"[window] kernel launches over the phase: {launches} (the window path reaches "
+        "none of the eleven)")
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2498,6 +2914,7 @@ def main(argv) -> int:
         driver, driver_families, splits, cog_run = timed("driver", phase_driver, Path(tmp))
         variants, es_clis, bf16_folds, group_fold = timed("es", phase_es, Path(tmp), splits,
                                                           cog_run)
+        window = timed("window", phase_window, Path(tmp), splits, profile)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -2589,6 +3006,7 @@ def main(argv) -> int:
              "launches_bf16_cog_fold": bf16_folds["COG"][wrapper],
              "launches_bf16_tecno_fold": bf16_folds["TeCNo"][wrapper],
              "launches_group_fold": group_fold[wrapper],
+             "launches_window": window[wrapper],
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     idle = [k["name"] for k in line if k["launches"] < 1]

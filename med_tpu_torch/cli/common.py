@@ -1,6 +1,6 @@
 """Shared CLI plumbing: argparse <-> ExperimentConfig, fold orchestration,
-artifact writing (port of the frame part of ``med_tpu.cli.common``: the same
-flags, defaults, printed lines and written files, plus ``--device``)."""
+artifact writing (port of ``med_tpu.cli.common``: the same flags, defaults,
+printed lines and written files, plus ``--device``; no plots yet, A8)."""
 
 from __future__ import annotations
 
@@ -11,13 +11,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from ..config import LOSO_FOLDS, ExperimentConfig
-from ..data.datasets import build_frame_fold
+from ..data.datasets import build_frame_fold, build_window_fold
 from ..eval.rollup import compute_window_metrics
 from ..eval.summary import create_summary, summary_to_text
 from ..tracking import RunTracker
 from ..train.checkpoint import save_checkpoint
-from ..train.engine import Experiment
-from ..train.loop import train_frame_fold
+from ..train.engine import WINDOW_MODELS, Experiment
+from ..train.loop import train_frame_fold, train_window_fold
 
 _CONFIG_FIELDS = [
     ("model_name", str), ("data_type", str), ("error_type", str),
@@ -125,6 +125,66 @@ def _dump_best(tracker: RunTracker, tag: str, best: dict, cfg) -> None:
     tracker.log_dict(dump, f"best_model_{tag}.json")
 
 
+def _refuse_multi_gpu(args) -> None:
+    for name in _MULTI_GPU_FLAGS:
+        if getattr(args, name, None):
+            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
+                             "ROADMAP.md Queue A12 (multi-GPU)")
+
+
+def _save_best(tracker: RunTracker, tag: str, res: dict, cfg: ExperimentConfig) -> dict:
+    """Write a fold's best checkpoint (with its meta) and prediction dump;
+    returns its best row."""
+    best = res["best"]
+    if best is None:
+        raise SystemExit(f"[{tag}] nothing left to train: the snapshot is at or "
+                         f"past --n-epochs {cfg.n_epochs}, or the first epoch's "
+                         "train loss was not finite")
+    ckpt = res["checkpoint"]
+    save_checkpoint(tracker.checkpoint_path(f"best_model_{tag}.npz"), ckpt["params"],
+                    ckpt["batch_stats"], ckpt.get("constants"),
+                    meta={"cfg": cfg.to_dict()})
+    _dump_best(tracker, tag, best, cfg)
+    return best
+
+
+def run_window_folds(args, cfg: ExperimentConfig,
+                     extras_fn: Optional[Callable[[str, object, object], dict]] = None,
+                     siamese_fn: Optional[Callable] = None):
+    """Train all folds of a window experiment; save checkpoints, artifacts
+    and the weighted summary (the fold loop of train_window.ipynb cell 2).
+    One :class:`Experiment` serves every fold. ``extras_fn(fold,
+    train_fold, test_fold)`` gives a fold's extra per-window arrays (the
+    sequential stage's gates), ``siamese_fn(fold, train_fold, test_fold)``
+    its materialized pairs (see ``train_window_fold``). Returns
+    (fold_results, tracker)."""
+    _refuse_multi_gpu(args)
+    folds = [f for f in args.folds.split(",") if f]
+    shared_exp = Experiment(cfg, device=getattr(args, "device", None))
+    tracker = make_tracker(args, cfg)
+    fold_results, samples_tr, samples_te = {}, {}, {}
+    for out in folds:
+        train_fold, test_fold = build_window_fold(os.path.join(args.data_root, out), cfg,
+                                                  args.video_root)
+        tag = f"{args.setting}_{out}"
+        print(f"[{tag}] train windows={len(train_fold)} test={len(test_fold)}")
+        res = train_window_fold(
+            cfg, train_fold, test_fold, tracker=tracker, tag=tag,
+            siamese_data=siamese_fn(out, train_fold, test_fold) if siamese_fn else None,
+            extras=extras_fn(out, train_fold, test_fold) if extras_fn else None,
+            exp=shared_exp, resume=getattr(args, "resume", False))
+        best = _save_best(tracker, tag, res, cfg)
+        fold_results[out] = best
+        samples_tr[out] = len(train_fold)
+        samples_te[out] = len(test_fold)
+        print(f"[{tag}] best test F1={best['test_f1']:.3f} "
+              f"acc={best['test_acc']:.3f}")
+    summary = create_summary(fold_results, samples_tr, samples_te)
+    tracker.log_dict(summary, "summary.json")
+    print(summary_to_text(summary))
+    return fold_results, tracker
+
+
 def run_frame_folds(args, cfg: ExperimentConfig,
                     frozen_fn: Optional[Callable[[str], dict]] = None,
                     gates_fn: Optional[Callable[[str, list, list], dict]] = None
@@ -135,10 +195,10 @@ def run_frame_folds(args, cfg: ExperimentConfig,
     stage (TransSVNet's TeCNo); ``gates_fn(fold, train_trials,
     test_trials)`` its gates (the sequential regime's, see
     ``train_frame_fold``). Returns (fold_results, tracker)."""
-    for name in _MULTI_GPU_FLAGS:
-        if getattr(args, name, None):
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
-                             "ROADMAP.md Queue A12 (multi-GPU)")
+    _refuse_multi_gpu(args)
+    if cfg.model_name in WINDOW_MODELS:
+        raise SystemExit(f"{cfg.model_name} is a window model (ROADMAP.md A7): train "
+                         "it with med_tpu_torch.cli.train_window")
     folds = [f for f in args.folds.split(",") if f]
     # before the run directory is made: without a GPU (and without --device
     # cpu) this raises, and nothing is left on disk
@@ -158,16 +218,7 @@ def run_frame_folds(args, cfg: ExperimentConfig,
                                if gates_fn else None,
                                tag=tag, exp=shared_exp,
                                resume=getattr(args, "resume", False))
-        best = res["best"]
-        if best is None:
-            raise SystemExit(f"[{tag}] nothing left to train: the snapshot is "
-                             f"at or past --n-epochs {cfg.n_epochs}")
-        save_checkpoint(
-            tracker.checkpoint_path(f"best_model_{tag}.npz"),
-            res["checkpoint"]["params"], res["checkpoint"]["batch_stats"],
-            res["checkpoint"].get("constants"), meta={"cfg": cfg.to_dict()},
-        )
-        _dump_best(tracker, tag, best, cfg)
+        best = _save_best(tracker, tag, res, cfg)
         fold_results[out] = best
         samples_tr[out] = sum(t.n_frames for t in train_trials)
         samples_te[out] = sum(t.n_frames for t in test_trials)

@@ -1,4 +1,5 @@
-"""Label helpers the frame pipeline needs (port of ``med_tpu.data.labels``).
+"""Label helpers of the frame and window pipelines (port of
+``med_tpu.data.labels``).
 
 The raw per-frame label matrix has 5 columns ``[Out_Of_View, Needle_Drop,
 Multiple_Attempts, Needle_Position, Error]`` (reference
@@ -81,3 +82,15 @@ def powerset_error_labels(
 
     out[~err, 0] = 1
     return out, nd_mask
+
+
+def class_distributions(e_labels_powerset: np.ndarray) -> Tuple[tuple, list]:
+    """Class-balance statistics of a window split (reference
+    CustomWindowDataset.py:41-46): the binary distribution (1 - pos, pos)
+    over the global column, and the reciprocal frequencies of the 6
+    specific classes."""
+    e = np.asarray(e_labels_powerset, dtype=np.float64)
+    pos = e[:, -1].sum() / len(e)
+    binary = (1.0 - pos, pos)
+    specific = (len(e) / (e[:, :-1].sum(axis=0) + 1e-5)).tolist()
+    return binary, specific

@@ -1,6 +1,6 @@
-"""Window scan over per-subject, per-gesture frame runs, for rolling frame
-predictions up to windows (the port's copy of the part of
-``med_tpu.data.windowing`` that the frame driver's report needs).
+"""Window scan over per-subject, per-gesture frame runs: the window
+families' windows, and frame predictions rolled up to windows (the port's
+copy of ``med_tpu.data.windowing``).
 
 Windowing rules (reference MED/dataset/dataset_utils.py:161-258):
 
@@ -64,6 +64,48 @@ def subject_runs(subjects: Sequence[str]) -> List[Tuple[str, np.ndarray]]:
             seen.add(s)
             order.append(s)
     return [(s, np.flatnonzero(arr == s)) for s in order]
+
+
+def window_data(
+    image_data: np.ndarray,
+    kinematics_data: np.ndarray,
+    g_labels: np.ndarray,
+    e_labels: np.ndarray,
+    subjects: Sequence[str],
+    window_size: int = 10,
+    stride: int = 6,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Window a whole fold's frame stream: ``(image_windows (N, W, 2048),
+    kinematics_windows (N, W, 26), g_labels_windows (N, 1),
+    e_labels_windows (N, C), subject_windows (N,))``, labels from each
+    window's first frame (reference dataset_utils.py:161-258)."""
+    g = np.asarray(g_labels).reshape(-1)
+    all_starts: List[np.ndarray] = []
+    all_subjects: List[str] = []
+    for subject, idx in subject_runs(subjects):
+        starts_local = window_scan(g[idx], window_size, stride)
+        if starts_local.size:
+            all_starts.append(idx[starts_local])
+            all_subjects.extend([subject] * len(starts_local))
+
+    if not all_starts:
+        feat_i = image_data.shape[-1] if image_data is not None else 0
+        return (
+            np.empty((0, window_size, feat_i), dtype=np.float32),
+            np.empty((0, window_size, kinematics_data.shape[-1]), dtype=np.float32),
+            np.empty((0, 1), dtype=np.int64),
+            np.empty((0,) + np.asarray(e_labels).shape[1:], dtype=e_labels.dtype),
+            np.empty((0,), dtype=object),
+        )
+
+    starts = np.concatenate(all_starts)
+    gather = starts[:, None] + np.arange(window_size)[None, :]
+    image_windows = np.asarray(image_data)[gather]
+    kinematics_windows = np.asarray(kinematics_data)[gather]
+    g_windows = g[starts].reshape(-1, 1).astype(np.int64)
+    e_windows = np.asarray(e_labels)[starts]
+    subject_windows = np.asarray(all_subjects, dtype=object)
+    return image_windows, kinematics_windows, g_windows, e_windows, subject_windows
 
 
 def window_predictions(

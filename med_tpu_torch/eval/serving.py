@@ -117,9 +117,6 @@ class FrameModelServer:
     def __init__(self, cfg: ExperimentConfig, checkpoint: Dict,
                  stats: Optional[Dict] = None, frozen: Optional[Dict] = None,
                  device=None):
-        # fp32 as in the JAX package: no TF32 in matmuls or cuDNN on the card
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.stats = stats
         self.exp = Experiment(cfg, device=device)

@@ -1,7 +1,8 @@
 """Model factory (port of ``med_tpu.models``): the frame families COG (with
 its observed-gesture, skill-prompt and SRM variants), TeCNo and
-TransSVNet, in float32 or with ``compute_dtype="bfloat16"``; the window
-families are queued in ROADMAP.md."""
+TransSVNet, in float32 or with ``compute_dtype="bfloat16"``, and the window
+families SimpleCNN, SimpleLSTM, Siamese_CNN and Siamese_LSTM (float32 alone:
+``compute_dtype`` does not reach them, as in ``med_tpu``)."""
 
 from __future__ import annotations
 
@@ -16,13 +17,7 @@ from .feature_extractor import FeatureExtractor
 from .layers import init_weights  # noqa: F401
 from .tcn import TeCNo
 from .transsvnet import TransSVNet
-
-_QUEUED = {
-    "SimpleCNN": "Queue A7 (window families)",
-    "SimpleLSTM": "Queue A7 (window families)",
-    "Siamese_CNN": "Queue A7 (window families)",
-    "Siamese_LSTM": "Queue A7 (window families)",
-}
+from .window_models import window_model
 
 
 def compute_dtype(cfg: ExperimentConfig) -> Optional[torch.dtype]:
@@ -45,9 +40,10 @@ def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> nn.
     """Construct the configured model, with zero weights (load or
     :func:`init_weights` them)."""
     name = cfg.model_name
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: ROADMAP.md {_QUEUED[name]}")
+    window = window_model(name, cfg.in_features(), cfg.window_size, cfg.out_features,
+                          cfg.hidden_size, cfg.num_layers)
+    if window is not None:
+        return window
     if name == "TeCNo":
         return build_tecno(cfg, compute_dtype(cfg))
     if name == "TransSVNet":

@@ -2,7 +2,7 @@
 
 Sequence tensors are channel-last ``(B, T, C)``, as in the JAX package.
 Every parameterised module names its flax counterpart's layout in
-``flax_layout`` ("dense", "conv", "norm" or "stack"), which is all that
+``flax_layout`` ("dense", "conv", "norm", "batchnorm" or "stack"), which is all that
 :mod:`med_tpu_torch.utils.jax_params` needs to carry weights between the two.
 
 Parameters are created as zeros (norm scales as ones): serving loads its
@@ -117,6 +117,54 @@ class Conv1d(nn.Module):
         if b is not None:
             y = y + b
         return y
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9)`` over axis 1 of (B, C) or
+    (B, C, L): statistics over every other axis. Neither ``nn.BatchNorm1d``
+    nor ``F.batch_norm`` gives flax's numbers in training, so the arithmetic
+    is flax's own:
+
+    - training normalises by the batch's mean and its variance E[x²] − E[x]²
+      clipped at 0, as (x − mean) · (rsqrt(var + eps) · scale) + bias, and
+      moves the running statistics to 0.9 · running + 0.1 · batch, the
+      variance the batch's **biased** one (torch takes the unbiased);
+    - eval normalises by the running statistics.
+
+    Params weight/bias, buffers running_mean/running_var (flax's ``scale``,
+    ``bias`` and ``batch_stats`` ``mean``, ``var``)."""
+
+    flax_layout = "batchnorm"
+
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x, train: bool = False):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if train:
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
 class ResidualStack(nn.Module):

@@ -103,7 +103,8 @@ def load_best_checkpoint(ckpt_dir: str, setting: str, out: str,
 # ----------------------------------------------------------------- resume
 def save_train_state(path: str, exp, epoch: int) -> None:
     """Full mid-training snapshot of an :class:`Experiment` after ``epoch``,
-    for exact resume: every entry of the net's state_dict, Adam's step and
+    for exact resume: every entry of the net's state_dict (a window model's
+    BatchNorm running statistics too), Adam's step and
     both moments per parameter (dead parameters too: they take weight decay
     every step), the dropout generator's state and the epoch.
 

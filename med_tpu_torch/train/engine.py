@@ -1,10 +1,15 @@
-"""Train and eval steps of the frame families (port of the frame part of
-``med_tpu.train.engine``): input assembly, each family's loss with its
-confusion matrices, and one optimiser step per trial or trial group.
+"""Train and eval steps of every family (port of ``med_tpu.train.engine``):
+input assembly, each family's loss with its confusion matrices, and one
+optimiser step per window batch, trial or trial group.
 
 =========  ===========================================================
 family     model and loss
 =========  ===========================================================
+window     SimpleCNN / SimpleLSTM: binary BCE (train/validate_single
+           _epoch), 6-class CE (_ES), the sequential regime's 5-class
+           CE masked to true errors (_Sequential)
+siamese    Siamese_CNN / Siamese_LSTM: BCE on the pair's similarity
+           logit (train/validate_single_epoch_siamese)
 cog        COG: multi-track CE + smoothing (train_..._COG), for the
            global, all_errors or one named error type; the sequential
            regime's gated 5-class loss (train_..._Sequential)
@@ -19,6 +24,11 @@ short group): the loss is the weighted mean of the trials' losses and each
 confusion matrix their weighted sum, as ``med_tpu``'s trial-parallel step
 computes them. COG runs the group as one batch, so its attention takes the
 G trials in one launch a layer.
+
+A window batch carries its 0/1 ``mask`` (the padding of a fold's last
+batch repeats window 0); BatchNorm runs over the whole padded batch, in
+training mode for a train step and on its running statistics for an eval
+step, as in ``med_tpu``.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from ..config import ExperimentConfig
 from ..models import build_feature_extractor, build_model, build_tecno, init_weights
 from ..ops.metrics import confusion_matrix
 from ..utils.device import resolve_device
-from ..utils.jax_params import load_jax_params
+from ..utils.jax_params import export_jax_params, load_jax_params
 from . import losses
 from .optim import make_optimizer
 
@@ -46,6 +56,75 @@ class FrameNet(nn.Module):
         super().__init__()
         self.model = model
         self.fe = fe
+
+
+class WindowNet(FrameNet):
+    """A window model and its FeatureExtractor: (B, W, F) windows, or a
+    siamese family's (B, 2, W, F) pairs, to logits. ``train`` puts its
+    BatchNorms in training mode (batch statistics, running statistics
+    updated) and draws dropout from ``masks`` or ``generator``; otherwise
+    they normalise by the running statistics and nothing is dropped."""
+
+    def forward(self, x: torch.Tensor, train: bool = False, masks=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if x.dim() == 4:
+            return self.model(x[:, 0], x[:, 1], train=train, masks=masks,
+                              generator=generator)
+        return self.model(x, train=train, masks=masks, generator=generator)
+
+
+def window_loss(cfg: ExperimentConfig, family: str, out: torch.Tensor,
+                batch: Dict[str, torch.Tensor], class_counts=None):
+    """The window branch of med_tpu's ``_loss_for_family``. With
+    ``pos_weight`` and the train fold's ``class_counts``: BCE's pos_weight
+    cc[0] / cc[1] for 'global', CE's class weights cc otherwise.
+
+    - siamese, or 'global': BCE on the logit; preds sigmoid > 0.5, a
+      binary "cm";
+    - 'all_errors': CE over the 6 classes; "cm" and "cm_binary";
+    - 'sequential': 5-class CE on the true-error windows against labels
+      shifted to 0..4; preds argmax + 1, gated by ``batch["gate"]`` (the
+      true errors when there is none) into the 6-class "cm";
+      "cm_specific" over the 5 error classes on the true errors.
+
+    Returns (loss, {"cm", ..., "probs", "preds"})."""
+    mask, labels = batch.get("mask"), batch["labels"]
+    pos_weight = class_weights = None
+    if cfg.pos_weight and class_counts is not None:
+        if cfg.error_type == "global":
+            pos_weight = class_counts[0] / class_counts[1]
+        else:
+            class_weights = class_counts
+    if family == "siamese" or cfg.error_type == "global":
+        logits = out.reshape(-1)
+        loss = losses.bce_with_logits(logits, labels, mask, pos_weight)
+        probs = torch.sigmoid(logits.detach())
+        preds = (probs > 0.5).to(torch.int32)
+        return loss, {"cm": confusion_matrix(labels, preds, 2, mask), "probs": probs,
+                      "preds": preds}
+    detached = out.detach()
+    if cfg.error_type == "all_errors":
+        loss = losses.cross_entropy(out, labels, mask, class_weights)
+        preds = torch.argmax(detached, dim=-1)
+        return loss, {
+            "cm": confusion_matrix(labels, preds, cfg.out_features, mask),
+            "cm_binary": confusion_matrix((labels > 0).to(torch.int32),
+                                          (preds > 0).to(torch.int32), 2, mask),
+            "probs": torch.softmax(detached, dim=-1), "preds": preds}
+    if cfg.error_type == "sequential":
+        err = (labels != 0).to(torch.float32)
+        m = err if mask is None else err * mask
+        loss = losses.cross_entropy(out, torch.clamp(labels - 1, min=0), m)
+        preds = torch.argmax(detached, dim=-1) + 1
+        gate = batch.get("gate", err)
+        gated = torch.where(gate > 0, preds, torch.zeros_like(preds))
+        return loss, {
+            "cm": confusion_matrix(labels, gated, 6, mask),
+            "cm_specific": confusion_matrix(torch.clamp(labels - 1, min=0), preds - 1,
+                                            5, m),
+            "probs": torch.softmax(detached, dim=-1), "preds": preds}
+    raise ValueError(f"the window families take 'global', 'all_errors' or "
+                     f"'sequential', not {cfg.error_type!r}")
 
 
 def cog_loss(cfg: ExperimentConfig, out_list, batch: Dict[str, torch.Tensor]):
@@ -145,25 +224,38 @@ def _predictions(final: torch.Tensor, n_classes: int):
     return preds, probs.reshape(-1, n_classes)
 
 
-_FAMILIES = {"COG": "cog", "TeCNo": "tecno", "TransSVNet": "tsvn"}
+_FAMILIES = {"COG": "cog", "TeCNo": "tecno", "TransSVNet": "tsvn",
+             "SimpleCNN": "window", "SimpleLSTM": "window",
+             "Siamese_CNN": "siamese", "Siamese_LSTM": "siamese"}
+WINDOW_FAMILIES = ("window", "siamese")
+WINDOW_MODELS = tuple(n for n, f in _FAMILIES.items() if f in WINDOW_FAMILIES)
 
 
 class Experiment:
     """Binds a config to its model, optimiser and dropout generator on one
     device (CUDA unless the caller passes ``device="cpu"``). Parameters start
     at zero (serving loads them); :meth:`init_weights` draws them from a
-    seed."""
+    seed. Matmuls and cuDNN compute in full fp32, as the JAX package's do:
+    constructing an Experiment switches TF32 off for both."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
                  prompt_path: Optional[str] = None):
+        # PyTorch leaves cuDNN's TF32 on by default, and the window models'
+        # convs and LSTMs run on cuDNN
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.device = resolve_device(device)
-        net = FrameNet(build_model(cfg, prompt_path), build_feature_extractor(cfg))
         self.family = _FAMILIES[cfg.model_name]
+        container = WindowNet if self.family in WINDOW_FAMILIES else FrameNet
+        net = container(build_model(cfg, prompt_path), build_feature_extractor(cfg))
         self.net = net.to(self.device).eval()
         self.optimizer = make_optimizer(cfg, self.net.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.frozen = None
+        # the window families' loss weights: the train fold's class counts
+        # (med_tpu's ``constants["class_counts"]``), set by init_weights
+        self.class_counts: Optional[torch.Tensor] = None
 
     def load_frozen(self, frozen: Dict) -> None:
         """Give a TransSVNet experiment its frozen TeCNo, a TeCNo of the same
@@ -179,21 +271,44 @@ class Experiment:
         self.frozen = tecno.to(self.device).eval().requires_grad_(False)
 
     def load_params(self, checkpoint: Dict) -> None:
-        """Take a ``med_tpu`` checkpoint tree's parameters and frozen prompt
-        tables (``load_best_checkpoint`` of a run of either package)."""
+        """Take a ``med_tpu`` checkpoint tree's parameters, running
+        statistics, class counts and frozen prompt tables
+        (``load_best_checkpoint`` of a run of either package)."""
+        consts = dict(checkpoint.get("constants", {}))
+        counts = consts.pop("class_counts", None)
+        self.class_counts = (None if counts is None else
+                             torch.tensor(np.asarray(counts, np.float32),
+                                             device=self.device))
+        checkpoint = {**checkpoint, "constants": consts}
         state, constants = load_jax_params(checkpoint, self.net)
         self.net.load_state_dict(state, strict=True)
         with torch.no_grad():
             for name, value in constants.items():
                 self.net.get_buffer(name).copy_(value)
 
-    def init_weights(self, seed: int) -> None:
-        """Draw every parameter from ``seed`` (U(±1/sqrt(fan_in)), on the
-        CPU so the draw is the same on every device) and restart the
-        optimiser and the dropout stream from the config's seed."""
+    def init_weights(self, seed: int, class_counts=None) -> None:
+        """Draw every parameter from ``seed`` (each module's scheme, on the
+        CPU so the draw is the same on every device), reset the running
+        statistics, restart the optimiser and the dropout stream from the
+        config's seed, and take the train fold's ``class_counts`` (the
+        window families' loss weights, or None)."""
         init_weights(self.net, torch.Generator().manual_seed(seed))
         self.optimizer = make_optimizer(self.cfg, self.net.parameters())
         self.generator.manual_seed(self.cfg.seed)
+        self.class_counts = (None if class_counts is None else
+                             torch.tensor(np.asarray(class_counts, np.float32),
+                                             device=self.device))
+
+    def checkpoint(self) -> Dict:
+        """The parameters, running statistics and constants as a ``med_tpu``
+        checkpoint tree (numpy copies): {"params", "batch_stats",
+        "constants"}, the class counts among the constants when set."""
+        tree = export_jax_params(self.net)
+        tree.setdefault("batch_stats", {})
+        if self.class_counts is not None:
+            tree.setdefault("constants", {})["class_counts"] = (
+                self.class_counts.cpu().numpy().copy())
+        return tree
 
     def _tensors(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """The batch's arrays on the device (keys starting with '_' stay)."""
@@ -224,6 +339,8 @@ class Experiment:
         TeCNo runs under no_grad, so it saves nothing for a backward."""
         x = self._assemble(data)
         model = self.net.model
+        if self.family in WINDOW_FAMILIES:
+            return self.net(x, train=train, masks=masks, generator=self.generator)
         if self.family == "tsvn":
             if self.frozen is None:
                 raise ValueError("TransSVNet needs its frozen TeCNo: pass frozen= "
@@ -237,6 +354,8 @@ class Experiment:
         return out_list
 
     def _loss(self, out, data: Dict[str, torch.Tensor]):
+        if self.family in WINDOW_FAMILIES:
+            return window_loss(self.cfg, self.family, out, data, self.class_counts)
         if self.family == "cog":
             return cog_loss(self.cfg, out, data)
         return binary_frame_loss(self.family, out, data)
@@ -244,7 +363,7 @@ class Experiment:
     def _trial_loss(self, data: Dict[str, torch.Tensor], train: bool, masks=None):
         """One trial's (loss, metrics), or a trial group's (see the module
         docstring) when ``trial_batch`` > 1."""
-        if self.cfg.trial_batch <= 1:
+        if self.cfg.trial_batch <= 1 or self.family in WINDOW_FAMILIES:
             return self._loss(self._forward(data, train, masks), data)
         weight = data.pop("trial_weight", None)
         G = data["labels"].shape[0]
@@ -284,8 +403,8 @@ class Experiment:
 
     def train_step(self, batch: Dict[str, np.ndarray], masks=None
                    ) -> Dict[str, torch.Tensor]:
-        """One trial or trial group: forward, loss, backward and one
-        optimiser step. Returns the metrics ("loss", "cm", ...) as device
+        """One window batch, trial or trial group: forward, loss, backward
+        and one optimiser step. Returns the metrics ("loss", "cm", ...) as device
         tensors: nothing syncs the host."""
         loss, metrics = self.compute_gradients(batch, masks)
         self.optimizer.step()
@@ -294,19 +413,21 @@ class Experiment:
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One padded trial (or trial group, with its labels) -> {"preds",
-        "probs"} over its frames, from the family's final output (COG's
-        first slow track): argmax, and the class-1 softmax when binary; with
-        "loss" and "cm" too when the batch carries labels."""
+        """One padded trial (or trial group, or window batch, with its
+        labels) -> {"preds", "probs"} over its frames or windows, from the
+        family's final output (COG's first slow track): argmax, and the
+        class-1 softmax when binary; with "loss" and "cm" too when the batch
+        carries labels."""
         cfg = self.cfg
         data = self._tensors(batch)
         if "labels" in data:
             loss, metrics = self._trial_loss(data, False)
             metrics["loss"] = loss
             return metrics
-        if cfg.error_type == "sequential" or cfg.trial_batch > 1:
-            raise ValueError("a sequential or trial-group eval step takes the "
-                             "batch's labels (and the sequential regime its gate)")
+        if (cfg.error_type == "sequential" or cfg.trial_batch > 1
+                or self.family in WINDOW_FAMILIES):
+            raise ValueError("a window, sequential or trial-group eval step takes "
+                             "the batch's labels (and the sequential regime its gate)")
         out = self._forward(data, False)
         if self.family == "cog":
             n_classes = 2 if cfg.error_type == "global" else cfg.out_features

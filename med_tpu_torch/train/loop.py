@@ -1,11 +1,15 @@
-"""Frame-level epoch loop (port of the frame part of ``med_tpu.train.loop``):
-train one fold with per-epoch learning rate, train and eval passes, metric
-rows and best-checkpoint selection by test weighted-F1 or loss.
+"""Epoch loops (port of ``med_tpu.train.loop``): train one fold with
+per-epoch learning rate, train and eval passes, metric rows and
+best-checkpoint selection by test weighted-F1 or loss, for the window
+families (:func:`train_window_fold`) and the frame families
+(:func:`train_frame_fold`).
 
 Losses and confusion matrices stay on the device through an epoch and come
 to the host together at its end: a ``float()`` per step would make the host
-wait for the card after every trial. Frame metrics are pooled over all
-frames for both splits (reference modeling_utils.py:1566-1574).
+wait for the card after every batch or trial. Window *train* metrics are
+averaged over per-batch values (reference modeling_utils.py:398-402), test
+metrics pooled (:781-786); frame metrics are pooled over all frames for
+both splits (:1566-1574).
 """
 
 from __future__ import annotations
@@ -18,12 +22,27 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
-from ..data.datasets import FrameTrial, bucket_length, frame_batch
+from ..data.datasets import (FrameTrial, WindowFold, array_batches, batch_schedule,
+                             bucket_length, frame_batch, window_arrays)
 from ..ops.metrics import metrics_from_cm
-from ..utils.jax_params import export_jax_params
 from .checkpoint import load_train_state, save_train_state
 from .engine import Experiment
 from .optim import epoch_lr, set_lr
+
+
+def _class_counts(cfg: ExperimentConfig, train_fold: WindowFold) -> Optional[np.ndarray]:
+    """The window families' loss weights from the train fold, with
+    ``pos_weight``: its binary distribution for 'global', else the 6
+    reciprocal class frequencies, classes 1, 3, 4 and 5 divided by
+    ``es_weight_scale`` (train_window_ES.ipynb cell 2's "/1.5")."""
+    if not cfg.pos_weight:
+        return None
+    if cfg.error_type == "global":
+        return np.asarray(train_fold.binary_error_distribution, np.float32)
+    dist = np.asarray(train_fold.specific_error_distribution, np.float32).copy()
+    if cfg.es_weight_scale != 1.0 and dist.shape[0] >= 6:
+        dist[[1, 3, 4, 5]] /= cfg.es_weight_scale
+    return dist
 
 
 def _epoch_metrics(cms: List[np.ndarray], average: str, per_batch: bool) -> Dict[str, float]:
@@ -184,7 +203,7 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
     whole_run = cfg.fused_epoch and cfg.fused_run
     use_loss = cfg.loss_or_f1 == "loss"
     run_best = np.inf if use_loss else -np.inf
-    initial = {**export_jax_params(exp.net), "batch_stats": {}} if whole_run else None
+    initial = exp.checkpoint() if whole_run else None
     best, best_ckpt, history, first = None, None, [], None
     for epoch in range(start_epoch, cfg.n_epochs):
         set_lr(exp.optimizer, epoch_lr(cfg, epoch))
@@ -225,7 +244,7 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
             won = _better(cfg, row, best)
         if won:
             best = {**row, **dump}
-            best_ckpt = {**export_jax_params(exp.net), "batch_stats": {}}
+            best_ckpt = exp.checkpoint()
         if resume_path:
             save_train_state(resume_path, exp, epoch)
     if whole_run and history and best is None:
@@ -289,5 +308,236 @@ def evaluate_frame_fold(cfg: ExperimentConfig, exp: Experiment,
         "raw_labels": np.concatenate(raw_labels) if raw_labels else None,
         "gestures": np.concatenate(gests),
         "subjects": np.asarray(subjects, dtype=object),
+        "cm": pooled["cm"],
+    }
+
+
+# --------------------------------------------------------------------- window
+class _Split:
+    """One split's per-example arrays for the fold's epochs. With
+    ``resident`` (``fused_epoch``) they go up to the device once, here, and
+    each batch is gathered there by its epoch's index schedule, as
+    ``med_tpu``'s ``FusedWindowEpoch`` gathers them; otherwise each batch
+    is sliced on the host and goes up at its step."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], device: torch.device,
+                 resident: bool):
+        self.n = len(arrays["labels"])
+        self.device, self.resident = device, resident
+        self.arrays = ({k: torch.as_tensor(np.asarray(v), device=device)
+                        for k, v in arrays.items()} if resident else arrays)
+
+    def batches(self, cfg: ExperimentConfig, shuffle: bool, epoch: int = 0):
+        """The epoch's batches (each with its "mask") by
+        :func:`batch_schedule` of ``cfg.seed`` + ``epoch``."""
+        if not self.resident:
+            yield from array_batches(self.arrays, cfg.batch_size, shuffle, cfg.seed,
+                                     epoch)
+            return
+        sel, mask = batch_schedule(self.n, cfg.batch_size, shuffle, cfg.seed, epoch)
+        sel = torch.as_tensor(sel, device=self.device)
+        mask = torch.as_tensor(mask, device=self.device)
+        for s, m in zip(sel, mask):
+            yield {**{k: v[s] for k, v in self.arrays.items()}, "mask": m}
+
+
+def _pair_arrays(data) -> Dict[str, np.ndarray]:
+    """Materialized pairs (images (P, 2, W, F), kinematics, labels) as
+    arrays; their batches follow the windows' protocol (med_tpu's
+    ``_siamese_batches``)."""
+    return {"images": data[0], "kinematics": data[1], "labels": data[2]}
+
+
+def _window_split(cfg: ExperimentConfig, exp: Experiment, fold: Optional[WindowFold],
+                  pairs=None, extras=None) -> _Split:
+    arrays = (_pair_arrays(pairs) if cfg.siamese else
+              window_arrays(fold, cfg.error_type, extras))
+    return _Split(arrays, exp.device, cfg.fused_epoch)
+
+
+def siamese_vote(pair_preds, position_2, window_labels):
+    """Majority vote of pair predictions grouped by test-window position."""
+    pos = np.asarray(position_2)
+    uniq = np.unique(pos)
+    votes = np.zeros(len(uniq), np.int64)
+    labels = np.zeros(len(uniq), np.int64)
+    for k, u in enumerate(uniq):
+        sel = pos == u
+        votes[k] = int(np.asarray(pair_preds)[sel].mean() >= 0.5)
+        labels[k] = int(window_labels[u])
+    return votes, labels
+
+
+def train_window_fold(cfg: ExperimentConfig, train_fold: WindowFold,
+                      test_fold: WindowFold, device=None, *, tracker=None,
+                      tag: str = "LOSO_1Out", exp: Optional[Experiment] = None,
+                      siamese_data: Optional[dict] = None,
+                      extras: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+                      resume: bool = False) -> Dict[str, Any]:
+    """Full training of one fold for the window families (SimpleCNN,
+    SimpleLSTM and the siamese twins), on CUDA unless ``device="cpu"``.
+    Weights are drawn from ``cfg.seed``, the loss weights from the train
+    fold (:func:`_class_counts`); each epoch sets its learning rate, trains
+    on the order of ``default_rng(cfg.seed + epoch)`` and evaluates the test
+    split. Returns {"best", "history", "checkpoint", "exp"}; the checkpoint
+    is the best epoch's tree in med_tpu's layout, running statistics and
+    class counts included.
+
+    ``siamese_data`` (with ``cfg.siamese``): {"train": (images (P, 2, W, F),
+    kinematics, labels), "test": (...), "test_position_2": (Pt,),
+    "test_window_labels": (Nw,)} replaces the window batches with pair
+    batches; the test metrics are the vote's (:func:`siamese_vote`).
+    ``extras``: {"train": {name: (N,)}, "test": ...} more per-window arrays
+    (the sequential stage's gate). ``tracker``, ``tag``, ``resume`` and
+    ``exp`` as :func:`train_frame_fold` takes them.
+
+    ``fused_epoch`` (the default) uploads each split to the device once a
+    fold and gathers every batch there; without it each batch goes up from
+    the host. Selection follows med_tpu's window loop. With ``fused_epoch``
+    and ``fused_run`` (the defaults) it is its whole-run rule
+    (``FusedWindowRun``/``FusedSiameseRun``): the score starts at -inf for
+    F1 (the siamese vote's weighted F1) and +inf for the loss, an epoch wins
+    only by strict improvement, and a non-finite train loss does not halt
+    the run; when no epoch wins, the fold returns the parameters from before
+    its first epoch with that epoch's row, and ``best["all_epochs_non_finite"]``
+    is set. Otherwise it is the per-epoch ``_better``, under which the first
+    epoch always wins, and the NaN watchdog stops the fold at the first
+    non-finite train loss. ``med_tpu``'s fold bucketing (``fold_pad_quantum``)
+    pads a fold so that XLA compiles one program a shape; its extra steps
+    are exact no-ops, and the port runs none of them."""
+    exp = exp or Experiment(cfg, device=device)
+    exp.init_weights(cfg.seed, _class_counts(cfg, train_fold))
+    average = _average_for(cfg)
+    extras = extras or {}
+    train = _window_split(cfg, exp, train_fold, (siamese_data or {}).get("train"),
+                          extras.get("train"))
+    test = _window_split(cfg, exp, test_fold, (siamese_data or {}).get("test"),
+                         extras.get("test"))
+
+    start_epoch = 0
+    resume_path = (tracker.checkpoint_path(f"last_state_{tag}.npz")
+                   if tracker and tag else None)
+    if resume and resume_path and os.path.exists(resume_path):
+        start_epoch = load_train_state(resume_path, exp)
+        print(f"[{tag}] resumed at epoch {start_epoch}")
+
+    whole_run = cfg.fused_epoch and cfg.fused_run
+    use_loss = cfg.loss_or_f1 == "loss"
+    run_best = np.inf if use_loss else -np.inf
+    initial = exp.checkpoint() if whole_run else None
+    best, best_ckpt, history, first, nan_warned = None, None, [], None, False
+    for epoch in range(start_epoch, cfg.n_epochs):
+        set_lr(exp.optimizer, epoch_lr(cfg, epoch))
+        t0 = time.time()
+        steps = [exp.train_step(b) for b in train.batches(cfg, True, epoch)]
+        cms = torch.stack([m["cm"] for m in steps]).cpu().numpy()
+        step_losses = torch.stack([m["loss"] for m in steps]).cpu().numpy()
+        train_time = time.time() - t0
+        train_m = _epoch_metrics(list(cms), average, per_batch=True)
+        train_loss = float(np.mean(step_losses.astype(np.float64)))
+        if not np.isfinite(train_loss):
+            if not whole_run:
+                # NaN watchdog: halt and keep the best checkpoint so far
+                print(f"[{tag}] non-finite train loss at epoch {epoch}; stopping")
+                break
+            if not nan_warned:
+                print(f"[{tag}] non-finite train loss at epoch {epoch} "
+                      "(whole run continues; epoch cannot be selected)")
+                nan_warned = True
+
+        ev = evaluate_window_fold(cfg, exp, test_fold, siamese_data, split=test)
+        row = {
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "train_f1": train_m["f1"],
+            "train_f1_weighted": train_m.get("f1_weighted", train_m["f1"]),
+            "train_acc": train_m["accuracy"],
+            "train_jaccard": train_m["jaccard"],
+            "train_time": train_time,
+            **{f"test_{k}": v for k, v in ev["metrics"].items()},
+        }
+        history.append(row)
+        if tracker:
+            tracker.log_metrics({k: v for k, v in row.items() if np.isscalar(v)},
+                                step=epoch)
+        dump = {k: ev.get(k) for k in ("preds", "probs", "labels", "raw_labels",
+                                       "gestures", "subjects", "cm")}
+        first = first or {**row, **dump}
+        if whole_run:
+            score = _score(cfg, row)
+            won = score < run_best if use_loss else score > run_best
+            run_best = score if won else run_best
+        else:
+            won = _better(cfg, row, best)
+        if won:
+            best = {**row, **dump}
+            best_ckpt = exp.checkpoint()
+        if resume_path:
+            save_train_state(resume_path, exp, epoch)
+    if whole_run and history and best is None:
+        print(f"[{tag}] every epoch score non-finite: returned checkpoint is "
+              "the initial params; prediction dump marked degenerate")
+        best = {**first, "all_epochs_non_finite": True}
+        best_ckpt = initial
+    return {"best": best, "history": history, "checkpoint": best_ckpt, "exp": exp}
+
+
+def evaluate_window_fold(cfg: ExperimentConfig, exp: Experiment,
+                         test_fold: Optional[WindowFold], siamese_data=None,
+                         extras: Optional[Dict[str, np.ndarray]] = None,
+                         split: Optional[_Split] = None) -> Dict:
+    """Pooled eval pass over the test windows (or, with ``cfg.siamese``,
+    the test pairs of ``siamese_data``, then the vote a test window) with
+    the running statistics: metrics, the mean loss, the inference time per
+    window or pair, and the ordered prediction dump. ``split``: the test
+    split :func:`train_window_fold` holds for its epochs; by default it is
+    built here from ``test_fold`` and ``extras``."""
+    average = _average_for(cfg)
+    split = split or _window_split(cfg, exp, test_fold,
+                                   (siamese_data or {}).get("test"), extras)
+    t0 = time.time()
+    preds, probs, cms, losses = [], [], [], []
+    for batch in split.batches(cfg, False):
+        m = exp.eval_step(batch)
+        preds.append(m["preds"])
+        probs.append(m["probs"])
+        cms.append(m["cm"])
+        losses.append(m["loss"])
+    # in order, so the padding is the last batch's tail
+    preds = torch.cat(preds)[:split.n].cpu().numpy()
+    probs = torch.cat(probs)[:split.n].cpu().numpy()
+    cms = list(torch.stack(cms).cpu().numpy())
+    losses = torch.stack(losses).cpu().numpy()
+    t_infer = time.time() - t0
+    pooled = _epoch_metrics(cms, average, per_batch=False)
+    metrics = {
+        "loss": float(np.mean(losses.astype(np.float64))),
+        "f1": pooled["f1"],
+        "f1_weighted": pooled.get("f1_weighted", pooled["f1"]),
+        "acc": pooled["accuracy"],
+        "jaccard": pooled["jaccard"],
+        "inference_ms_per_window": t_infer / max(split.n, 1) * 1e3,
+    }
+    if cfg.siamese:
+        # majority vote per test window (reference modeling_utils.py:1180-1250)
+        vote_preds, vote_labels = siamese_vote(
+            preds, siamese_data["test_position_2"], siamese_data["test_window_labels"])
+        vote_cm = np.zeros((2, 2), np.int64)
+        for y, p in zip(vote_labels, vote_preds):
+            vote_cm[y, p] += 1
+        vm = metrics_from_cm(vote_cm, "binary")
+        metrics.update({"f1": vm["f1"], "acc": vm["accuracy"], "jaccard": vm["jaccard"],
+                        "f1_weighted": metrics_from_cm(vote_cm, "weighted")["f1"]})
+        return {"metrics": metrics, "preds": preds, "probs": probs,
+                "labels": siamese_data["test"][2], "cm": vote_cm,
+                "vote_preds": vote_preds, "vote_labels": vote_labels}
+    return {
+        "metrics": metrics,
+        "preds": preds,
+        "probs": probs,
+        "labels": test_fold.labels_for(cfg.error_type),
+        "raw_labels": test_fold.e_raw,
+        "gestures": test_fold.g_labels.reshape(-1),
+        "subjects": test_fold.subjects,
         "cm": pooled["cm"],
     }

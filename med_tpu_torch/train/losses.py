@@ -1,6 +1,9 @@
-"""The frame families' losses (port of the frame part of
-``med_tpu.train.losses``).
+"""Losses (port of ``med_tpu.train.losses``).
 
+Window families: BCE with logits, with an optional ``pos_weight`` (the
+binary model and the siamese pairs), and CE over integer labels with
+optional class weights (the 6-class model; masked to true errors in the
+sequential regime) (reference modeling_utils.py:233-248, :612-625).
 COG, per output track: cross-entropy plus the truncated-MSE temporal
 smoothing of the reference (modeling_utils.py:1501-1521), over labels
 nearest-resampled to the track's length. TeCNo and TransSVNet: the
@@ -26,12 +29,31 @@ def _masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tenso
     return (per * m).sum() / torch.clamp(m.sum(), min=1e-12)
 
 
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    pos_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean binary cross-entropy with logits (torch BCEWithLogitsLoss), the
+    positive term weighted by ``pos_weight``."""
+    logits = logits.reshape(-1)
+    labels = labels.reshape(-1).to(logits.dtype)
+    w_pos = 1.0 if pos_weight is None else pos_weight
+    per = -(w_pos * labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
+    return _masked_mean(per, mask)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean CE over integer labels (torch CrossEntropyLoss semantics)."""
+                  mask: Optional[torch.Tensor] = None,
+                  class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE over integer labels (torch CrossEntropyLoss semantics: with
+    class weights, the mean is weighted by each example's class weight)."""
     logp = F.log_softmax(logits, dim=-1)
     labels = labels.reshape(logits.shape[:-1]).long()
     per = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    if class_weights is not None:
+        w = class_weights[labels]
+        if mask is not None:
+            w = w * mask.reshape(w.shape)
+        return (per * w).sum() / torch.clamp(w.sum(), min=1e-12)
     return _masked_mean(per, mask)
 
 

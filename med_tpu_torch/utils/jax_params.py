@@ -8,18 +8,23 @@ port module names its flax layout (``flax_layout``, see
 
     dense      weight (out, in)        <-> kernel (in, out)
     conv       weight (O, I, K)        <-> Conv_0/kernel (K, I, O);  bias <-> Conv_0/bias
+    conv1d     weight (O, I, K)        <-> kernel (K, I, O);  bias <-> bias
     conv2d     weight (O, I, kh, kw)   <-> kernel (kh, kw, I, O)
     norm       weight                  <-> scale
     batchnorm  weight, bias            <-> scale, bias;
                running_mean, running_var (buffers) <-> batch_stats mean, var
     stack      w3, b3, w1, b1          <-> the same, stacked per stage
+    lstm       w_ih (4H, I), w_hh (4H, H), b (4H), gates i, f, g, o
+               <-> cell/{ii,if,ig,io}/kernel (I, H), cell/{hi,hf,hg,ho}/kernel
+               (H, H) and cell/{hi,hf,hg,ho}/bias (flax's OptimizedLSTMCell:
+               one bias a gate, on the recurrent side)
 
 Module paths are the same on both sides ("model.cot.layer0.W_Q" is
 "params/model/cot/layer0/W_Q", "layer1_0.bn1.running_mean" is
 "batch_stats/layer1_0/bn1/mean"); frozen tables (COG's ``gest_embed`` and
 SRM's ``skill_embed``) are buffers on the port side and ``constants`` on
 the JAX side. Each rule has a transform into the port's layout and one
-back.
+back; an LSTM rule joins four flax leaves into one port parameter.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ _Rule = Tuple[str, Tuple[str, ...], _Transform, _Transform]
 _BATCHNORM = {"weight": ("params", ("scale",)), "bias": ("params", ("bias",)),
               "running_mean": ("batch_stats", ("mean",)),
               "running_var": ("batch_stats", ("var",))}
+_GATES = "ifgo"
+_LSTM = {"w_ih": ("i", "kernel"), "w_hh": ("h", "kernel"), "b": ("h", "bias")}
 
 
 def _leaf_rule(layout: str, pname: str) -> _Rule:
@@ -58,6 +65,9 @@ def _leaf_rule(layout: str, pname: str) -> _Rule:
     if layout == "conv":
         return (("params", ("Conv_0", "kernel"), _conv1d, _conv1d) if pname == "weight"
                 else ("params", ("Conv_0", "bias"), _same, _same))
+    if layout == "conv1d":
+        return (("params", ("kernel",), _conv1d, _conv1d) if pname == "weight"
+                else ("params", ("bias",), _same, _same))
     if layout == "conv2d":
         return ("params", ("kernel",), lambda a: a.transpose(3, 2, 0, 1),
                 lambda a: a.transpose(2, 3, 1, 0))
@@ -70,10 +80,22 @@ def _leaf_rule(layout: str, pname: str) -> _Rule:
     raise ValueError(f"unknown flax layout {layout!r}")
 
 
-def param_table(net: nn.Module) -> Dict[str, Tuple[str, _Transform, _Transform]]:
-    """port state_dict key -> (flax '/'-path, flax -> port transform, port ->
-    flax transform), for every entry of ``net.state_dict()``; raises if an
-    entry has no flax counterpart."""
+def _lstm_rules(prefix, pname: str):
+    """The four (flax path, to port, to flax) leaves of LSTM parameter
+    ``pname``: one a gate, each transposed for a kernel; the port's block
+    of gate k is rows k*H:(k+1)*H."""
+    side, leaf = _LSTM[pname]
+    fn = np.transpose if leaf == "kernel" else _same
+    return [("/".join(("params", *prefix, "cell", side + g, leaf)), fn, fn)
+            for g in _GATES]
+
+
+def param_table(net: nn.Module) -> Dict[str, list]:
+    """port state_dict key -> its flax leaves, each (flax '/'-path, flax ->
+    port transform, port -> flax transform), for every entry of
+    ``net.state_dict()``: one leaf, or an LSTM parameter's four gates
+    (stacked on axis 0 in the port); raises if an entry has no flax
+    counterpart."""
     table = {}
     for mod_name, module in net.named_modules():
         layout = getattr(module, "flax_layout", None)
@@ -84,9 +106,12 @@ def param_table(net: nn.Module) -> Dict[str, Tuple[str, _Transform, _Transform]]
         if layout == "batchnorm":
             entries += list(module.named_buffers(recurse=False))
         for pname, _ in entries:
-            collection, suffix, to_port, to_flax = _leaf_rule(layout, pname)
             key = ".".join((*prefix, pname))
-            table[key] = ("/".join((collection, *prefix, *suffix)), to_port, to_flax)
+            if layout == "lstm":
+                table[key] = _lstm_rules(prefix, pname)
+                continue
+            collection, suffix, to_port, to_flax = _leaf_rule(layout, pname)
+            table[key] = [("/".join((collection, *prefix, *suffix)), to_port, to_flax)]
     unmapped = set(net.state_dict()) - set(table)
     if unmapped:
         raise ValueError(f"port parameters with no flax layout: {sorted(unmapped)}")
@@ -108,14 +133,14 @@ def load_jax_params(tree: Dict, net: nn.Module):
     Raises unless every checkpoint leaf is consumed and every port
     parameter is filled with the right shape."""
     flat = flatten_tree(tree)
-    by_flax = {path: (key, to_port) for key, (path, to_port, _) in param_table(net).items()}
+    table = param_table(net)
+    by_flax = {path: key for key, leaves in table.items() for path, _, _ in leaves}
     consts = {path: name for name, path in _constant_table(net).items()}
-    state, constants, unknown = {}, {}, []
+    parts, constants, unknown = {}, {}, []
     for path, value in flat.items():
         arr = np.asarray(value, np.float32)
         if path in by_flax:
-            key, fn = by_flax[path]
-            state[key] = torch.tensor(fn(arr))
+            parts[path] = arr
         elif path in consts:
             constants[consts[path]] = torch.tensor(arr)
         else:
@@ -123,9 +148,15 @@ def load_jax_params(tree: Dict, net: nn.Module):
     if unknown:
         raise KeyError(f"checkpoint leaves with no port parameter: {sorted(unknown)}")
     expected = net.state_dict()
-    missing = sorted(set(expected) - set(state))
+    missing = sorted(key for key, leaves in table.items()
+                     if any(path not in parts for path, _, _ in leaves))
     if missing:
         raise KeyError(f"port parameters missing from the checkpoint: {missing}")
+    state = {}
+    for key, leaves in table.items():
+        arrays = [fn(parts[path]) for path, fn, _ in leaves]
+        state[key] = torch.tensor(arrays[0] if len(arrays) == 1
+                                  else np.concatenate(arrays, axis=0))
     for key, value in {**state, **constants}.items():
         want = expected[key].shape if key in expected else net.get_buffer(key).shape
         if value.shape != want:
@@ -145,16 +176,19 @@ def export_jax_params(net: nn.Module, grads: bool = False) -> Dict:
     flat = {}
     state = net.state_dict()
     params = dict(net.named_parameters())
-    for key, (path, _, to_flax) in param_table(net).items():
+    for key, leaves in param_table(net).items():
         value = state[key]
         if grads:
             if key not in params:       # running statistics get no gradient
                 continue
             p = params[key]
             value = p.grad if p.grad is not None else torch.zeros_like(p)
-        # a copy: on the CPU .numpy() shares the parameter's memory, which the
-        # optimiser's next step overwrites in place
-        flat[path] = np.array(to_flax(value.detach().cpu().numpy()), order="C")
+        value = value.detach().cpu().numpy()
+        blocks = np.split(value, len(leaves), axis=0) if len(leaves) > 1 else [value]
+        for (path, _, to_flax), block in zip(leaves, blocks):
+            # a copy: on the CPU .numpy() shares the parameter's memory, which
+            # the optimiser's next step overwrites in place
+            flat[path] = np.array(to_flax(block), order="C")
     if not grads:
         for name, path in _constant_table(net).items():
             flat[path] = net.get_buffer(name).detach().cpu().numpy().copy()

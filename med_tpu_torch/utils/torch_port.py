@@ -1,6 +1,6 @@
 """Reference-checkpoint interop: import the reference's torch state_dicts
-(the port's copy of the frame-family part of ``med_tpu.utils.torch_port``:
-COG, TeCNo, TransSVNet).
+(the port's copy of ``med_tpu.utils.torch_port``: the window models, COG,
+TeCNo and TransSVNet).
 
 The reference saves ``{'feature_extractor': state_dict, 'model':
 state_dict}`` per fold (modeling_utils.py:3028-3040). The importers here map
@@ -9,7 +9,10 @@ those onto the same nested tree that ``med_tpu``'s importer returns (the
 :func:`med_tpu_torch.utils.jax_params.load_jax_params` like any other.
 
 Layout conversions: Linear (O, I) -> kernel (I, O); Conv1d (O, I, K) ->
-kernel (K, I, O); a TCN stage's per-layer convs are stacked (L, ...).
+kernel (K, I, O); a TCN stage's per-layer convs are stacked (L, ...); LSTM
+gates torch [i, f, g, o] blocks -> flax per-gate kernels, the two torch
+biases summed into flax's one; the first dense after the CNN's flatten is
+reordered channel-major -> time-major.
 """
 
 from __future__ import annotations
@@ -51,6 +54,99 @@ def import_feature_extractor(sd: Dict[str, Any]) -> dict:
         params[f"dense{i}"] = _dense(sd, f"linear.linear_{i}")
     params["out"] = _dense(sd, "linear.output")
     return params
+
+
+def _bn(sd, prefix):
+    return (
+        {"scale": _n(sd[prefix + ".weight"]), "bias": _n(sd[prefix + ".bias"])},
+        {"mean": _n(sd[prefix + ".running_mean"]),
+         "var": _n(sd[prefix + ".running_var"])},
+    )
+
+
+def _sequential_indices(sd: Dict[str, Any], prefix: str):
+    """(index, kind) pairs for a torch Sequential: kind in conv/linear/bn."""
+    out = {}
+    for k in sd:
+        m = re.fullmatch(rf"{prefix}\.(\d+)\.weight", k)
+        if not m:
+            continue
+        i = int(m.group(1))
+        w = _n(sd[k])
+        if f"{prefix}.{i}.running_mean" in sd:
+            out[i] = "bn"
+        elif w.ndim == 3:
+            out[i] = "conv"
+        elif w.ndim == 2:
+            out[i] = "linear"
+    return [out[i] for i in sorted(out)], sorted(out)
+
+
+def _import_head(sd: Dict[str, Any], params: dict, stats: dict,
+                 flatten_channels=None) -> None:
+    """The reference's ``linear_layers`` Sequential -> the head's dense{i},
+    bn{i} and out. ``flatten_channels``: the CNN's last conv width, whose
+    channel-major flatten the first dense's kernel is reordered from."""
+    kinds, idxs = _sequential_indices(sd, "linear_layers")
+    dense_i = bn_i = 0
+    n_linear = sum(1 for k in kinds if k == "linear")
+    for kind, i in zip(kinds, idxs):
+        if kind == "linear":
+            p = _dense(sd, f"linear_layers.{i}")
+            if dense_i == 0 and flatten_channels:
+                # torch flattened (C, L) channel-major; ours is (L, C)
+                w = _n(sd[f"linear_layers.{i}.weight"])  # (out, C*L)
+                C = flatten_channels
+                L = w.shape[1] // C
+                p["kernel"] = w.reshape(w.shape[0], C, L).transpose(2, 1, 0).reshape(
+                    L * C, w.shape[0])
+            name = "out" if dense_i == n_linear - 1 else f"dense{dense_i}"
+            params["head"][name] = p
+            dense_i += 1
+        else:
+            params["head"][f"bn{bn_i}"], stats["head"][f"bn{bn_i}"] = _bn(
+                sd, f"linear_layers.{i}")
+            bn_i += 1
+
+
+def import_window_cnn(sd: Dict[str, Any]) -> Tuple[dict, dict]:
+    """Reference CNN state_dict -> (params, batch_stats) for WindowCNN."""
+    params: Dict[str, Any] = {"head": {}}
+    stats: Dict[str, Any] = {"head": {}}
+    kinds, idxs = _sequential_indices(sd, "convolutional_layers")
+    conv_i = bn_i = 0
+    last_conv_channels = None
+    for kind, i in zip(kinds, idxs):
+        if kind == "conv":
+            params[f"conv{conv_i}"] = _conv1d(sd, f"convolutional_layers.{i}")
+            last_conv_channels = params[f"conv{conv_i}"]["kernel"].shape[-1]
+            conv_i += 1
+        else:
+            params[f"bn{bn_i}"], stats[f"bn{bn_i}"] = _bn(sd, f"convolutional_layers.{i}")
+            bn_i += 1
+    _import_head(sd, params, stats, last_conv_channels)
+    return params, stats
+
+
+def import_window_lstm(sd: Dict[str, Any], hidden_size: int = 128) -> Tuple[dict, dict]:
+    """Reference LSTM state_dict -> (params, batch_stats) for WindowLSTM."""
+    params: Dict[str, Any] = {"head": {}}
+    stats: Dict[str, Any] = {"head": {}}
+    H = hidden_size
+    layer = 0
+    while f"lstm.weight_ih_l{layer}" in sd:
+        w_ih = _n(sd[f"lstm.weight_ih_l{layer}"])
+        w_hh = _n(sd[f"lstm.weight_hh_l{layer}"])
+        b = _n(sd[f"lstm.bias_ih_l{layer}"]) + _n(sd[f"lstm.bias_hh_l{layer}"])
+        cell = {}
+        for gi, g in enumerate("ifgo"):
+            sl = slice(gi * H, (gi + 1) * H)
+            cell[f"i{g}"] = {"kernel": w_ih[sl].T}
+            cell[f"h{g}"] = {"kernel": w_hh[sl].T, "bias": b[sl]}
+        params[f"lstm{layer}"] = {"cell": cell}
+        layer += 1
+    _import_head(sd, params, stats)
+    return params, stats
 
 
 def _dense_nb(sd, prefix):
@@ -198,24 +294,32 @@ def import_cog(sd: Dict[str, Any]) -> Tuple[dict, dict, dict]:
     return p, {}, constants
 
 
-def import_reference_checkpoint(path: str, model_name: str) -> dict:
+def import_reference_checkpoint(path: str, model_name: str,
+                                hidden_size: int = 128) -> dict:
     """Load a reference ``best_model_*.pt`` into the ``med_tpu`` checkpoint
     layout ({'params': {'fe': ..., 'model': ...}, 'batch_stats': {'model':
-    ...}, and 'constants': {'model': ...} for COG's frozen prompt tables}).
-    The frame families only: the window families' importers come with their
-    models."""
-    if model_name in ("SimpleCNN", "Siamese_CNN", "SimpleLSTM", "Siamese_LSTM"):
-        raise NotImplementedError(
-            f"importing a reference {model_name} checkpoint is not ported yet: "
-            "ROADMAP.md Queue A7 (window families)")
-    if model_name not in ("COG", "TeCNo", "TransSVNet"):
+    ...}, and 'constants': {'model': ...} for COG's frozen prompt tables}),
+    for all seven model families (load paths modeling_utils.py:2241-2329).
+
+    A siamese twin's state dict holds its shared branch's keys; the tree puts
+    them under "branch", where the twin's model holds them. (``med_tpu``'s
+    importer returns the branch's tree at the top, which its own twins do
+    not take.)"""
+    window = {"SimpleCNN": import_window_cnn, "Siamese_CNN": import_window_cnn,
+              "SimpleLSTM": lambda sd: import_window_lstm(sd, hidden_size),
+              "Siamese_LSTM": lambda sd: import_window_lstm(sd, hidden_size)}
+    if model_name not in (*window, "COG", "TeCNo", "TransSVNet"):
         raise ValueError(f"unknown reference model name {model_name!r}")
     blob = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     if blob.get("feature_extractor"):
         out["params"]["fe"] = import_feature_extractor(blob["feature_extractor"])
     constants: Dict[str, Any] = {}
-    if model_name == "TeCNo":
+    if model_name in window:
+        p, s = window[model_name](blob["model"])
+        if model_name.startswith("Siamese"):
+            p, s = {"branch": p}, {"branch": s}
+    elif model_name == "TeCNo":
         p, s = import_tecno(blob["model"])
     elif model_name == "TransSVNet":
         p, s = import_transsvnet(blob["model"])

@@ -14,7 +14,9 @@ front end on the card against the CPU; K1 and K3 at the error-specific
 regime's shapes (m = 45 and 8 queries a frame, a trial group's 16 heads),
 the bf16 path launching no TCN kernel, and a trial group's step launching
 the attention once a layer for both trials, its gradients equal to the
-CPU's. They need an NVIDIA GPU and skip without one. This file imports no
+CPU's; one train step of each window model on the card against the CPU
+(cuDNN's convs and LSTMs, with TF32 off once an Experiment is made). They
+need an NVIDIA GPU and skip without one. This file imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -1290,3 +1292,82 @@ def test_trial_group_step_launches_the_attention_once_a_group(cuda_device, rng):
     for path, got in leaves(results[0][1]):
         atol = (5e-4 if "/ffn/Dense_" in path else 1e-5) * np.abs(want[path]).max()
         np.testing.assert_allclose(got, want[path], rtol=1e-4, atol=atol, err_msg=path)
+
+
+def _window_batch(rng, cfg, B=32):
+    shape = (B, 2, cfg.window_size) if cfg.siamese else (B, cfg.window_size)
+    return {"images": rng.normal(size=shape + (2048,)).astype(np.float32),
+            "kinematics": rng.normal(size=shape + (26,)).astype(np.float32),
+            "labels": rng.integers(0, 2, B), "mask": (np.arange(B) < B - 5).astype(np.float32)}
+
+
+def _window_step(cfg, batch, masks, device, dtype):
+    """Loss, gradients and running statistics (flat med_tpu paths, float64
+    numpy) of one train step from seeded weights, in ``dtype``."""
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    exp = Experiment(cfg, device=device)
+    exp.init_weights(3, np.asarray([0.7, 0.3], np.float32))
+    exp.net.to(dtype)
+    data = {k: torch.as_tensor(v, device=exp.device,
+                               dtype=dtype if v.dtype == np.float32 else None)
+            for k, v in batch.items()}
+    exp._tensors = dict
+    moved = (tuple([m.to(exp.device) for m in ms] for ms in masks) if cfg.siamese
+             else [m.to(exp.device) for m in masks])
+    loss, _ = exp.compute_gradients(data, masks=moved)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}") if isinstance(v, dict)
+                       else {f"{prefix}/{k}": np.asarray(v, np.float64)})
+        return out
+
+    return (loss.item(), flat(export_jax_params(exp.net, grads=True)["params"]),
+            flat(export_jax_params(exp.net)["batch_stats"]))
+
+
+@pytest.mark.parametrize("model_name,frequency", [("SimpleCNN", 5), ("SimpleCNN", 15),
+                                                  ("SimpleLSTM", 5), ("Siamese_CNN", 5),
+                                                  ("Siamese_LSTM", 5)])
+def test_window_train_step_same_on_card_and_cpu(cuda_device, rng, model_name, frequency):
+    """An Experiment switches TF32 off (PyTorch leaves cuDNN's on); then one
+    train step from the same weights, batch and masks on the card (float32)
+    and on the CPU (float64), the card's relu, max-pool and |f1 - f2|
+    choices pinned to the CPU's (chip_smoke.py's ``_window_pins``: a choice
+    within float32's noise of a tie moves a whole row's gradient term): the
+    loss (1e-5), the running statistics (1e-5 of each one's largest), every
+    gradient leaf within 1e-5 of the tree's largest gradient. (Per leaf, a
+    twin's gradients are differences of its two branches' terms; the smoke
+    holds each leaf to its own largest at full width.)"""
+    import sys
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import _window_pins
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.train.engine import Experiment
+
+    cfg = ExperimentConfig(model_name=model_name, frequency=frequency, pos_weight=True,
+                           siamese=model_name.startswith("Siamese"))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    Experiment(cfg)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    batch = _window_batch(rng, cfg)
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        32, torch.Generator().manual_seed(1))
+    record = []
+    with _window_pins(record=record):
+        ref_loss, ref, ref_stats = _window_step(cfg, batch, masks, "cpu", torch.float64)
+    with _window_pins(pin=record, flips=[]):
+        loss, card, stats = _window_step(cfg, batch, masks, "cuda", torch.float32)
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for path, w in ref_stats.items():
+        assert np.abs(stats[path] - w).max() <= 1e-5 * np.abs(w).max(), path
+    scale = max(np.abs(w).max() for w in ref.values())
+    for path, w in ref.items():
+        assert np.abs(card[path] - w).max() <= 1e-5 * scale, path

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_med_tpu():
                  "train.optim", "ops.metrics", "data.preprocessing", "models.resnet",
                  "ops.resnet_fused", "cli.common", "cli.train_frame", "tracking",
                  "data.trials", "data.windowing", "eval.summary", "eval.rollup",
-                 "utils.torch_port"):
+                 "utils.torch_port", "models.window_models", "data.siamese",
+                 "cli.train_window", "cli.train_window_es",
+                 "cli.train_window_es_sequential"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 

@@ -124,8 +124,23 @@ def test_imported_reference_cog_gives_the_same_logits_in_both_packages(reference
 
 @pytest.mark.parametrize("family, roadmap", [("SimpleLSTM", "A7"), ("Siamese_CNN", "A7"),
                                              ("SimpleCNN", "A7"), ("Siamese_LSTM", "A7")])
-def test_other_families_importers_name_their_roadmap_item(reference_blob, family, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        tport.import_reference_checkpoint(reference_blob[2], family)
+def test_other_families_importers_name_their_roadmap_item(tmp_path, rng, family, roadmap):
+    """The window families' importers, refused naming their roadmap item
+    until it was ported (A7), take a reference blob of their family into
+    the port's model; an unknown family still raises. (Their parity with
+    med_tpu's importer: tests/test_torch_siamese.py.)"""
+    from test_torch_siamese import _reference_blob
+
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.models import build_model
+
+    path = str(tmp_path / "best_model_LOSO_1Out.pt")
+    _reference_blob(path, family, rng)
+    tree = tport.import_reference_checkpoint(path, family)
+    model = build_model(ExperimentConfig(model_name=family))
+    state, _ = load_jax_params({"params": tree["params"]["model"],
+                                "batch_stats": tree["batch_stats"]["model"]}, model)
+    model.load_state_dict(state, strict=True)
+    assert roadmap == "A7" and set(tree["params"]) == {"fe", "model"}
     with pytest.raises(ValueError, match="unknown"):
-        tport.import_reference_checkpoint(reference_blob[2], "ResNet")
+        tport.import_reference_checkpoint(path, "ResNet")
