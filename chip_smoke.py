@@ -116,7 +116,30 @@ non-zero and the last line is not printed:
    and ``train_window_es_sequential.main --run-id`` the SimpleLSTM run on
    phase 8's folds; no kernel launched in the whole phase (the window path
    reaches none of the eleven; cuDNN and cuBLAS compute it);
-11. a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+11. ensemble (``[ensemble]`` lines): two SimpleCNN runs (video through the
+   FeatureExtractor, and kinematics) by ``train_window.main`` on phase 8's
+   folds; ``cli.ensemble.main`` offline (the soft vote of the two with its
+   overlap line; the cascade of phase 8's binary COG run over phase 9's
+   6-class ES run, whose Needle-Drop-only frames it reconciles) and
+   ``--serve --data-root`` with and without ``--int8-fe`` (served decisions
+   equal the offline soft vote wherever its probability is clear of 0.5;
+   the int8 FE's within 3e-2; 3 int8 launches a request), a B = 512
+   request's time each way; raw-frame folds (uint8 224x224 trials of 120,
+   200 and 300 frames, phase 7's seeded trunk as each fold's fine-tune
+   checkpoint) served by ``--serve --pixels-root`` in bf16, fp32 and
+   ``--int8-trunk --int8-fe`` (53 int8 launches a trunk batch) and the
+   T = 300 request's latency through each trunk; the int8 kernel
+   (``csrc/int8_conv.cu``, not a TPU kernel) against its plain version on
+   every conv of a full-width trunk at B = 128 and on the FE's layers at
+   B = 512 windows (int32 accumulators equal, int8 codes within one step,
+   flips counted), the int8 features against the fp32 trunk (per-row
+   cosine, card against CPU bit for bit), its time against its bound and
+   the yardsticks (the cuDNN bf16 module trunk; ``torch._int_mm`` with the
+   epilogue in PyTorch ops); ``cli.results`` over the two runs (``hist``
+   and the drivers' ``images/`` where matplotlib is installed);
+12. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
+   int8 kernel's, on the int8 trunk's and FE's paths), then
+   ``{"ok": true, "device": ...}`` last.
 A ``[time]`` line gives each phase's wall time.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
@@ -126,8 +149,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -2130,6 +2155,19 @@ def phase_driver(root: Path):
     return launches, family_runs, splits, run.name
 
 
+def _image_files(splits, classes: int) -> set:
+    """The plots a driver writes into a run's images/ (med_tpu's names):
+    each fold's curves and the best epoch's test confusion matrix; none
+    where matplotlib is not installed (the driver prints `plotting
+    skipped`)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return set()
+    cm = "LOSO_Test_Confusion_Matrix" + ("_global.png" if classes == 2 else ".png")
+    return {f"images/LOSO_fold_{fold}_results.png" for fold in splits} | {f"images/{cm}"}
+
+
 def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
                       width: dict, classes: int = 2, first: int = 0, tag: str = None,
                       test_frames=None) -> None:
@@ -2147,7 +2185,7 @@ def _check_driver_run(run: Path, experiment: str, splits, results, wall: float,
     if run.parent.name != experiment:
         raise RuntimeError(f"run directory {run} is not under {experiment}")
     want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json",
-                  "artifacts/windowed_metrics.json"}
+                  "artifacts/windowed_metrics.json"} | _image_files(splits, classes)
     for fold in splits:
         want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
                        f"checkpoints/best_model_LOSO_{fold}.npz",
@@ -2303,7 +2341,7 @@ def _es_clis(root: Path, splits, cog_run: str) -> dict:
     n_train = sum(len(tr) for tr, _ in trials.values())
     n_test = sum(len(te) for _, te in trials.values())
     test_frames = {fold: sum(t.n_frames for t in te) for fold, (_, te) in trials.items()}
-    runs = {}
+    runs, ids = {}, {}
     for name, main, extra, fixed, classes, first in (
             ("train_frame_es", train_frame_es.main, [],
              {"error_type": "all_errors", "out_features": 6, "smooth_lambda": 0.15}, 6, 0),
@@ -2317,7 +2355,7 @@ def _es_clis(root: Path, splits, cog_run: str) -> dict:
         results, tracker = main([*argv, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        runs[name] = ops.launch_counts()
+        runs[name], ids[name] = ops.launch_counts(), tracker.run_id
         want = {**forward_launches(2 * n_train + 2 * n_test + gates),
                 **backward_launches(2 * n_train)}
         log(f"[es] {name}: launches over {2 * n_train} train steps, {2 * n_test} eval "
@@ -2331,7 +2369,7 @@ def _es_clis(root: Path, splits, cog_run: str) -> dict:
             "d_model": 64, "num_R": 3, "delete_ND": True, "mstcn_stages": 8,
             "n_epochs": 2, **fixed}, classes=classes, first=first, tag=f"[es] {name}",
             test_frames=test_frames)
-    return runs
+    return runs, ids
 
 
 def _es_bf16(train, test) -> dict:
@@ -2468,17 +2506,18 @@ def _es_groups(train, test) -> dict:
 def phase_es(root: Path, splits, cog_run: str):
     """The error-specific frame regime on the card (phase 9 of the module
     docstring). Returns (variants' launches, the ES CLIs', bf16 folds',
-    the grouped fold's)."""
+    the grouped fold's, the ES run's id)."""
     rng = np.random.default_rng(SEED)
     stats = {"kinematics": {"mean": rng.standard_normal(26, dtype=np.float32),
                             "std": rng.uniform(0.5, 2.0, 26).astype(np.float32)}}
     variants = _es_variants(stats)
-    clis = _es_clis(root, splits, cog_run)
+    clis, ids = _es_clis(root, splits, cog_run)
     rng = np.random.default_rng(SEED)
     train = [_trial(rng, T, f"Needle_Passing_{'BCDE'[i]}00{i + 1}")
              for i, T in enumerate(TRAIN_FRAMES)]
     test = [_trial(rng, T, f"Needle_Passing_F00{i + 1}") for i, T in enumerate(TEST_FRAMES)]
-    return variants, clis, _es_bf16(train, test), _es_groups(train, test)
+    return (variants, clis, _es_bf16(train, test), _es_groups(train, test),
+            ids["train_frame_es"])
 
 
 # the window families (phase 10): the smoke's configurations, the CLI
@@ -2782,12 +2821,13 @@ def _window_folds(root: Path, splits, profile: bool) -> None:
 def _check_window_run(run: Path, experiment: str, splits, results, wall: float,
                       width: dict, classes: int, tag: str) -> None:
     """Raise unless a window run's directory is whole (med_tpu's layout:
-    no windowed metrics, no plots yet), its config has ``width``, its
-    summary is finite and its best rows carry finite losses and a
-    ``classes`` confusion matrix; log its wall split."""
+    no windowed metrics), its config has ``width``, its summary is finite
+    and its best rows carry finite losses and a ``classes`` confusion
+    matrix; log its wall split."""
     if run.parent.name != experiment:
         raise RuntimeError(f"run directory {run} is not under {experiment}")
-    want_files = {"params.json", "metrics.jsonl", "artifacts/summary.json"}
+    want_files = {"params.json", "metrics.jsonl",
+                  "artifacts/summary.json"} | _image_files(splits, classes)
     for fold in splits:
         want_files |= {f"artifacts/best_model_LOSO_{fold}.json",
                        f"checkpoints/best_model_LOSO_{fold}.npz",
@@ -2881,6 +2921,484 @@ def phase_window(root: Path, splits, profile: bool) -> dict:
     return launches
 
 
+# the ensembles (phase 11): the window CLIs' batch a served request, raw-frame
+# trials (T frames each) and which of them each pixel fold trains and tests
+# on, the int8 tensor cores' dense peak, and the tolerances
+ENSEMBLE_BATCH = 512
+PIXEL_TRIALS = (120, 200, 300)
+PIXEL_SPLITS = {"1Out": ((0, 1), (2,)), "2Out": ((1, 2), (0,))}
+PEAK_INT8_OPS = 1.979e15
+CARD = "cuda"
+SERVE_TOL = {"offline": 1e-4, "int8_fe": 3e-2}
+
+
+def _cli_lines(main, argv, tag: str) -> list:
+    """Run a command line's ``main``, log its printed lines and return them;
+    raise unless every F1 it prints is a finite number."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"{tag}   {line}")
+    f1s = [float(v) for line in lines
+           for v in re.findall(r"(?:f1=|F1: )(\S+)", line)]
+    if not f1s or not all(math.isfinite(v) for v in f1s):
+        raise RuntimeError(f"{tag}: F1 not finite or not printed: {lines}")
+    return lines
+
+
+def _int8_conv_work(x, w, out, residual=None) -> tuple:
+    """(operations, bytes) of one int8 conv launch: 2 M N K, and each operand
+    read once (x, w, the scales and biases, the residual) and the output
+    written once."""
+    M = out[..., 0].numel()
+    N, K = w.shape[0], w[0].numel()
+    nbytes = x.numel() + w.numel() + 8 * N + out.numel() * out.element_size()
+    if residual is not None:
+        nbytes += residual.numel() * residual.element_size()
+    return 2 * M * N * K, nbytes
+
+
+class _Int8Check:
+    """While it is entered, every launch of ``ops.quant.int8_conv`` (the int8
+    trunk's and FE's forwards call it by module attribute) is checked
+    against the plain version on the same inputs: int32 accumulators equal,
+    the epilogue's codes within one step (flips counted) or its fp32
+    equal; each launch's arguments are kept for timing."""
+
+    def __init__(self):
+        from med_tpu_torch.ops import quant
+
+        self.tq, self.calls, self.flips, self.codes, self.err = quant, [], 0, 0, 0.0
+        self.classes = {}
+
+    def __enter__(self):
+        self.kernel = self.tq.int8_conv
+        self.tq.int8_conv = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        self.tq.int8_conv = self.kernel
+
+    def _checked(self, x, w, wscale, bias, **kw):
+        kh, stride = w.shape[1], kw.get("stride", 1)
+        if x.shape[1] == x.shape[2] == 1 and kh == 1:
+            cls = f"dense {w.shape[-1]}->{w.shape[0]}"
+        elif kh == 1 and kw.get("out_scale") is None:
+            cls = f"down 1x1/{stride}"
+        else:
+            cls = {7: "conv1 7x7/2", 3: f"3x3/{stride}", 1: "1x1"}[kh]
+        args = (x, w, wscale, bias)
+        geometry = {k: v for k, v in kw.items() if k in ("s_in", "stride", "pad")}
+        acc = self.kernel(*args, accumulators=True, **geometry)
+        want = self.tq.int8_conv_plain(*args, accumulators=True, **geometry)
+        if not torch.equal(acc, want):
+            raise RuntimeError(f"int8_conv {cls}: int32 accumulators differ from the plain "
+                               f"version's in {(acc != want).sum().item()} places")
+        out = self.kernel(*args, **kw)
+        ref = self.tq.int8_conv_plain(*args, **kw)
+        if out.dtype == torch.int8:
+            diff = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+            if int(diff.max()) > 1:
+                raise RuntimeError(f"int8_conv {cls}: codes differ by {int(diff.max())}")
+            self.flips += int((diff > 0).sum())
+            self.codes += diff.numel()
+        else:
+            diff = (out - ref).abs()
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"int8_conv {cls}: fp32 epilogue differs by "
+                                   f"{diff.max().item():.3e}")
+        self.err = max(self.err, float((acc - want).abs().max()), float(diff.max()))
+        self.classes[cls] = self.classes.get(cls, 0) + 1
+        self.calls.append((cls, args, kw, _int8_conv_work(x, w, out, kw.get("residual"))))
+        return out
+
+    def timing(self, iters: int = 5) -> dict:
+        """Each kept launch timed alone (CUDA events), its plain version once;
+        sums, by shape class too, with the bound of the launches' work."""
+        tq = self.tq
+        by_class = {}
+        for cls, a, k, _ in self.calls:
+            t = cuda_ms(lambda a=a, k=k: tq.int8_conv(*a, **k), iters)
+            by_class[cls] = by_class.get(cls, 0.0) + t
+        plain = sum(cuda_ms(lambda a=a, k=k: tq.int8_conv_plain(*a, **k), 1, warmup=1)
+                    for _, a, k, _ in self.calls)
+        ops = sum(w[0] for *_, w in self.calls)
+        nbytes = sum(w[1] for *_, w in self.calls)
+        b_ms, by = bound(nbytes, ops, PEAK_INT8_OPS)
+        return {"ms": sum(by_class.values()), "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": by, "ops": ops, "bytes": nbytes, "by_class": by_class}
+
+
+def _int_mm_fe(qfe, xq):
+    """The FE's three layers through ``torch._int_mm`` (cuBLASLt int8) and the
+    epilogue in PyTorch ops: the library yardstick of the FE's launches."""
+    from med_tpu_torch.ops.quant import _f32, quantize_tensor
+
+    layers = qfe["layers"]
+    x = xq.reshape(-1, xq.shape[-1])
+    for i, qd in enumerate(layers):
+        acc = torch._int_mm(x, qd["wq"].t())
+        y = acc.to(torch.float32) * (_f32(qd["in_scale"]) * qd["wscale"]) + qd["bias"]
+        if i + 1 == len(layers):
+            return y
+        x = quantize_tensor(torch.relu(y), layers[i + 1]["in_scale"])
+
+
+def _write_pixel_folds(root: Path, mean_std_ckpt: str) -> dict:
+    """Raw-frame trials (PIXEL_TRIALS, 224x224 uint8 under image_feats,
+    kinematics, 40-frame gesture runs, errors) in load_fold_trials' layout,
+    two folds listing them (PIXEL_SPLITS), and each fold's fine-tune
+    checkpoint: phase 7's seeded trunk with its mean/std meta. Returns the
+    checkpoint pattern."""
+    rng = np.random.default_rng(SEED + 5)
+    shared = root / "trials"
+    shared.mkdir(parents=True)
+    names = [f"Needle_Passing_{'BCD'[i]}00{i + 1}" for i in range(len(PIXEL_TRIALS))]
+    for name, T in zip(names, PIXEL_TRIALS):
+        e = np.zeros((T, 5), np.int64)
+        e[:, 4] = np.repeat(rng.integers(0, 2, T // 20 + 1), 20)[:T]
+        e[np.arange(T), rng.integers(0, 4, T)] = e[:, 4]
+        np.savez(shared / f"{name}.npz",
+                 image_feats=rng.integers(0, 256, (T, TRUNK["frame"], TRUNK["frame"], 3),
+                                          dtype=np.uint8),
+                 kinematics_feats=rng.standard_normal((T, 26), dtype=np.float32),
+                 g_labels=np.repeat(rng.integers(1, 9, T // 40 + 1), 40)[:T], e_labels=e)
+    for fold, (train, test) in PIXEL_SPLITS.items():
+        (root / fold).mkdir()
+        for csv, idx in (("train.csv", train), ("test.csv", test)):
+            (root / fold / csv).write_text("\n".join(f"../trials/{names[i]}.npz"
+                                                     for i in idx))
+        for ext in ("", ".json"):
+            shutil.copy(mean_std_ckpt + ext, root / f"resnet50_{fold}.npz{ext}")
+    return str(root / "resnet50_{fold}.npz")
+
+
+def _ensemble_serving(root: Path, splits, runs: dict) -> dict:
+    """The two window runs served live by ``load_ensemble`` on each fold's
+    test windows: decisions against the offline soft vote of their stored
+    dumps, the int8 FE (and the int8 feature store) against fp32, launches,
+    and a B = ENSEMBLE_BATCH request's time each way. Returns the FE's
+    tensors for the kernel check."""
+    from med_tpu_torch.cli.ensemble import _feature_store
+    from med_tpu_torch.data.datasets import build_window_fold
+    from med_tpu_torch.eval.ensemble import soft_vote
+    from med_tpu_torch.eval.results import load_run_dumps
+    from med_tpu_torch.config import run_config
+    from med_tpu_torch.eval.serving import load_ensemble
+    from med_tpu_torch.ops.quant import int8_conv
+    from med_tpu_torch.tracking import RunTracker
+
+    runs_root = str(root / "runs")
+    ids = [runs["video"], runs["kinematics"]]
+    cfg = run_config(RunTracker.find_run(runs_root, ids[0]))
+    dumps = [load_run_dumps(runs_root, r, "LOSO", list(splits)) for r in ids]
+    out = {}
+    for fold in splits:
+        train, test = build_window_fold(str(root / "data" / fold), cfg)
+        server = load_ensemble(runs_root, ids, "LOSO", fold)
+        preds, probs = server.predict(test.images, test.kinematics)
+        off_preds, off_p = soft_vote(dumps[0][fold]["probs"], dumps[1][fold]["probs"])
+        clear = np.abs(off_p - 0.5) > SERVE_TOL["offline"]
+        if not np.array_equal(preds[clear], off_preds[clear]):
+            raise RuntimeError(f"[ensemble] {fold}: served decisions differ from the offline "
+                               f"soft vote at {(preds[clear] != off_preds[clear]).sum()}")
+        server8 = load_ensemble(runs_root, ids, "LOSO", fold,
+                                int8_fe_calib=np.asarray(train.images[:64], np.float32))
+        store = _feature_store(server8, np.asarray(test.images, np.float32))
+        int8_conv.launches = 0
+        preds8, probs8 = server8.predict(store, test.kinematics)
+        launches = int8_conv.launches
+        if store.dtype != np.int8 or launches != 3:
+            raise RuntimeError(f"[ensemble] {fold}: int8 store {store.dtype}, {launches} "
+                               "int8 launches a request (3 designed)")
+        drift = float(np.abs(probs8 - probs).max())
+        clear8 = np.abs(probs - 0.5) > SERVE_TOL["int8_fe"]
+        if drift > SERVE_TOL["int8_fe"] or not np.array_equal(preds8[clear8], preds[clear8]):
+            raise RuntimeError(f"[ensemble] {fold}: the int8 FE moves probabilities by "
+                               f"{drift:.3e}")
+        log(f"[ensemble] {fold}: {len(test)} test windows served: decisions equal the offline "
+            f"soft vote at the {int(clear.sum())} clear of 0.5 by {SERVE_TOL['offline']} "
+            f"(probabilities {np.abs(probs - off_p).max():.3e} apart); --int8-fe: 3 int8 "
+            f"launches a request, probabilities within {drift:.3e} of fp32")
+        out[fold] = (server, server8, test)
+    server, server8, test = out[next(iter(splits))]
+    reps = -(-ENSEMBLE_BATCH // len(test))
+    images = np.concatenate([test.images] * reps)[:ENSEMBLE_BATCH].astype(np.float32)
+    kin = np.concatenate([test.kinematics] * reps)[:ENSEMBLE_BATCH].astype(np.float32)
+    store = _feature_store(server8, images)
+    dev = server.device
+    x, k = (torch.from_numpy(a).to(dev) for a in (images, kin))
+    xq = torch.from_numpy(store).to(dev)
+    times = {"fp32": cuda_ms(lambda: server.predict_tensors(x, k), 10),
+             "int8 FE": cuda_ms(lambda: server8.predict_tensors(x, k), 10),
+             "int8 store": cuda_ms(lambda: server8.predict_tensors(xq, k), 10)}
+    host = {}
+    for name, srv, imgs in (("fp32", server, images), ("int8 store", server8, store)):
+        t = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            srv.predict(imgs, kin)
+            t.append((time.perf_counter() - t0) * 1e3)
+        host[name] = statistics.median(t[1:])
+    log(f"[ensemble] soft-vote request at B={ENSEMBLE_BATCH}, W={cfg.window_size}, windows on "
+        f"the card: " + ", ".join(f"{n} {v:.3f} ms" for n, v in times.items())
+        + "; numpy in and out (the pageable upload of "
+        f"{images.nbytes / 1e6:.1f} MB fp32 or {store.nbytes / 1e6:.1f} MB int8): "
+        + ", ".join(f"{n} {v:.3f} ms" for n, v in host.items()))
+    return {"qfe": server8.members[0].qfe, "store": xq, "images": x}
+
+
+def _int8_kernel_checks(pixel_ckpt: str, serving: dict) -> dict:
+    """The int8 kernel against its plain version on the card at the full-width
+    trunk (B = TRUNK_BATCH) and at the FE (B = ENSEMBLE_BATCH windows): every
+    conv of a trunk forward and each FE layer (accumulators equal, codes
+    within +-1, counted), the int8 features against the fp32 trunk (per-row
+    cosine, beside the CPU's for the same frames), times against the bound
+    and the yardsticks. Returns the kernels line's two entries."""
+    from med_tpu_torch.eval.serving import PixelFrontEnd
+    from med_tpu_torch.ops import quant as tq
+
+    geometry = dict(stage_sizes=TRUNK["stage_sizes"], width=TRUNK["width"])
+    rng = np.random.default_rng(SEED + 6)
+    frames = rng.integers(0, 256, (TRUNK_BATCH, TRUNK["frame"], TRUNK["frame"], 3), np.uint8)
+    calib = frames[:CALIB_FRAMES]
+    int8 = PixelFrontEnd.from_checkpoint(pixel_ckpt, int8=True, calib_frames=calib,
+                                         batch_size=TRUNK_BATCH, **geometry)
+    fp32 = PixelFrontEnd.from_checkpoint(pixel_ckpt, dtype=torch.float32,
+                                         batch_size=TRUNK_BATCH, **geometry)
+    bf16 = PixelFrontEnd.from_checkpoint(pixel_ckpt, batch_size=TRUNK_BATCH, **geometry)
+    x = int8._preprocess(torch.from_numpy(frames).to(CARD))
+    with torch.no_grad(), _Int8Check() as walk:
+        feats = tq.resnet50_int8_apply(int8.qt, x, TRUNK["stage_sizes"])
+    with torch.no_grad():
+        ref = fp32.net(x)
+    want = {"conv1 7x7/2": 1, "1x1": 32, "3x3/1": 13, "3x3/2": 3, "down 1x1/1": 1,
+            "down 1x1/2": 3}
+    if TRUNK == {"stage_sizes": (3, 4, 6, 3), "width": 64, "frame": 224} and \
+            walk.classes != want:
+        raise RuntimeError(f"int8 trunk conv classes {walk.classes} != {want}")
+    if walk.flips > 1e-4 * walk.codes:
+        raise RuntimeError(f"int8 trunk: {walk.flips} of {walk.codes} codes flipped")
+
+    def cosine(a, b):
+        a, b = a.double(), b.double()
+        return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+    cos = cosine(feats, ref)
+    # the CPU's figure: the same tree and frames through the plain version
+    n_cpu = FP32_BATCH
+    cpu_x = x[:n_cpu].cpu()
+    cpu_fp32 = PixelFrontEnd.from_checkpoint(pixel_ckpt, dtype=torch.float32, device="cpu",
+                                             **geometry)
+    with torch.no_grad():
+        cpu_feats = tq.resnet50_int8_apply(tq.tree_to(int8.qt, "cpu"), cpu_x,
+                                           TRUNK["stage_sizes"])
+        cpu_cos = cosine(cpu_feats, cpu_fp32.net(cpu_x))
+    if not torch.equal(feats[:n_cpu].cpu(), cpu_feats):
+        raise RuntimeError("int8 trunk features differ between the card and the CPU")
+    trunk = walk.timing()
+    with torch.no_grad():
+        trunk["apply_ms"] = cuda_ms(lambda: tq.resnet50_int8_apply(int8.qt, x,
+                                                                   TRUNK["stage_sizes"]), 5)
+        trunk["yardstick_ms"] = cuda_ms(lambda: bf16.net(x), 5)
+    log(f"[ensemble] int8 trunk B={TRUNK_BATCH}: accumulators equal the plain version's on "
+        f"every conv ({walk.classes}); codes: {walk.flips} of {walk.codes} flipped at ties; "
+        f"features vs the fp32 trunk: per-row cosine min {cos.min().item():.6f}, mean "
+        f"{cos.mean().item():.6f} (the CPU on the same first {n_cpu} frames: min "
+        f"{cpu_cos.min().item():.6f}, the card's equal bit for bit)")
+    log(f"[ensemble] int8 trunk: {len(walk.calls)} launches {trunk['ms']:.4f} ms (each timed "
+        f"alone), {trunk['ops'] / 1e12:.3f} TOP, {trunk['bytes'] / 1e9:.3f} GB: bound "
+        f"{trunk['bound_ms']:.4f} ms ({trunk['bound_by']}); the plain version "
+        f"{trunk['plain_ms']:.1f} ms; resnet50_int8_apply {trunk['apply_ms']:.4f} ms; the "
+        f"cuDNN bf16 module trunk {trunk['yardstick_ms']:.4f} ms; instances "
+        f"{tq.int8_conv.instances}; ms by class "
+        + ", ".join(f"{c} {t:.4f}" for c, t in trunk["by_class"].items()))
+
+    qfe, store = serving["qfe"], serving["store"]
+    with torch.no_grad(), _Int8Check() as fe_walk:
+        got = tq.fe_int8_apply(qfe, store)
+    with torch.no_grad():
+        fe = fe_walk.timing(iters=20)
+        fe["yardstick_ms"] = cuda_ms(lambda: _int_mm_fe(qfe, store), 20)
+        fe["fp32_store_ms"] = cuda_ms(lambda: tq.fe_int8_apply(qfe, serving["images"]), 20)
+    fe_bytes = store.numel() + sum(q["wq"].numel() + 8 * q["wq"].shape[0]
+                                   for q in qfe["layers"]) + got.numel() * 4
+    fe["bound_ms"], fe["bound_by"] = bound(fe_bytes, fe["ops"], PEAK_INT8_OPS)
+    log(f"[ensemble] int8 FE B={ENSEMBLE_BATCH} windows (M={store.shape[0] * store.shape[1]}): "
+        f"accumulators equal on each layer; {fe_walk.flips} of {fe_walk.codes} codes flipped; "
+        f"3 launches {fe['ms']:.4f} ms, {fe['ops'] / 1e9:.2f} GOP, bound {fe['bound_ms']:.4f} "
+        f"ms ({fe['bound_by']}; the int8 store's {store.numel() / 1e6:.1f} MB read once); "
+        f"plain {fe['plain_ms']:.3f} ms; torch._int_mm and the epilogue in PyTorch ops "
+        f"{fe['yardstick_ms']:.4f} ms; fe_int8_apply from fp32 windows "
+        f"{fe['fp32_store_ms']:.4f} ms")
+    entry = {"route": "cuda", "source": "med_tpu_torch/csrc/int8_conv.cu",
+             "replaces": "med_tpu/ops/quant.py:77 _conv_i8, :218 _dense_i8 (XLA)"}
+    return {"int8_conv/trunk": {**entry, "ms": trunk["ms"], "plain_ms": trunk["plain_ms"],
+                                "bound_ms": trunk["bound_ms"], "bound_by": trunk["bound_by"],
+                                "library_ms": None, "yardstick_ms": trunk["yardstick_ms"],
+                                "yardstick": "cuDNN bf16 ResNet50 module trunk",
+                                "max_abs_err": walk.err, "code_flips": walk.flips},
+            "int8_conv/fe": {**entry, "ms": fe["ms"], "plain_ms": fe["plain_ms"],
+                             "bound_ms": fe["bound_ms"], "bound_by": fe["bound_by"],
+                             "library_ms": fe["yardstick_ms"],
+                             "library": "torch._int_mm + epilogue",
+                             "max_abs_err": fe_walk.err, "code_flips": fe_walk.flips}}
+
+
+def _pixel_serving(root: Path, ckpt: str, runs: dict) -> dict:
+    """``cli.ensemble.main --serve --pixels-root`` over the raw-frame folds in
+    bf16, ``--fp32-trunk`` and ``--int8-trunk --int8-fe``: per-fold F1 and
+    wall, int8 launches against the design (53 a trunk batch, 3 a test
+    trial's request); then the T = 300 request's latency through each
+    trunk. Returns the int8 run's launches of the int8 kernel."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import ensemble
+    from med_tpu_torch.data.trials import compute_fold_stats, load_fold_trials
+    from med_tpu_torch.config import run_config
+    from med_tpu_torch.eval.serving import (PixelFrontEnd, load_ensemble,
+                                            predict_trial_from_pixels)
+    from med_tpu_torch.ops.quant import int8_conv
+    from med_tpu_torch.tracking import RunTracker
+
+    runs_root = str(root / "runs")
+    argv = ["--runs-root", runs_root, "--folds", ",".join(PIXEL_SPLITS), "--mode",
+            "soft_vote", "--run-a", runs["video"], "--run-b", runs["kinematics"], "--serve",
+            "--pixels-root", str(root / "pixels"), "--resnet-ckpt", ckpt,
+            "--serve-batch-size", str(TRUNK_BATCH)]
+    chunks = sum(-(-PIXEL_TRIALS[i] // TRUNK_BATCH) for tr, te in PIXEL_SPLITS.values()
+                 for i in (*tr, *te))
+    counts = {}
+    for name, extra in (("bf16", []), ("fp32", ["--fp32-trunk"]),
+                        ("int8", ["--int8-trunk", "--int8-fe"])):
+        ops.reset_launch_counts()
+        int8_conv.launches = 0
+        t0 = time.perf_counter()
+        lines = _cli_lines(ensemble.main, argv + extra, f"[ensemble] pixels {name}:")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = int8_conv.launches
+        design = 53 * chunks + 3 * len(PIXEL_SPLITS) if name == "int8" else 0
+        if counts[name] != design or any(ops.launch_counts().values()) or not any(
+                f"trunk={name}" in ln for ln in lines):
+            raise RuntimeError(f"pixel serving {name}: {counts[name]} int8 launches != "
+                               f"{design} ({chunks} trunk batches); the eleven: "
+                               f"{_nonzero(ops.launch_counts())}")
+        log(f"[ensemble] pixels {name}: {wall:.2f} s for {len(PIXEL_SPLITS)} folds "
+            f"({wall / len(PIXEL_SPLITS):.2f} s a fold: trunk features of the train split, "
+            f"fold statistics, the test trials); int8 launches {counts[name]}")
+    fold = next(iter(PIXEL_SPLITS))
+    trials = load_fold_trials(str(root / "pixels" / fold), "train.csv")
+    test = load_fold_trials(str(root / "pixels" / fold), "test.csv")[0]
+    cfg = run_config(RunTracker.find_run(runs_root, runs["video"]))
+    geometry = dict(stage_sizes=TRUNK["stage_sizes"], width=TRUNK["width"])
+    latency = {}
+    # the frames as load_fold_trials gives them (float32, as med_tpu's loader
+    # does) and as a camera gives them (uint8, a quarter of the bytes)
+    frames = {"float32": test.image_feats, "uint8": test.image_feats.astype(np.uint8)}
+    for name, kw in (("bf16", {}), ("fp32", {"dtype": torch.float32}),
+                     ("int8", {"int8": True, "calib_frames": trials[0].image_feats[:32]})):
+        fe = PixelFrontEnd.from_checkpoint(ckpt.format(fold=fold), batch_size=TRUNK_BATCH,
+                                           **geometry, **kw)
+        feats = np.concatenate([fe.features(t.image_feats) for t in trials])
+        stats = compute_fold_stats(feats, np.concatenate([t.kinematics for t in trials]))
+        server = load_ensemble(runs_root, [runs["video"], runs["kinematics"]], "LOSO", fold)
+        for kind, pixels in frames.items():
+            t = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                starts, preds, _ = predict_trial_from_pixels(fe, server, pixels,
+                                                             test.kinematics, test.g_labels,
+                                                             cfg, stats)
+                t.append((time.perf_counter() - t0) * 1e3)
+            latency[f"{name} trunk, {kind} frames"] = statistics.median(t[1:])
+        if not len(starts):
+            raise RuntimeError("the pixel request emitted no window")
+    log(f"[ensemble] T={test.n_frames} raw-frame request ({len(starts)} windows, the "
+        f"soft vote of both runs), median of 3: "
+        + ", ".join(f"{n} {v:.2f} ms" for n, v in latency.items()))
+    return counts["int8"]
+
+
+def phase_ensemble(root: Path, splits, cog_run: str, es_run: str) -> dict:
+    """Window ensembles, results and the int8 path on the card (phase 11 of
+    the module docstring). Returns the int8 kernel's entries of the
+    kernels line, each with its launches on its own path."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import ensemble, results, train_window
+    from med_tpu_torch.ops.quant import int8_conv
+
+    argv = ["--data-root", str(root / "data"), "--runs-root", str(root / "runs"),
+            "--folds", ",".join(splits), "--n-epochs", "2", "--model-name", "SimpleCNN"]
+    runs = {}
+    for data_type in ("video", "kinematics"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, tracker = train_window.main([*argv, "--data-type", data_type])
+        torch.cuda.synchronize()
+        _check_window_run(Path(tracker.dir), f"SimpleCNN_5Hz_{data_type}", splits, res,
+                          time.perf_counter() - t0,
+                          {"model_name": "SimpleCNN", "data_type": data_type, "video_dims": 32,
+                           "batch_size": 512, "n_epochs": 2}, 2,
+                          f"[ensemble] train_window SimpleCNN {data_type}")
+        runs[data_type] = tracker.run_id
+    pair = ["--runs-root", str(root / "runs"), "--folds", ",".join(splits)]
+    lines = _cli_lines(ensemble.main, [*pair, "--mode", "soft_vote", "--run-a", runs["video"],
+                                       "--run-b", runs["kinematics"]],
+                       "[ensemble] offline soft vote:")
+    if not lines[0].startswith("overlap:"):
+        raise RuntimeError("the offline soft vote printed no overlap line")
+    lines = _cli_lines(ensemble.main, [*pair, "--mode", "cascade", "--run-a", cog_run,
+                                       "--run-b", es_run], "[ensemble] offline cascade:")
+    if not any("reconciled ND rows" in line for line in lines):
+        raise RuntimeError("the cascade reconciled no Needle-Drop rows")
+    serve = [*pair, "--mode", "soft_vote", "--run-a", runs["video"], "--run-b",
+             runs["kinematics"], "--serve", "--data-root", str(root / "data")]
+    _cli_lines(ensemble.main, serve, "[ensemble] --serve:")
+    int8_conv.launches = 0
+    _cli_lines(ensemble.main, [*serve, "--int8-fe"], "[ensemble] --serve --int8-fe:")
+    fe_path = int8_conv.launches
+    if fe_path != 3 * len(splits):
+        raise RuntimeError(f"--serve --int8-fe: {fe_path} int8 launches != "
+                           f"{3 * len(splits)} (3 a fold's request)")
+    serving = _ensemble_serving(root, splits, runs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trunk_ckpt, _, _ = _seeded_trunk(tmp, device=CARD)
+        pixel_ckpt = _write_pixel_folds(root / "pixels", trunk_ckpt)
+    trunk_path = _pixel_serving(root, pixel_ckpt, runs)
+    entries = _int8_kernel_checks(pixel_ckpt.format(fold="1Out"), serving)
+    entries["int8_conv/trunk"]["launches"] = trunk_path
+    entries["int8_conv/fe"]["launches"] = fe_path
+
+    for argv_r in (["table", "--run", f"video={runs['video']}", "--run",
+                    f"kinematics={runs['kinematics']}"], ["errors", "--run-id", runs["video"]],
+                   ["majority", "--run-id", runs["video"]],
+                   ["ttest", "--run-a", runs["video"], "--run-b", runs["kinematics"]],
+                   ["overlap", "--run-a", runs["video"], "--run-b", runs["kinematics"]]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results.main([*argv_r, *pair])
+        for line in buf.getvalue().splitlines():
+            log(f"[ensemble] results {argv_r[0]}:   {line}")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        log("[ensemble] matplotlib is not installed: no `results hist`, and the drivers "
+            "printed `plotting skipped` in place of their images/")
+    else:
+        image = root / "prob_hist.png"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results.main(["hist", "--run-id", runs["video"], "--out-image", str(image), *pair])
+        if not image.is_file():
+            raise RuntimeError("results hist wrote no image")
+        log(f"[ensemble] results hist: {buf.getvalue().strip()} ({image.stat().st_size} "
+            "bytes); the drivers' images/ checked with each run's layout")
+    return entries
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2912,9 +3430,10 @@ def main(argv) -> int:
     kernels["resnet_stage"] = stage_kernel
     with tempfile.TemporaryDirectory() as tmp:
         driver, driver_families, splits, cog_run = timed("driver", phase_driver, Path(tmp))
-        variants, es_clis, bf16_folds, group_fold = timed("es", phase_es, Path(tmp), splits,
-                                                          cog_run)
+        variants, es_clis, bf16_folds, group_fold, es_run = timed(
+            "es", phase_es, Path(tmp), splits, cog_run)
         window = timed("window", phase_window, Path(tmp), splits, profile)
+        int8_entries = timed("ensemble", phase_ensemble, Path(tmp), splits, cog_run, es_run)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -3009,6 +3528,10 @@ def main(argv) -> int:
              "launches_window": window[wrapper],
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
+    # the int8 kernel is no TPU kernel (it replaces XLA's int8 conv and dot)
+    # and counts apart from the eleven (ops.launch_counts); its launches are
+    # the --int8-trunk pixel run's and the --int8-fe run's
+    line += [{"name": name, **entry} for name, entry in int8_entries.items()]
     idle = [k["name"] for k in line if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")

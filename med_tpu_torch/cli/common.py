@@ -1,6 +1,7 @@
 """Shared CLI plumbing: argparse <-> ExperimentConfig, fold orchestration,
 artifact writing (port of ``med_tpu.cli.common``: the same flags, defaults,
-printed lines and written files, plus ``--device``; no plots yet, A8)."""
+printed lines and written files, the ``images/`` plots among them, plus
+``--device``)."""
 
 from __future__ import annotations
 
@@ -148,6 +149,24 @@ def _save_best(tracker: RunTracker, tag: str, res: dict, cfg: ExperimentConfig) 
     return best
 
 
+def _plot_fold(tracker: RunTracker, history, setting: str, out: str, best: dict) -> None:
+    """Per-fold curves and the best epoch's test confusion matrix into the
+    run's ``images/`` (train_window.ipynb cell 2 plotting). As in
+    ``med_tpu``, plotting never ends a training run: a failure (matplotlib
+    missing, say) prints one line and the run goes on."""
+    try:
+        from ..viz import plot_cm, plot_results_LOSO
+
+        image_dir = os.path.join(tracker.dir, "images")
+        plot_results_LOSO([h["train_f1"] for h in history], [h["test_f1"] for h in history],
+                          [h["train_loss"] for h in history],
+                          [h["test_loss"] for h in history], setting, out, image_dir)
+        cm = np.asarray(best["cm"])
+        plot_cm(None, cm, image_dir, binary="global" if cm.shape[0] == 2 else None)
+    except Exception as e:  # host-side plots only: no device work is hidden
+        print(f"plotting skipped: {e}")
+
+
 def run_window_folds(args, cfg: ExperimentConfig,
                      extras_fn: Optional[Callable[[str, object, object], dict]] = None,
                      siamese_fn: Optional[Callable] = None):
@@ -174,6 +193,7 @@ def run_window_folds(args, cfg: ExperimentConfig,
             extras=extras_fn(out, train_fold, test_fold) if extras_fn else None,
             exp=shared_exp, resume=getattr(args, "resume", False))
         best = _save_best(tracker, tag, res, cfg)
+        _plot_fold(tracker, res["history"], args.setting, out, best)
         fold_results[out] = best
         samples_tr[out] = len(train_fold)
         samples_te[out] = len(test_fold)
@@ -219,6 +239,7 @@ def run_frame_folds(args, cfg: ExperimentConfig,
                                tag=tag, exp=shared_exp,
                                resume=getattr(args, "resume", False))
         best = _save_best(tracker, tag, res, cfg)
+        _plot_fold(tracker, res["history"], args.setting, out, best)
         fold_results[out] = best
         samples_tr[out] = sum(t.n_frames for t in train_trials)
         samples_te[out] = sum(t.n_frames for t in test_trials)

@@ -13,12 +13,11 @@ It trains, and runs the binary stage, on the GPU and raises without one;
 
 from __future__ import annotations
 
-import json
 import os
 
 import numpy as np
 
-from ..config import ExperimentConfig
+from ..config import ExperimentConfig, run_config
 from ..data.datasets import frame_batch
 from ..tracking import RunTracker
 from ..train.checkpoint import load_best_checkpoint
@@ -33,10 +32,7 @@ def _gates_fn(args, cfg_seq: ExperimentConfig):
     ``delete_ND``), trimmed to the trial's frames; each train trial's
     true-error frames."""
     run_dir = RunTracker.find_run(args.runs_root, args.run_id)
-    with open(os.path.join(run_dir, "params.json")) as f:
-        params = json.load(f)
-    fields = {k: v for k, v in params.items() if k in ExperimentConfig.__dataclass_fields__}
-    cfg_bin = ExperimentConfig(**fields).replace(delete_ND=cfg_seq.delete_ND)
+    cfg_bin = run_config(run_dir).replace(delete_ND=cfg_seq.delete_ND)
     exp_bin = Experiment(cfg_bin, device=args.device)
 
     def fn(out, train_trials, test_trials):

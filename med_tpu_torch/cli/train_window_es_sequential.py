@@ -14,12 +14,11 @@ It trains, and runs the binary stage, on the GPU and raises without one;
 
 from __future__ import annotations
 
-import json
 import os
 
 import numpy as np
 
-from ..config import ExperimentConfig
+from ..config import ExperimentConfig, run_config
 from ..tracking import RunTracker
 from ..train.checkpoint import load_best_checkpoint
 from ..train.engine import Experiment
@@ -28,12 +27,7 @@ from .common import base_parser, config_from_args, run_window_folds
 
 
 def _binary_cfg_from_run(runs_root: str, run_id: str) -> ExperimentConfig:
-    run_dir = RunTracker.find_run(runs_root, run_id)
-    with open(os.path.join(run_dir, "params.json")) as f:
-        params = json.load(f)
-    fields = {k: v for k, v in params.items()
-              if k in ExperimentConfig.__dataclass_fields__}
-    return ExperimentConfig(**fields)
+    return run_config(RunTracker.find_run(runs_root, run_id))
 
 
 def _gate_fn(args, cfg_seq: ExperimentConfig):

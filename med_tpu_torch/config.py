@@ -7,7 +7,19 @@ naming its ROADMAP item."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple
+
+# The raw per-frame label vector's 5 columns
+# (reference MED/dataset/preprocessing_utils.py:686-693).
+RAW_ERROR_COLUMNS = (
+    "Out_Of_View",
+    "Needle_Drop",
+    "Multiple_Attempts",
+    "Needle_Position",
+    "Error",  # global any-error flag
+)
 
 # error_type -> column in the powerset label matrix
 # (reference MED/modeling/modeling_utils.py:161-170).
@@ -159,3 +171,12 @@ class ExperimentConfig:
         """The 2048->video_dims MLP is used unless kinematics-only or raw
         2048-d features are fed directly (reference modeling_utils.py:58-75)."""
         return self.data_type != "kinematics" and self.video_dims != 2048
+
+
+def run_config(run_dir: str) -> ExperimentConfig:
+    """A stored run's ``ExperimentConfig`` from its ``params.json`` (a run of
+    either package; keys the config does not have are left out)."""
+    with open(os.path.join(run_dir, "params.json")) as f:
+        params = json.load(f)
+    return ExperimentConfig(**{k: v for k, v in params.items()
+                               if k in ExperimentConfig.__dataclass_fields__})

@@ -193,3 +193,67 @@ def export_jax_params(net: nn.Module, grads: bool = False) -> Dict:
         for name, path in _constant_table(net).items():
             flat[path] = net.get_buffer(name).detach().cpu().numpy().copy()
     return unflatten_tree(flat)
+
+
+# ---------------------------------------------------- int8 quantized trees
+_QCONV = ("wq", "wscale", "bias")
+_QFE_LAYER = ("wq", "wscale", "bias", "in_scale")
+
+
+def _quant_leaf(path: str, value) -> torch.Tensor:
+    """One leaf of a ``med_tpu`` quantized tree in the port's layout: an int8
+    weight with its input and output axes turned so that each output
+    channel's K values are contiguous (HWIO -> OHWI, (I, O) -> (O, I)),
+    float32 scales and biases, and each activation scale a 0-d tensor."""
+    a = np.asarray(value)
+    if path.endswith("/wq"):
+        if a.dtype != np.int8:
+            raise ValueError(f"{path}: int8 weights expected, got {a.dtype}")
+        a = np.transpose(a, (3, 0, 1, 2)) if a.ndim == 4 else a.T
+    else:
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _take(flat: Dict[str, np.ndarray], path: str):
+    if path not in flat:
+        raise KeyError(f"quantized tree has no leaf {path}")
+    return _quant_leaf(path, flat.pop(path))
+
+
+def _leftover(flat: Dict[str, np.ndarray]) -> None:
+    if flat:
+        raise KeyError(f"quantized tree leaves with no port counterpart: {sorted(flat)}")
+
+
+def load_jax_quant_trunk(tree: Dict, stage_sizes=(3, 4, 6, 3)) -> Dict:
+    """``med_tpu.ops.quant.quantize_resnet50_trunk``'s tree (numpy leaves) ->
+    the port's quantized trunk (tensors on the CPU) for
+    ``ops.quant.resnet50_int8_apply``; raises unless every leaf is consumed
+    and every leaf of the ``stage_sizes`` geometry is there."""
+    from ..ops.quant import block_geometry
+
+    flat = flatten_tree(tree)
+    out = {"in_scale": _take(flat, "in_scale"),
+           "conv1": {k: _take(flat, f"conv1/{k}") for k in (*_QCONV, "out_scale")}}
+    for name, _, has_down in block_geometry(stage_sizes):
+        convs = ("c1", "c2", "c3", "down") if has_down else ("c1", "c2", "c3")
+        blk = {c: {k: _take(flat, f"{name}/{c}/{k}") for k in _QCONV} for c in convs}
+        blk.update({k: _take(flat, f"{name}/{k}") for k in ("a1", "a2", "out")})
+        out[name] = blk
+    _leftover(flat)
+    return out
+
+
+def load_jax_quant_fe(tree: Dict) -> Dict:
+    """``med_tpu.ops.quant.quantize_fe``'s {"layers": [...]} (numpy leaves) ->
+    the port's quantized FeatureExtractor for ``ops.quant.fe_int8_apply``;
+    raises unless each layer has exactly its four leaves."""
+    if set(tree) != {"layers"}:
+        raise KeyError(f"a quantized FE tree holds 'layers' alone; got {sorted(tree)}")
+    layers = []
+    for i, layer in enumerate(tree["layers"]):
+        flat = {f"layers/{i}/{k}": v for k, v in layer.items()}
+        layers.append({k: _take(flat, f"layers/{i}/{k}") for k in _QFE_LAYER})
+        _leftover(flat)
+    return {"layers": layers}

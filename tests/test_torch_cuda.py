@@ -1371,3 +1371,171 @@ def test_window_train_step_same_on_card_and_cpu(cuda_device, rng, model_name, fr
     scale = max(np.abs(w).max() for w in ref.values())
     for path, w in ref.items():
         assert np.abs(card[path] - w).max() <= 1e-5 * scale, path
+
+
+# ----------------------------------------------- the int8 convolution kernel
+# (name, B, H, W, Cin, N, k, stride, pad): conv1's guarded Cin = 3 at 7x7/2,
+# a 1x1, 3x3 /1 and /2, the downsample 1x1/2, the FE's dense layers as 1x1
+# over rows (N = 32 fills half a tile), ragged rows and an odd N
+INT8_SHAPES = [("conv1", 2, 32, 32, 3, 64, 7, 2, 3), ("1x1", 2, 14, 14, 64, 256, 1, 1, 0),
+               ("3x3", 2, 14, 14, 64, 64, 3, 1, 1), ("3x3/2", 2, 15, 15, 128, 128, 3, 2, 1),
+               ("down", 2, 14, 14, 256, 512, 1, 2, 0), ("fe0", 300, 1, 1, 2048, 512, 1, 1, 0),
+               ("fe2", 300, 1, 1, 256, 32, 1, 1, 0), ("ragged", 3, 7, 5, 48, 40, 3, 1, 1),
+               ("odd", 1, 9, 9, 16, 33, 3, 2, 1)]
+
+
+def _int8_operands(rng, B, H, W, Cin, N, k, device):
+    x = torch.tensor(rng.integers(-127, 128, (B, H, W, Cin)), dtype=torch.int8, device=device)
+    w = torch.tensor(rng.integers(-127, 128, (N, k, k, Cin)), dtype=torch.int8, device=device)
+    ws = torch.tensor(rng.uniform(1e-4, 1e-3, N), dtype=torch.float32, device=device)
+    bias = torch.tensor(rng.normal(size=N), dtype=torch.float32, device=device)
+    return x, w, ws, bias
+
+
+@pytest.mark.parametrize("name,B,H,W,Cin,N,k,stride,pad", INT8_SHAPES)
+def test_int8_conv_kernel_matches_plain(cuda_device, rng, name, B, H, W, Cin, N, k, stride,
+                                        pad):
+    """Each shape class: the int32 accumulators equal the plain version's
+    (a float64 convolution, exact), the fp32 epilogue with an fp32 residual
+    equal bit for bit (the same fp32 multiply and add, no FMA), and the int8
+    requantization with an int8 residual and relu equal: every code."""
+    from med_tpu_torch.ops import quant as tq
+
+    x, w, ws, bias = _int8_operands(rng, B, H, W, Cin, N, k, cuda_device)
+    Ho, Wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    kw = dict(s_in=0.0123, stride=stride, pad=pad)
+    before = dict(tq.int8_conv.instances)
+    got = tq.int8_conv(x, w, ws, bias, accumulators=True, **kw)
+    want = tq.int8_conv_plain(x, w, ws, bias, accumulators=True, **kw)
+    assert got.dtype == torch.int32 and torch.equal(got, want), name
+    res = torch.tensor(rng.normal(size=(B, Ho, Wo, N)), dtype=torch.float32,
+                       device=cuda_device)
+    got = tq.int8_conv(x, w, ws, bias, residual=res, **kw)
+    assert torch.equal(got, tq.int8_conv_plain(x, w, ws, bias, residual=res, **kw)), name
+    resq = torch.tensor(rng.integers(-127, 128, (B, Ho, Wo, N)), dtype=torch.int8,
+                        device=cuda_device)
+    qkw = dict(kw, residual=resq, res_scale=0.02, relu=True, out_scale=0.03)
+    got = tq.int8_conv(x, w, ws, bias, **qkw)
+    assert got.dtype == torch.int8
+    assert torch.equal(got, tq.int8_conv_plain(x, w, ws, bias, **qkw)), name
+    taken = {k: v - before.get(k, 0) for k, v in tq.int8_conv.instances.items()
+             if v != before.get(k, 0)}
+    aligned = Cin % 16 == 0 and N % 2 == 0
+    assert taken == {"16-byte" if aligned else "guarded": 3}, (name, taken)
+
+
+@pytest.mark.parametrize("operand", ["x", "w", "residual"])
+def test_int8_conv_takes_views_off_16_byte_boundaries(cuda_device, rng, operand):
+    """An operand in a view 1 byte (int8) or 4 bytes (fp32) past a 16-byte
+    boundary: the guarded instance, the same results."""
+    from med_tpu_torch.ops import quant as tq
+
+    x, w, ws, bias = _int8_operands(rng, 2, 8, 8, 32, 64, 3, cuda_device)
+    res = torch.tensor(rng.normal(size=(2, 8, 8, 64)), dtype=torch.float32, device=cuda_device)
+    ops_ = {"x": x, "w": w, "residual": res}
+    t = ops_[operand]
+    shifted = torch.empty(t.numel() + 16, dtype=t.dtype, device=cuda_device)[1:1 + t.numel()]
+    shifted = shifted.view(t.shape)
+    shifted.copy_(t)
+    assert shifted.data_ptr() % 16 != 0
+    ops_[operand] = shifted
+    kw = dict(s_in=0.01, pad=1, residual=ops_["residual"])
+    before = tq.int8_conv.instances.get("guarded", 0)
+    got = tq.int8_conv(ops_["x"], ops_["w"], ws, bias, **kw)
+    assert tq.int8_conv.instances.get("guarded", 0) == before + 1
+    assert torch.equal(got, tq.int8_conv_plain(x, w, ws, bias, s_in=0.01, pad=1, residual=res))
+
+
+def test_int8_conv_refuses_what_it_does_not_take(cuda_device, rng):
+    from med_tpu_torch.ops import quant as tq
+
+    x, w, ws, bias = _int8_operands(rng, 1, 4, 4, 16, 16, 1, cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        tq.int8_conv(x.to(torch.float32), w, ws, bias, s_in=1.0)
+    with pytest.raises(ValueError, match="float32"):
+        tq.int8_conv(x, w, ws.double(), bias, s_in=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.int8_conv(x.transpose(1, 2), w, ws, bias, s_in=1.0)
+    with pytest.raises(ValueError, match="res_scale"):
+        tq.int8_conv(x, w, ws, bias, s_in=1.0, residual=x)
+
+
+def _tiny_quant_trunk(rng, width):
+    from med_tpu_torch.models.resnet import ResNet50
+    from med_tpu_torch.models.layers import init_weights
+    from med_tpu_torch.ops import quant as tq
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    net = ResNet50((1, 1, 1, 1), width, torch.float32)
+    init_weights(net, torch.Generator().manual_seed(4))
+    tree = export_jax_params(net)
+    x = rng.normal(size=(6, 64, 64, 3)).astype(np.float32)
+    return tq.quantize_resnet50_trunk(tree, x[:4], (1, 1, 1, 1)), x
+
+
+@pytest.mark.parametrize("width", [8, 16])
+def test_int8_trunk_and_fe_same_on_card_and_cpu(cuda_device, rng, width):
+    """A tiny int8 trunk (stages (1, 1, 1, 1); width 8 takes the guarded
+    instance, 16 the 16-byte one) and an int8 FeatureExtractor: the card's
+    features equal the CPU's bit for bit (exact products, the same fp32
+    epilogue, an exact max pool and sum); 17 launches (conv1, three a block,
+    one a downsample) and 3 for the FE."""
+    from med_tpu_torch.ops import quant as tq
+
+    qt, x = _tiny_quant_trunk(rng, width)
+    want = tq.resnet50_int8_apply(qt, torch.from_numpy(x), (1, 1, 1, 1))
+    before = tq.int8_conv.launches
+    got = tq.resnet50_int8_apply(tq.tree_to(qt, cuda_device),
+                                 torch.from_numpy(x).to(cuda_device), (1, 1, 1, 1))
+    assert tq.int8_conv.launches - before == 1 + 4 * 3 + 4
+    assert torch.equal(got.cpu(), want)
+    fe = {"dense0": {"kernel": rng.normal(size=(2048, 512)).astype(np.float32) * 0.02,
+                     "bias": rng.normal(size=512).astype(np.float32) * 0.1},
+          "dense1": {"kernel": rng.normal(size=(512, 256)).astype(np.float32) * 0.05,
+                     "bias": rng.normal(size=256).astype(np.float32) * 0.1},
+          "out": {"kernel": rng.normal(size=(256, 32)).astype(np.float32) * 0.06,
+                  "bias": rng.normal(size=32).astype(np.float32) * 0.1}}
+    images = rng.normal(size=(24, 10, 2048)).astype(np.float32)
+    qfe = tq.quantize_fe(fe, images[:8])
+    want = tq.fe_int8_apply(qfe, torch.from_numpy(images))
+    before = tq.int8_conv.launches
+    got = tq.fe_int8_apply(tq.tree_to(qfe, cuda_device), torch.from_numpy(images).to(cuda_device))
+    assert tq.int8_conv.launches - before == 3
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ensemble_server_same_on_card_and_cpu(cuda_device, rng):
+    """Soft vote over a multimodal SimpleCNN (FE 2048 -> 32, also on the int8
+    path: three int8 launches a batch) and a kinematics one, and a cascade
+    with a 6-class member, from seeded weights: the card's probabilities
+    within 1e-5 of the CPU's, decisions equal away from the threshold; the
+    int8 FE's exactly the CPU's plain version's arithmetic."""
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.eval.serving import EnsembleServer, WindowModelBundle
+    from med_tpu_torch.ops import quant as tq
+    from med_tpu_torch.train.engine import Experiment
+
+    def tree(seed, **fields):
+        cfg = ExperimentConfig(model_name="SimpleCNN", **fields)
+        exp = Experiment(cfg, device="cpu")
+        exp.init_weights(seed)
+        return cfg, exp.checkpoint()
+
+    members = [tree(0), tree(1, data_type="kinematics"),
+               tree(2, error_type="all_errors", out_features=6)]
+    images = rng.normal(size=(64, 10, 2048)).astype(np.float32)
+    kin = rng.normal(size=(64, 10, 26)).astype(np.float32)
+    for idx, mode in (((0, 1), "soft_vote"), ((0, 2), "cascade"), ((0, 1), "int8")):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            bundles = [WindowModelBundle(*members[i], device=dev) for i in idx]
+            if mode == "int8":
+                bundles[0].quantize_fe(images[:8])
+            before = tq.int8_conv.launches
+            out[dev] = EnsembleServer(bundles, mode="cascade" if mode == "cascade"
+                                      else "soft_vote").predict(images, kin)
+            if dev == "cuda":
+                assert tq.int8_conv.launches - before == (3 if mode == "int8" else 0)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-5)
+        clear = np.abs(out["cpu"][1] - 0.5) > 1e-5
+        np.testing.assert_array_equal(out["cuda"][0][clear], out["cpu"][0][clear])

@@ -271,6 +271,9 @@ def test_cli_writes_the_run_layout(cli_run, capsys):
                  f"checkpoints/best_model_LOSO_{out}.npz.json",
                  f"checkpoints/last_state_LOSO_{out}.npz"]
     want += ["artifacts/summary.json", "artifacts/windowed_metrics.json"]
+    # med_tpu's plots: each fold's curves, the best epoch's test matrix
+    want += ["images/LOSO_fold_1Out_results.png", "images/LOSO_fold_2Out_results.png",
+             "images/LOSO_Test_Confusion_Matrix_global.png"]
     assert _tree(tracker.dir) == sorted(want)
 
     params = json.load(open(os.path.join(tracker.dir, "params.json")))

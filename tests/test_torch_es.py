@@ -397,7 +397,9 @@ def test_es_command_lines_write_the_run_layout_read_by_jax(folds, binary_run, st
         want += [f"artifacts/best_model_LOSO_{out}.json",
                  f"checkpoints/best_model_LOSO_{out}.npz",
                  f"checkpoints/best_model_LOSO_{out}.npz.json",
-                 f"checkpoints/last_state_LOSO_{out}.npz"]
+                 f"checkpoints/last_state_LOSO_{out}.npz",
+                 f"images/LOSO_fold_{out}_results.png"]
+    want.append("images/LOSO_Test_Confusion_Matrix.png")    # med_tpu's 6-class name
     assert files == sorted(want)
     windowed = json.load(open(os.path.join(tracker.dir, "artifacts", "windowed_metrics.json")))
     assert np.asarray(windowed["cm"]).shape == (6, 6)

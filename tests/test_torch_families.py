@@ -492,8 +492,10 @@ def test_cli_defaults_run_tecno_then_transsvnet_on_its_run(family_runs, capsys):
             want += [f"artifacts/best_model_LOSO_{out}.json",
                      f"checkpoints/best_model_LOSO_{out}.npz",
                      f"checkpoints/best_model_LOSO_{out}.npz.json",
-                     f"checkpoints/last_state_LOSO_{out}.npz"]
+                     f"checkpoints/last_state_LOSO_{out}.npz",
+                     f"images/LOSO_fold_{out}_results.png"]
             assert np.isfinite(results[out]["train_loss"])
+        want.append("images/LOSO_Test_Confusion_Matrix_global.png")
         assert files == sorted(want)
     assert json.load(open(os.path.join(s_tracker.dir, "params.json")))["run_id"] == \
         t_tracker.run_id

@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_med_tpu():
                  "data.trials", "data.windowing", "eval.summary", "eval.rollup",
                  "utils.torch_port", "models.window_models", "data.siamese",
                  "cli.train_window", "cli.train_window_es",
-                 "cli.train_window_es_sequential"):
+                 "cli.train_window_es_sequential", "viz.utils", "eval.ensemble",
+                 "eval.results", "ops.quant", "cli.ensemble", "cli.results"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 

@@ -158,11 +158,19 @@ def test_frame_server_from_pixels_matches_jax(tmp_path, rng):
     np.testing.assert_allclose(got_pr, again_pr, rtol=1e-6)
 
 
-def test_pixel_front_end_unported_options_and_device_rule(tiny):
+def test_pixel_front_end_unported_options_and_device_rule(tiny, rng):
+    """The int8 trunk (ported since) needs its calibration frames and then
+    serves finite features of the trunk's width; a mesh stays unported; the
+    default device is CUDA, which must be there."""
     params, stats = tiny
     kw = dict(stage_sizes=(1, 1, 1, 1), width=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="calib_frames"):
         PixelFrontEnd(params, stats, int8=True, **kw)
+    frames = rng.integers(0, 256, size=(3, 40, 40, 3)).astype(np.uint8)
+    fe = PixelFrontEnd(params, stats, int8=True, calib_frames=frames, mean=[0.5] * 3,
+                       std=[0.25] * 3, batch_size=2, **kw)
+    got = fe.features(frames)
+    assert got.shape == (3, 256) and got.dtype == np.float32 and np.isfinite(got).all()
     with pytest.raises(NotImplementedError, match="A12"):
         PixelFrontEnd(params, stats, mesh=object(), **kw)
     if not torch.cuda.is_available():

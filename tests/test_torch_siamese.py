@@ -159,9 +159,14 @@ def _layout(tracker):
         want += [f"artifacts/best_model_LOSO_{out}.json",
                  f"checkpoints/best_model_LOSO_{out}.npz",
                  f"checkpoints/best_model_LOSO_{out}.npz.json",
-                 f"checkpoints/last_state_LOSO_{out}.npz"]
-    assert files == sorted(want)
+                 f"checkpoints/last_state_LOSO_{out}.npz",
+                 f"images/LOSO_fold_{out}_results.png"]
     params = json.load(open(os.path.join(tracker.dir, "params.json")))
+    # med_tpu's plots: the best epoch's test matrix, named for a binary one
+    binary = params["error_type"] == "global" or params["siamese"]
+    want.append("images/LOSO_Test_Confusion_Matrix"
+                + ("_global.png" if binary else ".png"))
+    assert files == sorted(want)
     jcfg = JaxConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in params.items()
                         if k not in ("window_size", "stride", "in_features")})
     assert params == json.loads(json.dumps(jcfg.to_dict()))
