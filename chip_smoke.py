@@ -137,9 +137,29 @@ non-zero and the last line is not printed:
    the yardsticks (the cuDNN bf16 module trunk; ``torch._int_mm`` with the
    epilogue in PyTorch ops); ``cli.results`` over the two runs (``hist``
    and the drivers' ``images/`` where matplotlib is installed);
-12. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
-   int8 kernel's, on the int8 trunk's and FE's paths), then
-   ``{"ok": true, "device": ...}`` last.
+12. finetune (``[finetune]`` lines): the full-width ``ResNetClassifier``
+   at 224x224 and B = 32 (phase 7's seeded trunk, a head from SEED, a
+   padded batch of phase 11's frames): one ``cli.resnet_finetune``
+   train step on the card (fp32) against the CPU's float64 step (loss,
+   running statistics, every gradient leaf, the card's relu patterns and
+   max-pool choices pinned to the CPU's and the flips counted; the CPU's
+   fp32 step beside it),
+   with train-mode BN, ``--freeze-bn`` and ``bn_stat_stride`` 4;
+   ``augment_batch`` on the card against the CPU with the same draws;
+   step time (median of 5), frames/s, peak memory and the device's busy
+   share, with and without augmentation; ``cli.resnet_finetune.main`` on
+   phase 11's raw-frame trials (2 folds, 2 epochs): the run layout, each
+   checkpoint served by ``PixelFrontEnd.from_checkpoint`` (its fp32
+   features the exported ones), the exported 2048-d folds with each
+   trial's length, no TPU kernel launched; the same with ``--int8-trunk``
+   (53 int8 launches an export batch); ``cli.train_frame.main`` (COG, 1
+   epoch) on the exported folds; the CLIP text tower at ViT-B/32's
+   geometry with seeded weights, card against CPU on COG's 15, 45 and 15
+   prompts; a COG built with ``MED_TPU_CLIP_CKPT`` set, served at T = 300;
+13. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
+   int8 kernel's, on the int8 trunk's and FE's paths, the trunk's with the
+   fine-tune export's launches too), then ``{"ok": true, "device": ...}``
+   last.
 A ``[time]`` line gives each phase's wall time.
 
 Runs from the repository root; imports neither JAX nor the JAX package.
@@ -3398,6 +3418,465 @@ def phase_ensemble(root: Path, splits, cog_run: str, es_run: str) -> dict:
             "bytes); the drivers' images/ checked with each run's layout")
     return entries
 
+# the fine-tune phase (12): the CLI's batch at full width and 224x224
+# frames, phase 11's raw-frame trials; the CLIP text tower at ViT-B/32's
+# geometry with seeded weights
+FINETUNE_BATCH, FINETUNE_IMAGES, FINETUNE_EPOCHS = 32, 60, 2
+# card fp32 step against the CPU's float64 one, the relu pattern and the
+# max pool's choices pinned: loss rtol; each gradient leaf rtol, and atol
+# as a fraction of the leaf's largest |value| (TRAIN_TOL's), or twice the
+# CPU's fp32 error on the leaf; running statistics. cuDNN's fp32 weight
+# gradients of the convolutions (TF32 off, deterministic algorithms) land
+# up to 1.81e-4 of a leaf's largest from float64 on an H100 (the 3x3
+# convs of stages 1-3; the CPU's fp32 within 1.3e-5): those leaves are
+# held to cudnn_conv_grad. Augmented 0-255 pixels, card vs CPU: float32 tan and sin of
+# one angle may differ by an ulp, which moves a shear's shift by ~1e-6
+# pixel at the frame's edge (|dx| <= 111.5 at 224) and a pixel between
+# neighbours 255 apart by up to ~6e-4 over the three passes (2.4e-4 seen)
+FINETUNE_TOL = {"loss": 1e-5, "grad_rtol": 1e-4, "grad_atol": 1e-5, "stats": 1e-5,
+                "augment": 1e-3, "cudnn_conv_grad": 5e-4}
+# the fine-tune step's device time by kind of kernel (first matching
+# substring of the kernel's name, in this order)
+STEP_KINDS = (("convolutions (cuDNN)", ("cudnn", "conv", "xmma", "gemm", "wgrad", "dgrad",
+                                        "implicit", "winograd", "fft")),
+              ("reductions", ("reduce",)), ("Adam", ("multi_tensor", "adam")),
+              ("elementwise", ("elementwise", "vectorized", "unrolled", "index", "gather",
+                               "where", "clamp", "copy")))
+CLIP_B32 = {"vocab": 49408, "ctx": 77, "width": 512, "heads": 8, "layers": 12}
+CLIP_TOL = (1e-4, 1e-5)      # rtol, atol as a fraction of the table's largest |value|
+
+
+class _ChoicePins:
+    """``models.resnet.relu`` and ``models.resnet.max_pool`` while entered:
+    the first run records the relus' derivative patterns and the pool's
+    choices (the CPU's float64 step), later runs (``start_pinned``) take
+    them, counting the relu pre-activations whose sign differs (and the
+    largest of them over its layer's largest |value|) and the pool windows
+    whose choice differs (and their largest gap over the largest |value|):
+    a value within rounding of 0, or of its window's runner-up, routes one
+    pixel's gradient term elsewhere."""
+
+    def __enter__(self):
+        from med_tpu_torch.models import resnet
+
+        self.resnet, self.masks, self.choices, self.pin = resnet, [], [], False
+        self.saved = resnet.relu, resnet.max_pool
+        resnet.relu, resnet.max_pool = self.relu, self.max_pool
+        return self
+
+    def __exit__(self, *exc):
+        self.resnet.relu, self.resnet.max_pool = self.saved
+
+    def start_pinned(self):
+        self.pin, self.i, self.j = True, 0, 0
+        self.flips, self.largest, self.pool_flips, self.pool_gap = 0, 0.0, 0, 0.0
+
+    def relu(self, x):
+        if not self.pin:
+            self.masks.append((x > 0).cpu())
+            return torch.relu(x)
+        m = self.masks[self.i].to(x.device)
+        self.i += 1
+        flipped = (x > 0) != m
+        n = int(flipped.sum())
+        if n:
+            self.flips += n
+            a = x.detach().abs()
+            self.largest = max(self.largest, float(a[flipped].max() / a.max().clamp_min(1e-30)))
+        return x * m.to(x.dtype)
+
+    def max_pool(self, x):
+        y, idx = F.max_pool2d(x, 3, stride=2, padding=1, return_indices=True)
+        if not self.pin:
+            self.choices.append(idx.cpu())
+            return y
+        want = self.choices[self.j].to(x.device)
+        self.j += 1
+        differ = idx != want
+        n = int(differ.sum())
+        pinned = x.flatten(2).gather(2, want.flatten(2)).view(y.shape)
+        if n:
+            self.pool_flips += n
+            gap = (y - pinned).detach().abs()
+            self.pool_gap = max(self.pool_gap, float(gap[differ].max() / y.detach().abs().max()))
+        return pinned
+
+
+def _finetune_net(ckpt: str, stride: int, dtype, device):
+    """The fine-tune classifier at full width: phase 7's seeded trunk from
+    its checkpoint, the head drawn from SEED."""
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.models.resnet import ResNetClassifier
+    from med_tpu_torch.train.checkpoint import load_checkpoint
+    from med_tpu_torch.utils.jax_params import load_jax_params
+
+    net = init_weights(ResNetClassifier(TRUNK["stage_sizes"], TRUNK["width"], dtype=dtype,
+                                        bn_stat_stride=stride),
+                       torch.Generator().manual_seed(SEED))
+    tree = load_checkpoint(ckpt)
+    state, _ = load_jax_params({"params": tree["params"]["trunk"],
+                                "batch_stats": tree["batch_stats"]["trunk"]}, net.trunk)
+    net.trunk.load_state_dict(state)
+    return net.to(device, dtype)
+
+
+def _finetune_step(net, batch, pixel_stats, freeze: bool, draws=None):
+    """One ``cli.resnet_finetune.train_step`` on the net's device and dtype;
+    returns the loss, the gradients and the running statistics (float64 on
+    the CPU)."""
+    from med_tpu_torch.cli.resnet_finetune import train_step
+
+    p = next(net.parameters())
+    opt = torch.optim.Adam(net.parameters(), lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+    stats = tuple(torch.tensor(a, dtype=p.dtype, device=p.device) for a in pixel_stats)
+    loss = train_step(net, opt, *batch, stats, freeze, draws)
+    grads = {n: q.grad.detach().to("cpu", torch.float64) for n, q in net.named_parameters()}
+    bufs = {n: b.detach().to("cpu", torch.float64) for n, b in net.named_buffers()}
+    return float(loss), grads, bufs
+
+
+def _finetune_card_vs_cpu(ckpt: str, batch, pixel_stats) -> None:
+    """The card's float32 step against the CPU's float64 step, the card's
+    relu patterns and max-pool choices pinned to the CPU's, for train-mode
+    BN, --freeze-bn and bn_stat_stride 4; the CPU's float32 step (pinned
+    too) logged beside."""
+    for case, stride, freeze in (("exact", 1, False), ("--freeze-bn", 1, True),
+                                 ("bn_stat_stride 4", 4, False)):
+        with _ChoicePins() as pins:
+            want = _finetune_step(_finetune_net(ckpt, stride, torch.float64, "cpu"), batch,
+                                  pixel_stats, freeze)
+            res = {}
+            for dev in (CARD, "cpu"):
+                pins.start_pinned()
+                res[dev] = (_finetune_step(_finetune_net(ckpt, stride, torch.float32, dev),
+                                           batch, pixel_stats, freeze),
+                            (pins.flips, pins.largest, pins.pool_flips, pins.pool_gap))
+        errs = {dev: (abs(loss - want[0]) / abs(want[0]), _leaf_errors(grads, want[1]),
+                      _leaf_errors(bufs, want[2]), choices)
+                for dev, ((loss, grads, bufs), choices) in res.items()}
+        rel, leaves, stats, (flips, largest, pool, gap) = errs[CARD]
+        cpu_rel, cpu_leaves, _, cpu_choices = errs["cpu"]
+        # a leaf passes within grad_atol of its largest value, or within
+        # twice the CPU's own fp32 error on it where fp32 does no better
+        # (cuDNN's fp32 weight gradients sum ~1e5 terms that largely cancel)
+        own = {n: e for e, n in cpu_leaves}
+        conv = ("conv1.weight", "conv2.weight", "conv3.weight", "down_conv.weight")
+        failed = [n for e, n in leaves if e > max(
+            FINETUNE_TOL["grad_atol"], 2 * own[n],
+            FINETUNE_TOL["cudnn_conv_grad"] if n.endswith(conv) else 0.0)]
+        other = next((e, n) for e, n in leaves if not n.endswith(conv))
+        log(f"[finetune] step card fp32 vs CPU float64 ({case}, B={len(batch[0])}, "
+            f"{TRUNK['frame']}x{TRUNK['frame']}): loss {rel:.2e} relative (tol "
+            f"{FINETUNE_TOL['loss']}), running statistics {stats[0][0]:.2e} of each one's "
+            f"largest (tol {FINETUNE_TOL['stats']}), worst gradient leaf {leaves[0][0]:.2e} "
+            f"of its largest ({leaves[0][1]}; tol {FINETUNE_TOL['grad_atol']}, or twice the "
+            f"CPU's fp32 error on the leaf, a conv weight "
+            f"{FINETUNE_TOL['cudnn_conv_grad']}), the worst other than a conv weight "
+            f"{other[0]:.2e} ({other[1]}); pinned: {flips} relu flips (|pre-activation| <= "
+            f"{largest:.1e} of the layer's largest), {pool} max-pool choices (gap <= "
+            f"{gap:.1e}); the CPU's fp32 step: loss {cpu_rel:.2e}, worst leaf "
+            f"{cpu_leaves[0][0]:.2e} ({cpu_leaves[0][1]}), {cpu_choices[0]} relu flips, "
+            f"{cpu_choices[2]} pool choices")
+        if rel > FINETUNE_TOL["loss"] or stats[0][0] > FINETUNE_TOL["stats"] or failed:
+            raise RuntimeError(f"fine-tune step ({case}) card vs CPU: loss {rel:.2e}, "
+                               f"statistics {stats[0]}, leaves over tolerance {failed}")
+
+
+def _finetune_timing(ckpt: str, batch, pixel_stats, profile: bool) -> None:
+    """Step time (median of 5), frames/s, peak memory and the device's busy
+    share of a step, with and without augmentation, at FINETUNE_BATCH."""
+    from med_tpu_torch.cli.resnet_finetune import train_step
+    from med_tpu_torch.data.augment import draw_augment
+
+    net = _finetune_net(ckpt, 1, torch.float32, CARD)
+    opt = torch.optim.Adam(net.parameters(), lr=5e-4, betas=(0.9, 0.999), eps=1e-8)
+    stats = tuple(torch.tensor(a, device=CARD) for a in pixel_stats)
+    gen = torch.Generator().manual_seed(SEED)
+    for augment in (False, True):
+        def step():
+            draws = draw_augment(len(batch[0]), gen) if augment else None
+            train_step(net, opt, *batch, stats, False, draws)
+            torch.cuda.synchronize()
+
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        events = _device_events(step, 3)
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3 / 3
+        kinds = {}
+        for e in events:
+            name = e.name.lower()
+            kind = next((k for k, keys in STEP_KINDS if any(w in name for w in keys)), "other")
+            kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / 3
+        log(f"[finetune] train step B={len(batch[0])} {TRUNK['frame']}x{TRUNK['frame']} "
+            f"{'with' if augment else 'without'} augmentation: {ms:.3f} ms (median of 5; "
+            f"{min(times):.3f}-{max(times):.3f}), {len(batch[0]) / ms * 1e3:.1f} frames/s, "
+            f"peak {peak:.2f} GiB, device busy {busy:.3f} ms a step "
+            f"({busy / ms:.1%} of it, profiler, 3 steps): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f"; {len(events) // 3} device kernels a step")
+        if profile:
+            _profile(f"fine-tune step {'augmented' if augment else 'plain'}", step)
+
+
+def _finetune_folds(root: Path, trials: Path) -> dict:
+    """Phase 11's raw-frame trials (``trials``) in folds whose csv files list
+    them by name (the fine-tune CLI copies the csv files beside its
+    exported trials), linked from ``root``; returns {fold: (train names,
+    test names)}."""
+    names = sorted(p.stem for p in trials.glob("*.npz"))
+    splits = {fold: ([names[i] for i in tr], [names[i] for i in te])
+              for fold, (tr, te) in PIXEL_SPLITS.items()}
+    for fold, (train, test) in splits.items():
+        (root / fold).mkdir(parents=True)
+        for name in train + test:
+            (root / fold / f"{name}.npz").symlink_to(trials / f"{name}.npz")
+        for csv, group in (("train.csv", train), ("test.csv", test)):
+            (root / fold / csv).write_text("\n".join(f"{n}.npz" for n in group))
+    return splits
+
+
+def _finetune_cli(root: Path, splits, int8: bool) -> tuple:
+    """``cli.resnet_finetune.main`` on the raw-frame folds for
+    FINETUNE_EPOCHS epochs: the run layout, the checkpoints (loaded back by
+    ``PixelFrontEnd.from_checkpoint``, whose fp32 features must be the
+    exported ones), the exported 2048-d folds with each trial's length; no
+    TPU kernel launched; with ``int8`` 53 int8 launches an export batch.
+    Returns the output root and the int8 launches."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import resnet_finetune
+    from med_tpu_torch.data.trials import load_fold, load_trial
+    from med_tpu_torch.eval.serving import PixelFrontEnd
+    from med_tpu_torch.ops.quant import int8_conv
+
+    tag = "[finetune] cli" + (" --int8-trunk" if int8 else "")
+    out = root / ("features_int8" if int8 else "features")
+    runs = root / "runs"
+    before = set(runs.glob("ResNet50_finetune/*")) if runs.exists() else set()
+    ops.reset_launch_counts()
+    int8_conv.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        resnet_finetune.main(["--data-root", str(root / "raw"), "--output-root", str(out),
+                              "--folds", ",".join(splits), "--runs-root", str(runs),
+                              "--n-epochs", str(FINETUNE_EPOCHS), "--seed", str(SEED),
+                              "--batch-size", str(FINETUNE_BATCH),
+                              *(["--int8-trunk"] if int8 else [])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"{tag}   {line}")
+    if any(ops.launch_counts().values()):
+        raise RuntimeError(f"{tag}: TPU kernels launched {_nonzero(ops.launch_counts())}")
+    (run,) = set(runs.glob("ResNet50_finetune/*")) - before
+    want = {"params.json", "metrics.jsonl"} | {
+        f"checkpoints/resnet50_{fold}.npz{ext}" for fold in splits for ext in ("", ".json")}
+    files = {str(f.relative_to(run)) for f in run.rglob("*") if f.is_file()}
+    if files != want:
+        raise RuntimeError(f"{tag}: run layout {sorted(files)} != {sorted(want)}")
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 2 * FINETUNE_EPOCHS * len(splits):
+        raise RuntimeError(f"{tag}: {len(rows)} metric rows")
+    lengths = {p.stem: len(np.load(p)["e_labels"])
+               for p in (root.parent / "pixels" / "trials").glob("*.npz")}
+    batches = 0
+    for fold, (train, test) in splits.items():
+        for csv, group in (("train.csv", train), ("test.csv", test)):
+            img, kin, g, e, _ = load_fold(str(out / fold), csv)
+            n = sum(lengths[t] for t in group)
+            if img.shape != (n, 2048) or kin.shape != (n, 26) or not np.isfinite(img).all():
+                raise RuntimeError(f"{tag} {fold} {csv}: features {img.shape}, not ({n}, 2048)")
+            batches += sum(-(-lengths[t] // FINETUNE_BATCH) for t in group)
+        if not int8:
+            ckpt = str(run / "checkpoints" / f"resnet50_{fold}.npz")
+            fe = PixelFrontEnd.from_checkpoint(ckpt, dtype=torch.float32)
+            trial = load_trial(str(root / "raw" / fold / f"{test[0]}.npz"))
+            got = fe.features(trial.image_feats)
+            exported = load_trial(str(out / fold / f"{test[0]}.npz")).image_feats
+            rel = np.linalg.norm(got - exported) / np.linalg.norm(exported)
+            if rel > TRUNK_TOL["card_vs_cpu_fp32"]:
+                raise RuntimeError(f"{tag} {fold}: PixelFrontEnd features {rel:.2e} from "
+                                   "the exported ones")
+            log(f"{tag} {fold}: PixelFrontEnd.from_checkpoint serves the checkpoint, "
+                f"fp32 features {rel:.2e} (relative L2) from the exported {test[0]}")
+    launches = int8_conv.launches
+    if int8 and launches != 53 * batches:
+        raise RuntimeError(f"{tag}: {launches} int8 launches != 53 x {batches} export batches")
+    log(f"{tag}: {len(splits)} folds x {FINETUNE_EPOCHS} epochs, {wall:.2f} s of wall, run "
+        f"layout ok, exported 2048-d folds whole ({batches} export batches"
+        + (f", {launches} int8 launches: 53 a batch)" if int8 else ")"))
+    return out, launches
+
+
+def _seeded_clip(path: Path) -> tuple:
+    """A CLIP ViT-B/32 text tower's state dict (CLIP_B32) with weights from
+    SEED, saved as a torch ``.pt``, and a merges file of the real count
+    (48,894 pairs of byte symbols, so that the vocabulary is 49,408 and EOT
+    its largest id)."""
+    from med_tpu_torch.models.clip_tokenizer import _byte_encoder
+
+    g = torch.Generator().manual_seed(SEED)
+    d, L = CLIP_B32["width"], CLIP_B32["layers"]
+
+    def draw(*shape, scale=0.02):
+        return torch.randn(shape, generator=g) * scale
+
+    sd = {"token_embedding.weight": draw(CLIP_B32["vocab"], d),
+          "positional_embedding": draw(CLIP_B32["ctx"], d, scale=0.01),
+          "ln_final.weight": 1 + draw(d, scale=0.1), "ln_final.bias": draw(d),
+          "text_projection": draw(d, d, scale=d ** -0.5)}
+    for i in range(L):
+        p = f"transformer.resblocks.{i}"
+        sd.update({f"{p}.attn.in_proj_weight": draw(3 * d, d), f"{p}.attn.in_proj_bias": draw(3 * d),
+                   f"{p}.attn.out_proj.weight": draw(d, d), f"{p}.attn.out_proj.bias": draw(d),
+                   f"{p}.ln_1.weight": 1 + draw(d, scale=0.1), f"{p}.ln_1.bias": draw(d),
+                   f"{p}.ln_2.weight": 1 + draw(d, scale=0.1), f"{p}.ln_2.bias": draw(d),
+                   f"{p}.mlp.c_fc.weight": draw(4 * d, d), f"{p}.mlp.c_fc.bias": draw(4 * d),
+                   f"{p}.mlp.c_proj.weight": draw(d, 4 * d), f"{p}.mlp.c_proj.bias": draw(d)})
+    torch.save(sd, path / "clip_vitb32_text.pt")
+    syms = list(_byte_encoder().values())
+    pairs = [f"{a} {b}" for a in syms for b in syms][:48894]
+    (path / "merges.txt").write_text("#version: 0.2\n" + "\n".join(pairs) + "\n",
+                                     encoding="utf-8")
+    return str(path / "clip_vitb32_text.pt"), str(path / "merges.txt")
+
+
+def _clip_tower(root: Path) -> None:
+    """The CLIP text tower at ViT-B/32's geometry, card against CPU on COG's
+    15 gesture, 45 skill and 15 skill-statement prompts; then a COG built
+    with MED_TPU_CLIP_CKPT / MED_TPU_CLIP_BPE set (its tables the CLIP
+    encodings, not the surrogate), saved and served at T = 300."""
+    import os
+
+    from med_tpu_torch.eval.serving import FrameModelServer
+    from med_tpu_torch.models.clip_text import encode_text, load_clip_text_params, params_to
+    from med_tpu_torch.models.clip_tokenizer import ClipTokenizer
+    from med_tpu_torch.models.cog import prompt_texts
+    from med_tpu_torch.models.prompts import (SKILL_STATEMENTS, _surrogate_table,
+                                              encode_prompt_strings)
+
+    ckpt, bpe = _seeded_clip(root)
+    params = load_clip_text_params(ckpt)
+    tok = ClipTokenizer(bpe)
+    if len(tok.encoder) != CLIP_B32["vocab"]:
+        raise RuntimeError(f"tokenizer vocabulary {len(tok.encoder)}")
+    tables = {"gestures": prompt_texts(), "skill prompts": prompt_texts(True, True),
+              "skill statements": SKILL_STATEMENTS}
+    on = {dev: params_to(params, dev) for dev in ("cpu", CARD)}
+    for name, texts in tables.items():
+        ids = torch.from_numpy(tok.tokenize(list(texts), CLIP_B32["ctx"]))
+        want = encode_text(on["cpu"], ids, n_heads=CLIP_B32["heads"])
+        got = encode_text(on[CARD], ids.to(CARD), n_heads=CLIP_B32["heads"]).cpu()
+        err = check_close(f"CLIP {name}", got, want, CLIP_TOL[0],
+                          CLIP_TOL[1] * want.abs().max().item())
+        ms = cuda_ms(lambda: encode_text(on[CARD], ids.to(CARD), n_heads=CLIP_B32["heads"]), 5)
+        log(f"[finetune] CLIP text tower (12 x 512, 8 heads, vocab 49,408, context 77) "
+            f"{name}: {len(texts)} x 512 card vs CPU max abs error {err:.2e} "
+            f"(largest |value| {want.abs().max().item():.2f}), {ms:.3f} ms on the card")
+
+    saved = {k: os.environ.get(k) for k in ("MED_TPU_CLIP_CKPT", "MED_TPU_CLIP_BPE")}
+    os.environ.update(MED_TPU_CLIP_CKPT=ckpt, MED_TPU_CLIP_BPE=bpe)
+    try:
+        cfg = _serving_config(2048)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt_cog = _seeded_checkpoint(cfg, tmp)
+        built = time.perf_counter() - t0
+        server = FrameModelServer(cfg, ckpt_cog)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    table = server.exp.net.model.gest_embed.cpu().numpy()
+    want = encode_prompt_strings(ckpt, prompt_texts(), bpe)
+    if not np.array_equal(table, want) or np.array_equal(table, _surrogate_table(prompt_texts())):
+        raise RuntimeError("COG's gesture table is not the CLIP encoding of its prompts")
+    rng = np.random.default_rng(SEED + 7)
+    req = _request(rng, 300)
+    server.predict_trial(*req)
+    t0 = time.perf_counter()
+    preds, probs = server.predict_trial(*req)
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_served("CLIP-prompted COG T=300", preds, probs, 300)
+    log(f"[finetune] COG with MED_TPU_CLIP_CKPT: gest_embed (15 x 512) is the tower's "
+        f"encoding (built with its checkpoint in {built:.1f} s), served at T=300 in "
+        f"{ms:.2f} ms")
+
+
+def phase_finetune(root: Path, profile: bool) -> int:
+    """Backbone fine-tuning, raw-data folds and the CLIP tower on the card
+    (phase 12 of the module docstring), under ``root`` beside phase 11's
+    ``pixels``. Returns the int8 launches of the --int8-trunk export."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.cli import resnet_finetune, train_frame
+    from med_tpu_torch.data.augment import augment_batch, draw_augment
+    from med_tpu_torch.data.trials import load_trial
+
+    # the fine-tune CLI's cuDNN settings (it sets them itself): TF32 off, and
+    # the deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    ft = root / "finetune"
+    splits = _finetune_folds(ft / "raw", root / "pixels" / "trials")
+    # phase 7's seeded trunk, as phase 11 wrote it for its folds
+    ckpt = str(root / "pixels" / "resnet50_1Out.npz")
+    trials = [load_trial(str(p)) for p in sorted((root / "pixels" / "trials").glob("*.npz"))]
+    images = np.concatenate([t.image_feats for t in trials])[:FINETUNE_IMAGES]
+    labels = np.concatenate([t.e_labels[:, 4] for t in trials])[:FINETUNE_IMAGES]
+    # the CLI's second batch of FINETUNE_IMAGES frames: padded with frame 0
+    batch = list(resnet_finetune._batches(images, labels, FINETUNE_BATCH, True, SEED))[1]
+    pixel_stats = ((images.reshape(-1, 3).mean(0) / 255.0).astype(np.float32),
+                   (images.reshape(-1, 3).std(0) / 255.0 + 1e-6).astype(np.float32))
+    log(f"[finetune] batch of {FINETUNE_BATCH} ({int(batch[2].sum())} frames, "
+        f"{FINETUNE_BATCH - int(batch[2].sum())} padding rows), labels {np.bincount(batch[1])}")
+    _finetune_card_vs_cpu(ckpt, batch, pixel_stats)
+
+    draws = draw_augment(FINETUNE_BATCH, torch.Generator().manual_seed(SEED))
+    x = torch.from_numpy(batch[0])
+    x_card = x.to(CARD)
+    err = check_close("augment_batch card vs CPU", augment_batch(x_card, draws).cpu(),
+                      augment_batch(x, draws), 0, FINETUNE_TOL["augment"])
+    ms = cuda_ms(lambda: augment_batch(x_card, draws), 5)
+    log(f"[finetune] augment_batch card vs CPU, the same draws: max abs error {err:.2e} "
+        f"on 0-255 pixels; {ms:.3f} ms a batch of {FINETUNE_BATCH} on the card")
+    _finetune_timing(ckpt, batch, pixel_stats, profile)
+
+    out, _ = _finetune_cli(ft, splits, int8=False)
+    _, int8_launches = _finetune_cli(ft, splits, int8=True)
+
+    # the reference's chain from pixels to a frame model: COG on the exported folds
+    lengths = {t.name: t.n_frames for t in trials}
+    n_train = sum(len(tr) for tr, _ in splits.values())
+    n_test = sum(len(te) for _, te in splits.values())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, tracker = train_frame.main(
+        ["--model-name", "COG", "--data-type", "multimodal", "--data-root", str(out),
+         "--runs-root", str(ft / "runs"), "--folds", ",".join(splits), "--n-epochs", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {**forward_launches(n_train + n_test), **backward_launches(n_train)}
+    if launches != want:
+        raise RuntimeError(f"train_frame on the exported folds: launches {launches} != {want}")
+    for fold, (_, test) in splits.items():
+        _check_served(f"train_frame on exported fold {fold}", results[fold]["preds"],
+                      results[fold]["probs"], sum(lengths[t] for t in test))
+    log(f"[finetune] cli.train_frame COG, 1 epoch on the exported folds: {wall:.2f} s, "
+        f"launches as designed, best test F1 "
+        f"{ {f: round(results[f]['test_f1'], 4) for f in splits} } (run {tracker.run_id})")
+    _clip_tower(ft)
+    return int8_launches
+
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
@@ -3434,6 +3913,8 @@ def main(argv) -> int:
             "es", phase_es, Path(tmp), splits, cog_run)
         window = timed("window", phase_window, Path(tmp), splits, profile)
         int8_entries = timed("ensemble", phase_ensemble, Path(tmp), splits, cog_run, es_run)
+        int8_entries["int8_conv/trunk"]["launches_finetune_export"] = timed(
+            "finetune", phase_finetune, Path(tmp), profile)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",

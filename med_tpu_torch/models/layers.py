@@ -119,6 +119,16 @@ class Conv1d(nn.Module):
         return y
 
 
+def batch_moments(x: torch.Tensor, clip: bool = True):
+    """flax's training statistics of ``x`` over every axis but 1: the mean
+    and the variance E[x²] − E[x]², clipped at 0 as ``nn.BatchNorm`` clips it
+    (``med_tpu``'s ghost-batch ``SubsampledBatchNorm`` does not)."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    mean = x.mean(dim=dims)
+    var = (x * x).mean(dim=dims) - mean * mean
+    return mean, torch.clamp(var, min=0.0) if clip else var
+
+
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm(momentum=0.9)`` over axis 1 of (B, C) or
     (B, C, L): statistics over every other axis. Neither ``nn.BatchNorm1d``
@@ -151,12 +161,14 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def batch_statistics(self, x):
+        """The batch's mean and variance in training (flax's, clipped)."""
+        return batch_moments(x)
+
     def forward(self, x, train: bool = False):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if train:
-            dims = [d for d in range(x.dim()) if d != 1]
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            mean, var = self.batch_statistics(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

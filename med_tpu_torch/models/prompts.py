@@ -1,14 +1,19 @@
-"""Frozen prompt embeddings for COG (port of the table part of
-``med_tpu.models.prompts``).
+"""Frozen prompt embeddings for COG (port of ``med_tpu.models.prompts``).
 
 The reference encodes 15 gesture prompts (8 with only the gestures observed
 in the dataset, 45 skill-conditioned ones, and the skill-reasoning module's
 15 skill statements) with the CLIP ViT-B/32 text encoder and freezes them
 (models_COG.py:392-445); the model only consumes them through a trainable
-projection. Two sources, in priority order: a table file (``.npy``,
-``.npz`` with an ``embeddings`` array, or a torch-saved tensor such as the
-reference's ``gest_prompt.pt``), else a deterministic surrogate table seeded
-by each text. The CLIP text tower is not ported yet.
+projection. Three sources, in ``med_tpu``'s priority order:
+
+1. the CLIP text tower (:mod:`med_tpu_torch.models.clip_text`), when a CLIP
+   checkpoint and its BPE merges file are given — the ``clip_ckpt`` /
+   ``bpe_vocab`` arguments or the ``MED_TPU_CLIP_CKPT`` /
+   ``MED_TPU_CLIP_BPE`` environment variables, the names ``med_tpu`` reads,
+   so one setting applies to both packages;
+2. a table file (``.npy``, ``.npz`` with an ``embeddings`` array, or a
+   torch-saved tensor such as the reference's ``gest_prompt.pt``);
+3. a deterministic surrogate table seeded by each text.
 """
 
 from __future__ import annotations
@@ -86,9 +91,42 @@ def _surrogate_table(texts, dim: int = EMBED_DIM) -> np.ndarray:
     return np.stack(rows).astype(np.float32)
 
 
+def encode_texts(clip_params: dict, token_ids, n_heads: int = 8) -> np.ndarray:
+    """Encode pre-tokenized prompts with the CLIP text tower on the CPU (the
+    tables are built once, at construction, on whatever machine):
+    (B, L) int ids -> (B, 512) fp32 embeddings."""
+    from .clip_text import encode_text, params_to
+
+    ids = torch.as_tensor(np.asarray(token_ids))
+    return encode_text(params_to(clip_params, "cpu"), ids, n_heads=n_heads).numpy()
+
+
+def encode_prompt_strings(clip_ckpt: str, texts, bpe_vocab: str) -> np.ndarray:
+    """Text -> embeddings (reference models_COG.py:408-445, at construction):
+    BPE-tokenize, then run the text tower."""
+    from .clip_text import load_clip_text_params
+    from .clip_tokenizer import ClipTokenizer
+
+    params = load_clip_text_params(clip_ckpt)
+    tok = ClipTokenizer(bpe_vocab)
+    # context length = the checkpoint's positional table (77 for ViT-B/32)
+    ctx = int(params["positional_embedding"].shape[0])
+    return encode_texts(params, tok.tokenize(list(texts), ctx))
+
+
 def load_prompt_embeddings(path: Optional[str] = None, texts=GESTURES,
-                           dim: int = EMBED_DIM) -> np.ndarray:
-    """Load prompt embeddings from a table file, else the surrogate table."""
+                           dim: int = EMBED_DIM, clip_ckpt: Optional[str] = None,
+                           bpe_vocab: Optional[str] = None) -> np.ndarray:
+    """Load prompt embeddings: CLIP tower > table file > surrogate (module
+    docstring)."""
+    clip_ckpt = clip_ckpt or os.environ.get("MED_TPU_CLIP_CKPT")
+    bpe_vocab = bpe_vocab or os.environ.get("MED_TPU_CLIP_BPE")
+    if (clip_ckpt and bpe_vocab and os.path.exists(clip_ckpt)
+            and os.path.exists(bpe_vocab)):
+        emb = encode_prompt_strings(clip_ckpt, texts, bpe_vocab)
+        if emb.shape[1] != dim:
+            raise ValueError(f"CLIP tower width {emb.shape[1]} != requested dim {dim}")
+        return emb
     if path and os.path.exists(path):
         if path.endswith(".npy"):
             emb = np.load(path)

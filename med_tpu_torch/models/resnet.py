@@ -1,20 +1,25 @@
-"""ResNet-50 trunk at inference (port of ``med_tpu.models.resnet``).
+"""ResNet-50 trunk and its fine-tuning classifier (port of
+``med_tpu.models.resnet``).
 
 torchvision's ResNet-v1.5 (stride 2 in the 3x3 conv) sized by the (3, 4, 6,
 3) bottleneck stages: (B, H, W, 3) NHWC pixels in, (B, 2048) pooled fp32
 features out, NCHW inside (with channels-last strides, so the convolutions
 keep NHWC memory). Module names follow the flax tree ("layer1_0.conv1",
-"layer1_0.down_bn"), so :mod:`med_tpu_torch.utils.jax_params` carries a
-``med_tpu`` checkpoint's ``params`` and ``batch_stats`` straight onto the
-``state_dict``.
+"layer1_0.down_bn"; "trunk.*", "fc1", "fc2" in the classifier), so
+:mod:`med_tpu_torch.utils.jax_params` carries a ``med_tpu`` checkpoint's
+``params`` and ``batch_stats`` straight onto the ``state_dict``.
 
-BatchNorm runs on its running statistics only (eps 1e-5). ``dtype`` is the
-compute dtype (float32, or bfloat16 for serving); parameters stay fp32. The
-rounding follows flax: a conv rounds its output to ``dtype``; BatchNorm
-normalises the ``dtype`` input in fp32 and rounds once; the residual sum
-and relu run in ``dtype``; the pool is fp32. Train-mode and ghost-batch
-BatchNorm and the classifier head wait for the fine-tune slice (ROADMAP.md
-Queue A10).
+BatchNorm (eps 1e-5) runs on its running statistics at inference and, with
+``train=True``, on the batch's, with flax's arithmetic
+(:class:`.layers.BatchNorm`: variance E[x²] − E[x]² clipped at 0, running
+statistics 0.9 · old + 0.1 · batch with the biased variance). With
+``bn_stat_stride`` > 1 the training statistics come from the first
+B // stride images alone and the variance is not clipped, as
+``med_tpu``'s ghost-batch ``SubsampledBatchNorm``; normalisation still
+covers every image. ``dtype`` is the compute dtype (float32, or bfloat16
+for serving); parameters stay fp32. The rounding follows flax: a conv
+rounds its output to ``dtype``; BatchNorm normalises in fp32 and rounds
+once; the residual sum and relu run in ``dtype``; the pool is fp32.
 """
 
 from __future__ import annotations
@@ -26,6 +31,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import layers
+
+# the trunk's and head's relu and the stem's max pool, looked up at each
+# call: a card-vs-CPU or float32-vs-float64 check can pin the relu's
+# derivative pattern and the pool's choices (a pre-activation within
+# rounding of 0, or two values of a window within rounding of each other,
+# route one pixel's gradient term elsewhere)
+relu = torch.relu
+
+
+def max_pool(x):
+    return F.max_pool2d(x, 3, stride=2, padding=1)
 
 
 class Conv2d(nn.Module):
@@ -54,29 +72,30 @@ class Conv2d(nn.Module):
                         padding=self.padding)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis of NCHW, on the running
-    statistics; params weight/bias, buffers running_mean/running_var (the
-    flax ``scale``/``bias`` params and ``mean``/``var`` batch stats)."""
+class BatchNorm(layers.BatchNorm):
+    """BatchNorm over the channel axis of NCHW: flax's, in training on the
+    batch's statistics (or the first B // ``stat_stride`` images', not
+    clipped: ``SubsampledBatchNorm``), at inference on the running ones,
+    rounded to ``dtype``. Params weight/bias, buffers
+    running_mean/running_var (the flax ``scale``/``bias`` params and
+    ``mean``/``var`` batch stats)."""
 
-    flax_layout = "batchnorm"
+    def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5,
+                 stat_stride: int = 1):
+        super().__init__(channels, momentum=0.9, eps=eps)
+        self.dtype, self.stat_stride = dtype, stat_stride
 
-    def __init__(self, channels: int, dtype=torch.float32, eps: float = 1e-5):
-        super().__init__()
-        self.dtype, self.eps = dtype, eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+    def batch_statistics(self, x):
+        if self.stat_stride == 1:
+            return super().batch_statistics(x)
+        return layers.batch_moments(x[: max(1, x.shape[0] // self.stat_stride)], clip=False)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-            self.running_mean.zero_()
-            self.running_var.fill_(1.0)
-
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            # statistics and normalisation in fp32 (float64 for a float64
+            # reference), one rounding to dtype
+            wide = torch.promote_types(x.dtype, torch.float32)
+            return super().forward(x.to(wide), True).to(self.dtype)
         # flax _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias,
         # in fp32 from a dtype input, one rounding to dtype; F.batch_norm
         # with fp32 statistics computes it in one pass (in fp32 for a bf16
@@ -87,55 +106,81 @@ class BatchNorm(nn.Module):
 
 class Bottleneck(nn.Module):
     def __init__(self, in_features: int, features: int, stride: int = 1,
-                 downsample: bool = False, dtype=torch.float32):
+                 downsample: bool = False, dtype=torch.float32, bn_stat_stride: int = 1):
         super().__init__()
+
+        def bn(channels):
+            return BatchNorm(channels, dtype, stat_stride=bn_stat_stride)
+
         self.conv1 = Conv2d(in_features, features, 1)
-        self.bn1 = BatchNorm(features, dtype)
+        self.bn1 = bn(features)
         self.conv2 = Conv2d(features, features, 3, stride=stride, padding=1)
-        self.bn2 = BatchNorm(features, dtype)
+        self.bn2 = bn(features)
         self.conv3 = Conv2d(features, 4 * features, 1)
-        self.bn3 = BatchNorm(4 * features, dtype)
+        self.bn3 = bn(4 * features)
         if downsample:
             self.down_conv = Conv2d(in_features, 4 * features, 1, stride=stride)
-            self.down_bn = BatchNorm(4 * features, dtype)
+            self.down_bn = bn(4 * features)
         else:
             self.down_conv = None
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.down_conv is None else self.down_bn(self.down_conv(x))
-        return torch.relu(y + residual)
+    def forward(self, x, train: bool = False):
+        y = relu(self.bn1(self.conv1(x), train))
+        y = relu(self.bn2(self.conv2(y), train))
+        y = self.bn3(self.conv3(y), train)
+        residual = x if self.down_conv is None else self.down_bn(self.down_conv(x), train)
+        return relu(y + residual)
 
 
 class ResNet50(nn.Module):
     """Feature trunk: (B, H, W, 3) -> (B, 4 * width * 8) pooled features."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_stat_stride: int = 1):
         super().__init__()
         self.stage_sizes, self.dtype = tuple(stage_sizes), dtype
         self.conv1 = Conv2d(3, width, 7, stride=2, padding=3)
-        self.bn1 = BatchNorm(width, dtype)
+        self.bn1 = BatchNorm(width, dtype, stat_stride=bn_stat_stride)
         cin = width
         for stage, n_blocks in enumerate(self.stage_sizes):
             features = width * 2 ** stage
             for block in range(n_blocks):
                 stride = 2 if (stage > 0 and block == 0) else 1
                 self.add_module(f"layer{stage + 1}_{block}", Bottleneck(
-                    cin, features, stride, downsample=(block == 0), dtype=dtype))
+                    cin, features, stride, downsample=(block == 0), dtype=dtype,
+                    bn_stat_stride=bn_stat_stride))
                 cin = 4 * features
+        self.out_features = cin
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         y = x.to(self.dtype).permute(0, 3, 1, 2)
-        y = torch.relu(self.bn1(self.conv1(y)))
-        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        y = relu(self.bn1(self.conv1(y), train))
+        y = max_pool(y)
         for stage, n_blocks in enumerate(self.stage_sizes):
             for block in range(n_blocks):
-                y = getattr(self, f"layer{stage + 1}_{block}")(y)
-        # pool in fp32 for a stable feature scale
-        return y.to(torch.float32).mean(dim=(2, 3))
+                y = getattr(self, f"layer{stage + 1}_{block}")(y, train)
+        # pool in fp32 for a stable feature scale (float64 stays float64)
+        return y.to(torch.promote_types(y.dtype, torch.float32)).mean(dim=(2, 3))
+
+
+class ResNetClassifier(nn.Module):
+    """The trunk and the reference's fine-tuning head, 2048 -> 512 -> relu ->
+    ``n_classes`` (resnet_finetuning.ipynb cell 7): logits (B, n_classes).
+    :meth:`features` is the trunk alone, the head swapped for the identity
+    as the feature export does."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 n_classes: int = 1, dtype=torch.float32, bn_stat_stride: int = 1):
+        super().__init__()
+        self.trunk = ResNet50(stage_sizes, width, dtype, bn_stat_stride)
+        self.fc1 = layers.Dense(self.trunk.out_features, 512)
+        self.fc2 = layers.Dense(512, n_classes)
+
+    def features(self, x, train: bool = False):
+        return self.trunk(x, train)
+
+    def forward(self, x, train: bool = False):
+        return self.fc2(relu(self.fc1(self.trunk(x, train))))
 
 
 def import_torchvision_resnet50(state_dict: Dict) -> Dict[str, torch.Tensor]:

@@ -1539,3 +1539,93 @@ def test_ensemble_server_same_on_card_and_cpu(cuda_device, rng):
         np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-5)
         clear = np.abs(out["cpu"][1] - 0.5) > 1e-5
         np.testing.assert_array_equal(out["cuda"][0][clear], out["cpu"][0][clear])
+
+
+# ------------------------------------------------------- backbone fine-tuning
+class _ReluPins:
+    """``models.resnet.relu`` recording the CPU float64 step's derivative
+    pattern, then pinning the card's to it (flips counted): a
+    pre-activation within rounding of 0 moves one pixel's gradient term."""
+
+    def __init__(self):
+        self.masks, self.pin, self.i, self.flips = [], False, 0, 0
+
+    def __call__(self, x):
+        if not self.pin:
+            self.masks.append((x > 0).cpu())
+            return torch.relu(x)
+        m = self.masks[self.i].to(x.device)
+        self.i += 1
+        self.flips += int(((x > 0) != m).sum())
+        return x * m.to(x.dtype)
+
+
+@pytest.mark.parametrize("case", ["exact", "freeze_bn", "stride4"])
+def test_finetune_step_same_on_card_and_cpu(cuda_device, rng, monkeypatch, case):
+    """One fine-tune step of a small ResNetClassifier ((1, 1, 1, 1) x 8,
+    64x64 frames, a padded batch of 8, augmentation on with one set of
+    draws) on the card in float32 against the CPU in float64, the relu
+    pattern pinned: loss rtol 1e-5, each gradient leaf rtol 1e-4 + 1e-5 of
+    its largest, running statistics 1e-5."""
+    from med_tpu_torch.cli import resnet_finetune as cli
+    from med_tpu_torch.data.augment import draw_augment
+    from med_tpu_torch.models import init_weights, resnet
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    stride, freeze = (4 if case == "stride4" else 1), case == "freeze_bn"
+    images = rng.integers(0, 256, (13, 64, 64, 3)).astype(np.float32)
+    imgs, labels, mask = list(cli._batches(images, rng.integers(0, 2, 13), 8, True, 1))[1]
+    mean = images.reshape(-1, 3).mean(0) / 255.0
+    std = images.reshape(-1, 3).std(0) / 255.0 + 1e-6
+    draws = draw_augment(8, torch.Generator().manual_seed(5))
+    net = init_weights(resnet.ResNetClassifier((1, 1, 1, 1), 8, bn_stat_stride=stride),
+                       torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if name.endswith(".bn3"):
+                m.weight.mul_(0.2)
+    pins = _ReluPins()
+    monkeypatch.setattr(resnet, "relu", pins)
+    out = {}
+    for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
+        model = resnet.ResNetClassifier((1, 1, 1, 1), 8, dtype=dt, bn_stat_stride=stride)
+        model.load_state_dict(net.state_dict())
+        model.to(dev, dt)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3, eps=1e-8)
+        stats = (torch.tensor(mean, dtype=dt, device=dev), torch.tensor(std, dtype=dt, device=dev))
+        loss = cli.train_step(model, opt, imgs, labels, mask, stats, freeze, draws)
+        out[dev] = (float(loss), export_jax_params(model, grads=True)["params"],
+                    export_jax_params(model)["batch_stats"])
+        pins.pin = True
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v, np.float64)
+
+    want = dict(leaves(out["cpu"][1]))
+    for k, g in leaves(out["cuda"][1]):
+        scale = max(np.abs(want[k]).max(), 1e-30)
+        np.testing.assert_allclose(g, want[k], rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+    want = dict(leaves(out["cpu"][2]))
+    for k, s in leaves(out["cuda"][2]):
+        np.testing.assert_allclose(s, want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+    assert pins.flips <= 2
+
+
+def test_augment_batch_same_on_card_and_cpu(cuda_device, rng):
+    """augment_batch with one set of draws, on the card and on the CPU: the
+    0-255 pixels within 1e-3 (float32 tan and sin of an angle may differ by
+    an ulp between the two, which moves a shear's shift by ~1e-6 pixel at
+    the frame's edge, |dx| <= 111.5, and a pixel between neighbours 255
+    apart by up to ~6e-4 over the three passes; 2.4e-4 seen on an H100)."""
+    from med_tpu_torch.data.augment import augment_batch, draw_augment
+
+    frames = rng.integers(0, 256, (16, 224, 224, 3)).astype(np.float32)
+    draws = draw_augment(16, torch.Generator().manual_seed(0))
+    got = augment_batch(torch.from_numpy(frames).cuda(), draws).cpu().numpy()
+    want = augment_batch(torch.from_numpy(frames), draws).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)

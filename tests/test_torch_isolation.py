@@ -38,7 +38,9 @@ def test_port_imports_no_jax_and_no_med_tpu():
                  "utils.torch_port", "models.window_models", "data.siamese",
                  "cli.train_window", "cli.train_window_es",
                  "cli.train_window_es_sequential", "viz.utils", "eval.ensemble",
-                 "eval.results", "ops.quant", "cli.ensemble", "cli.results"):
+                 "eval.results", "ops.quant", "cli.ensemble", "cli.results",
+                 "data.consensus", "data.augment", "cli.preprocess", "cli.resnet_finetune",
+                 "models.clip_tokenizer", "models.clip_text", "models.prompts"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
