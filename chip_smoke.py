@@ -156,7 +156,35 @@ non-zero and the last line is not printed:
    epoch) on the exported folds; the CLIP text tower at ViT-B/32's
    geometry with seeded weights, card against CPU on COG's 15, 45 and 15
    prompts; a COG built with ``MED_TPU_CLIP_CKPT`` set, served at T = 300;
-13. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
+13. parallel (``[parallel]`` lines): two ranks sharing the card over gloo
+   (``parallel/launch.py::spawn``; ranks on one card check correctness,
+   they do not measure scaling), each holding against the single-rank
+   step on the card, same weights, batch and dropout masks, loss to 1e-5
+   and every gradient leaf to 1e-5 of its largest with the relu patterns
+   pinned to the single-rank run's (as phase 5 pins them): sequence-
+   parallel COG at full width on one T = 4096 trial in two shards of 2048
+   (K1 and K3 launched on each rank, counted: as many as the single-rank
+   step's) and sequence-parallel TeCNo; the SimpleCNN window step (the
+   CLI's defaults, B = 512) on meshes (2, 1) and (1, 2) with its running
+   statistics; the TeCNo pipeline over 2 refinement stages and 4
+   microbatches against the sequential chain. The ranks also take a
+   trial-parallel COG step (trial_batch 2 on T = 1000 and 1500, one trial
+   a rank), which the parent holds, with the card's own grouped step,
+   against the CPU's float64 grouped step (itself equal to its one-trial
+   steps to 1e-9): loss 1e-5, every leaf within twice the CPU float32
+   grouped step's distance (the float32 floor of these sums). Then the
+   port's entry dry run at 2 ranks; then, in an NCCL group of one, ``train_frame
+   --sequence-parallel`` and ``--trial-dp --trial-batch 2`` on phase 8's
+   folds, ``train_window --fold-parallel`` (SimpleCNN) against the
+   sequential CLI (histories, wall times, no vmap fallback),
+   ``resnet_finetune --mesh 1`` on phase 12's trials; one batched step of
+   two folds against each fold's engine step (loss, every gradient) and
+   its launches against one fold's; ``FoldParallelWindowRun`` against
+   ``train_window_fold`` at lr 0 on phase 8's folds; a TeCNo
+   fold epoch at T = 4096 with prefetch depth 2 against 0 and the
+   host-to-device copy from pinned and pageable memory; K1 and K3 a launch
+   at the SP shard's T = 2048; the SP step at one rank;
+14. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
    int8 kernel's, on the int8 trunk's and FE's paths, the trunk's with the
    fine-tune export's launches too), then ``{"ok": true, "device": ...}``
    last.
@@ -1230,6 +1258,35 @@ def _step_gradients(cfg, batch, masks, device: str, frozen=None):
     loss, _ = exp.compute_gradients(batch, masks=dev_masks)
     tree = export_jax_params(exp.net, grads=True)["params"]
     return loss.item(), {k: torch.from_numpy(v) for k, v in _flat(tree).items()}
+
+
+def _step_gradients64(cfg, batch, masks):
+    """:func:`_step_gradients` on the CPU in float64, from the same seeded
+    weights: the model built at compute type float64 (its TCN stacks as
+    plain ops), the net, the batch and the masks in float64; the stages
+    hand their logits to the loss in float32, as they do at every compute
+    type. Leaves whose gradient is 0 (the slow stages' dead class convs)
+    are left out."""
+    from med_tpu_torch import models
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    plain = models.compute_dtype
+    models.compute_dtype = lambda _: torch.float64
+    try:
+        exp = Experiment(cfg, device="cpu")
+    finally:
+        models.compute_dtype = plain
+    exp.init_weights(SEED)
+    exp.net.double()
+    tensors = exp._tensors
+    wide = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    exp._tensors = lambda b: {k: wide(v) for k, v in tensors(b).items()}
+    loss, _ = exp.compute_gradients(
+        batch, masks={n: {k: wide(v) for k, v in d.items()} for n, d in masks.items()})
+    tree = export_jax_params(exp.net, grads=True)["params"]
+    return loss.item(), {k: torch.from_numpy(np.asarray(v, np.float64))
+                         for k, v in _flat(tree).items() if np.abs(v).max() > 0}
 
 
 @contextlib.contextmanager
@@ -2587,7 +2644,7 @@ def _window_batch(cfg, rng: np.random.Generator) -> dict:
 
 
 @contextlib.contextmanager
-def _window_pins(record=None, pin=None, flips=None):
+def _window_pins(record=None, pin=None, flips=None, view=None):
     """The window path's counterpart of :func:`_ffn_relu`: within the block,
     each call of ``torch.relu`` (the FeatureExtractor, the heads, the
     LSTM's output), ``F.max_pool1d`` (the CNN blocks) and ``torch.abs`` (a
@@ -2596,12 +2653,15 @@ def _window_pins(record=None, pin=None, flips=None):
     the same call in another run and appends (entries chosen otherwise,
     the largest gap at them over the call's largest value) to ``flips``.
     Only which entry the derivative follows is pinned: the values stay
-    this run's wherever the two runs choose alike."""
+    this run's wherever the two runs choose alike. ``view(call, choice)``:
+    the part of another run's choice this run's call makes (a rank's rows
+    or columns)."""
     plain = (torch.relu, F.max_pool1d, torch.abs)
     calls = iter(range(1 << 30))
 
     def chosen(mine, gap, scale):
-        other = pin[next(calls)].to(mine.device)
+        i = next(calls)
+        other = (pin[i] if view is None else view(i, pin[i])).to(mine.device)
         flip = other != mine
         flips.append((int(flip.sum()), (gap[flip].max().item() if bool(flip.any()) else 0.0)
                       / max(scale, 1e-30)))
@@ -3877,6 +3937,661 @@ def phase_finetune(root: Path, profile: bool) -> int:
     _clip_tower(ft)
     return int8_launches
 
+PARALLEL_FRAMES = 4096          # the SP trial: two shards of 2048 frames
+GROUP_FRAMES = (1000, 1500)     # the trial-DP group
+PIPELINE = dict(M=4, T=1000)    # microbatches of the pipeline check
+
+
+@contextlib.contextmanager
+def _sp_relu(pin, flips):
+    """SP's plain stacks (``parallel/seqpar.py``'s ``relu``) take each
+    layer's relu pattern, in call order, from ``pin`` (this rank's rows of
+    the single-rank run's), and append (flipped entries, their largest
+    |pre-activation| over the call's largest) to ``flips``."""
+    from med_tpu_torch.parallel import seqpar
+
+    plain = seqpar.relu
+    calls = iter(pin)
+
+    def relu(x):
+        keep = next(calls).to(x.device)
+        flip = keep != (x > 0)
+        near = x[flip].abs().max().item() if bool(flip.any()) else 0.0
+        flips.append((int(flip.sum()), near / max(x.abs().max().item(), 1e-30)))
+        return x * keep.to(x.dtype)
+
+    seqpar.relu = relu
+    try:
+        yield
+    finally:
+        seqpar.relu = plain
+
+
+def _grads_within(tag: str, got: dict, want: dict) -> float:
+    """Raise unless every leaf of ``got`` lies within TRAIN_TOL of ``want``'s
+    (rtol, and atol of the leaf's largest |value|); the largest error of a
+    leaf over its largest |value|."""
+    worst, failed = 0.0, []
+    for n, w in want.items():
+        scale = max(w.abs().max().item(), 1e-30)
+        err = (got[n].to(w.device) - w).abs()
+        worst = max(worst, err.max().item() / scale)
+        if (err - TRAIN_TOL["grad_rtol"] * w.abs()).max().item() > TRAIN_TOL["grad_atol"] * scale:
+            failed.append(n)
+    if failed:
+        raise RuntimeError(f"{tag}: gradients out of tolerance against one rank: {failed}")
+    return worst
+
+
+def _loss_within(tag: str, got: float, want: float) -> float:
+    rel = abs(got - want) / abs(want)
+    if rel > TRAIN_TOL["loss"]:
+        raise RuntimeError(f"{tag}: loss {got} against one rank's {want} (rel {rel:.2e})")
+    return rel
+
+
+def _flips_within(tag: str, flips) -> int:
+    if flips and max(r for _, r in flips) > FLIP_PRE:
+        raise RuntimeError(f"{tag}: relu flips away from 0: {flips}")
+    return sum(n for n, _ in flips)
+
+
+def _synced_ms(fn, runs: int = 3) -> float:
+    """Median host ms of ``fn`` ending in a device sync and a barrier of the
+    ranks, after a warm call."""
+    from med_tpu_torch.parallel import launch
+
+    times = []
+    for _ in range(runs + 1):
+        launch.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        launch.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def _sp_rank_check(model_name: str) -> dict:
+    """One SP train step of COG (full width, multimodal) or TeCNo (the CLI's
+    defaults) on this rank's shard of a T = PARALLEL_FRAMES trial, against
+    the single-rank engine step on the card with the same weights and
+    dropout masks, relu patterns pinned (the encoder FFN's columns and the
+    stacks' rows of this rank). Returns its numbers and launches."""
+    from med_tpu_torch import ops
+    from med_tpu_torch.data.datasets import frame_batch
+    from med_tpu_torch.parallel import comm, launch
+    from med_tpu_torch.parallel.mesh import make_mesh
+    from med_tpu_torch.parallel.seqpar import shard_sequence
+    from med_tpu_torch.parallel.sp_train import SPFrameTrainer
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    tag = f"[parallel] SP {model_name}"
+    cfg = _train_config() if model_name == "COG" else _family_config(model_name)
+    T = PARALLEL_FRAMES
+    trial = _trial(np.random.default_rng(SEED + 7), T, "Needle_Passing_B001")
+    batch = frame_batch(trial, cfg)
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        T, torch.Generator().manual_seed(SEED), 1)
+    ffn, tcn = [], []
+    ops.reset_launch_counts()
+    with _ffn_relu(record=ffn), _tcn_relu(record=tcn):
+        want_loss, want = _step_gradients(cfg, batch, masks, CARD)
+    single = ops.launch_counts()
+
+    mesh = make_mesh((launch.world_size(), 1))
+    n, r = mesh.shape["data"], mesh.coord("data")
+    trainer = SPFrameTrainer(cfg, mesh, device=CARD)
+    trainer.exp.init_weights(SEED)
+    local = trainer.shard(trainer.make_batch(trial, T))
+    g = trainer.group
+    dp = {name: {"stack": shard_sequence(st["stack"][:, 0], g, axis=1).to(CARD),
+                 **({"channel": st["channel"].reshape(-1).to(CARD)} if "channel" in st else {})}
+          for name, st in masks.items()}
+    if model_name == "TeCNo":
+        dp = {name: st["stack"] for name, st in dp.items()}
+    N = local["labels"].shape[0] * (ffn[0].shape[-1] // T if ffn else 0)
+    ffn_pins = [p[..., r * N:(r + 1) * N] for p in ffn]
+    layer_pins = [(y[l] > 0)[r * (y.shape[1] // n):(r + 1) * (y.shape[1] // n)]
+                  for y in tcn for l in range(y.shape[0])]
+
+    def step():
+        trainer.exp.optimizer.zero_grad(set_to_none=False)
+        loss, _ = trainer._forward_loss(local, dp)
+        loss.backward()
+        comm.all_reduce_grads(trainer.exp.net.parameters(), g)
+        return loss
+
+    ffn_flips, tcn_flips = [], []
+    ops.reset_launch_counts()
+    with _ffn_relu(pin=ffn_pins, flips=ffn_flips), _sp_relu(layer_pins, tcn_flips):
+        loss = step().item()
+    launches = ops.launch_counts()
+    got = {k: torch.from_numpy(v) for k, v in
+           _flat(export_jax_params(trainer.exp.net, grads=True)["params"]).items()}
+    out = dict(loss=loss, loss_rel=_loss_within(tag, loss, want_loss),
+               grad_err=_grads_within(tag, got, want),
+               flips=(_flips_within(tag, ffn_flips), _flips_within(tag, tcn_flips)),
+               launches=launches, single_launches=single,
+               step_ms=_synced_ms(step), rank=r, shards=n)
+    if model_name == "COG":
+        for k in ("sliding_window_attention_packed", "sliding_window_attention_packed_bwd"):
+            if launches[k] != single[k] or launches[k] < 1:
+                raise RuntimeError(f"{tag}: {k} launched {launches[k]} times on rank {r}, "
+                                   f"the single-rank step {single[k]}")
+    return out
+
+
+def _group_inputs():
+    """The trial group of the trial-DP checks: COG (full width, multimodal)
+    with trial_batch 2 on two trials of GROUP_FRAMES, its batch and masks."""
+    cfg = _train_config().replace(trial_batch=2, fused_run=False)
+    rng = np.random.default_rng(SEED + 8)
+    trials = [_trial(rng, T, f"Needle_Passing_{c}001") for T, c in zip(GROUP_FRAMES, "CD")]
+    return (cfg, *_step_inputs(cfg, trials))
+
+
+def _trial_dp_rank_check() -> dict:
+    """One trial-parallel COG step (:func:`_group_inputs`, one trial a rank)
+    on the card: its loss and every gradient leaf, for the parent to hold
+    against the grouped step in float64 (:func:`_group_step_check`)."""
+    from med_tpu_torch.parallel import launch
+    from med_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    cfg, batch, masks = _group_inputs()
+    exp = Experiment(cfg, device=CARD)
+    exp.init_weights(SEED)
+    shard_state(exp, make_mesh((launch.world_size(), 1)))
+    loss, _ = exp.compute_gradients(batch, masks={
+        k: {kk: vv.to(CARD) for kk, vv in d.items()} for k, d in masks.items()})
+    return dict(loss=loss.item(), grads={
+        k: np.asarray(v, np.float64)
+        for k, v in _flat(export_jax_params(exp.net, grads=True)["params"]).items()})
+
+
+def _group_step_check(ranks) -> None:
+    """The grouped COG step (trial_batch 2 at T = GROUP_FRAMES) and the
+    trial-parallel ranks' step against the CPU's float64 grouped step. In
+    float64 the grouped step must equal the mean of its trials' one-trial
+    steps to 1e-9 of each leaf's largest (the grouped program is its
+    trials' programs). Gradients of the refinement stacks at these lengths
+    are sums over ~3,000 frames that mostly cancel, so a float32 step lies
+    up to a few 1e-3 of a leaf's largest from float64 whatever runs it,
+    relu patterns pinned or not: the CPU's float32 grouped step measures
+    that floor in this run, and the card's grouped step and each rank's
+    step must lie within twice it (every leaf; losses within TRAIN_TOL)."""
+    cfg, batch, masks = _group_inputs()
+    ref_loss, ref = _step_gradients64(cfg, batch, masks)
+    per = []
+    for b in range(cfg.trial_batch):
+        one = {k: v[b] for k, v in batch.items() if k != "trial_weight"}
+        mk = {n: {k: v[:, b:b + 1] if k == "stack" else v[b:b + 1] for k, v in d.items()}
+              for n, d in masks.items()}
+        per.append(_step_gradients64(cfg.replace(trial_batch=1), one, mk)[1])
+
+    def errors(got):
+        return {k: (got[k].double().cpu() - w).abs().max().item() / w.abs().max().item()
+                for k, w in ref.items()}
+
+    exact = max(errors({k: sum(p[k] for p in per) / len(per) for k in ref}).values())
+    if exact > 1e-9:
+        raise RuntimeError(f"[parallel] group: the float64 grouped step is {exact:.2e} of a "
+                           f"leaf's largest from its one-trial steps")
+    runs = {"CPU fp32 grouped": _step_gradients(cfg, batch, masks, "cpu"),
+            "card grouped": _step_gradients(cfg, batch, masks, CARD)}
+    for r, out in enumerate(ranks):
+        runs[f"card trial-DP rank {r}"] = (out["loss"], {k: torch.from_numpy(v) for k, v
+                                                         in out["grads"].items()})
+    errs = {name: errors(g) for name, (_, g) in runs.items()}
+    floor = max(errs["CPU fp32 grouped"].values())
+    frames = "+".join(map(str, GROUP_FRAMES))
+    log(f"[parallel] group: COG trial_batch 2 at T={frames}, float64 grouped step against "
+        f"the mean of its one-trial steps: {exact:.2e} of a leaf's largest")
+    for name, (loss, _) in runs.items():
+        e = errs[name]
+        worst = sorted(e, key=e.get, reverse=True)[:4]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        log(f"[parallel] group: {name} against float64 at T={frames}: loss rel {rel:.2e}, "
+            f"largest leaf error {max(e.values()):.2e} (tol {2 * floor:.2e}: twice the CPU "
+            f"fp32 step's), worst leaves {[(k, f'{e[k]:.2e}') for k in worst]}")
+        if rel > TRAIN_TOL["loss"] or max(e.values()) > 2 * floor:
+            raise RuntimeError(f"[parallel] group: {name} off the float64 step: loss rel "
+                               f"{rel:.2e}, leaf error {max(e.values()):.2e}")
+
+
+def _window_dp_rank_check(shape) -> dict:
+    """The SimpleCNN window step (the CLI's defaults, B = WINDOW_BATCH) on a
+    (data, model) mesh against the single-rank step on the card: loss,
+    running statistics, every gradient leaf, relu and max-pool choices
+    pinned to the single-rank run's (this rank's rows, or the
+    FeatureExtractor's first layer's columns of this model rank)."""
+    from med_tpu_torch.parallel.mesh import _gather, make_mesh, shard_state
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.utils.jax_params import export_jax_params
+
+    tag = f"[parallel] window step on mesh {shape}"
+    cfg = _window_config("SimpleCNN")
+    batch = _window_batch(cfg, np.random.default_rng(SEED))
+    masks = Experiment(cfg, device="cpu").net.model.dropout_masks(
+        WINDOW_BATCH, torch.Generator().manual_seed(SEED))
+    record = []
+    with _window_pins(record=record):
+        want_loss, want, want_stats = _window_step(cfg, batch, masks, CARD)
+    mesh = make_mesh(shape)
+    exp = Experiment(cfg, device=CARD)
+    exp.init_weights(SEED)
+    shard_state(exp, mesh)
+    per = WINDOW_BATCH // mesh.shape["data"]
+    rows = slice(mesh.coord("data") * per, (mesh.coord("data") + 1) * per)
+    cols = mesh.coord("model")
+
+    def view(i, choice):
+        if mesh.shape["model"] > 1:
+            return choice.chunk(mesh.shape["model"], dim=-1)[cols] if i == 0 else choice
+        return choice[rows]
+
+    flips = []
+    with _window_pins(pin=record, flips=flips, view=view):
+        loss, _ = exp.compute_gradients(batch, masks=[m.to(CARD) for m in masks])
+    whole = Experiment(cfg, device=CARD)
+    for name, p in whole.net.named_parameters():
+        grad = dict(exp.net.named_parameters())[name].grad
+        p.grad = _gather(grad, exp.tp[name], mesh.group("model")) if name in exp.tp else grad
+    got = {k: torch.from_numpy(v).double() for k, v in
+           _flat(export_jax_params(whole.net, grads=True)["params"]).items()}
+    stats = {k: torch.from_numpy(v).double() for k, v in
+             _flat(export_jax_params(exp.net)["batch_stats"]).items()}
+    stats_err = _leaf_errors(stats, want_stats)[0][0]
+    if stats_err > WINDOW_TOL["stats"]:
+        raise RuntimeError(f"{tag}: running statistics off by {stats_err:.3e}")
+    return dict(loss_rel=_loss_within(tag, loss.item(), want_loss),
+                grad_err=_grads_within(tag, got, want), stats_err=stats_err,
+                flips=_flips_within(tag, flips), tp=sorted(exp.tp))
+
+
+def _pipeline_rank_check() -> dict:
+    """Two pipelined TeCNo train steps (the CLI's TeCNo with 3 stages: stage 0
+    on every rank, refinement stage r + 1 on rank r; PIPELINE microbatches;
+    SGD) against the sequential chain's two steps on the card, with the
+    same per-(stage, microbatch) dropout masks: losses and every stage's
+    weights."""
+    from med_tpu_torch.parallel import launch
+    from med_tpu_torch.parallel.mesh import make_mesh
+    from med_tpu_torch.parallel.pipeline import make_pp_tecno_train_step
+    from med_tpu_torch.train import losses
+    from med_tpu_torch.train.engine import Experiment
+
+    tag = "[parallel] pipeline"
+    cfg = _family_config("TeCNo").replace(mstcn_stages=3)
+    M, T, lr = PIPELINE["M"], PIPELINE["T"], 1e-2
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(rng.standard_normal((M, T, 2048), dtype=np.float32)).to(CARD)
+    labels = torch.from_numpy(rng.integers(0, 2, (M, T))).to(CARD)
+    mask = torch.ones(M, T, device=CARD)
+    shape = (cfg.mstcn_layers, T, cfg.mstcn_f_maps)
+    masks = {(s, m): torch.from_numpy(rng.integers(0, 2, shape).astype(np.uint8)).to(CARD)
+             for s in range(3) for m in range(M)}
+    seq = Experiment(cfg, device=CARD)
+    seq.init_weights(SEED)
+    model = seq.net.model
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    stage_masks = {f"stage{s}": {"stack": torch.stack([masks[(s, m)] for m in range(M)], 1)}
+                   for s in range(3)}
+    want = []
+    for _ in range(2):
+        opt.zero_grad()
+        loss = losses.tecno_stage_loss(model(x, train=True, masks=stage_masks), labels, mask)
+        loss.backward()
+        opt.step()
+        want.append(loss.item())
+    pp = Experiment(cfg, device=CARD)
+    pp.init_weights(SEED)
+    mesh = make_mesh((launch.world_size(), 1))
+    d = mesh.coord("data")
+    stage0, stage = pp.net.model.stage0, pp.net.model.stages()[d + 1]
+    step = make_pp_tecno_train_step(stage0, stage, torch.optim.SGD(stage0.parameters(), lr=lr),
+                                    torch.optim.SGD(stage.parameters(), lr=lr),
+                                    mesh.group("data"), dropout_rate=0.5)
+    got = [step(x, labels, mask, masks).item() for _ in range(2)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if rel > TRAIN_TOL["loss"]:
+        raise RuntimeError(f"{tag}: losses {got} against the chain's {want}")
+    err = 0.0
+    for mine, ref in ((stage0, model.stage0), (stage, model.stages()[d + 1])):
+        for (k, a), b in zip(mine.state_dict().items(), ref.state_dict().values()):
+            e = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            err = max(err, e)
+            if e > TRAIN_TOL["grad_atol"]:
+                raise RuntimeError(f"{tag}: {k} off the chain's by {e:.2e} of its largest")
+    return dict(loss_rel=rel, weight_err=err, losses=got)
+
+
+def _parallel_rank() -> dict:
+    """What each of the two ranks sharing the card runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"sp": {name: _sp_rank_check(name) for name in ("COG", "TeCNo")},
+            "trial_dp": _trial_dp_rank_check(),
+            "window": {str(shape): _window_dp_rank_check(shape) for shape in ((2, 1), (1, 2))},
+            "pipeline": _pipeline_rank_check()}
+
+
+def _vmap_fallbacks(caught) -> list:
+    return [str(w.message) for w in caught if "batching rule" in str(w.message)
+            or "performance drop" in str(w.message)]
+
+
+def _fold_parallel_cli(root: Path, splits) -> None:
+    """``train_window --fold-parallel`` (SimpleCNN, the CLI's defaults, 2
+    epochs on phase 8's folds) against the sequential CLI: each fold's
+    history, best epoch and predictions (99%); both wall times; no vmap
+    fallback. Batched and unbatched matmuls round apart, and Adam, whose
+    first steps move a weight with a float32-noise gradient by a whole
+    learning rate either way, lifts that over the steps: the losses of the
+    first epoch to 5e-4 (an H100 read 1.06e-4; the CPU's folds of
+    tests/test_torch_folds.py 1.1e-5), later epochs' to 2e-3 (med_tpu's
+    tolerance after the first epoch). That the batched program computes the
+    sequential one's numbers is held tighter by :func:`_fold_step_check`
+    (one step's gradients) and :func:`_fold_parallel_at_lr_0` (whole runs
+    where nothing lifts the rounding)."""
+    import warnings
+
+    from med_tpu_torch.cli import train_window
+
+    argv = ["--data-root", str(root / "data"), "--runs-root", str(root / "runs_parallel"),
+            "--folds", ",".join(splits), "--n-epochs", "2", "--model-name", "SimpleCNN"]
+    walls = {}
+    out = {}
+    for label, extra in (("sequential", []), ("fold-parallel", ["--fold-parallel"])):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                results, tracker = train_window.main([*argv, *extra])
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+        fallbacks = _vmap_fallbacks(caught)
+        if fallbacks:
+            raise RuntimeError(f"[parallel] {label}: vmap fell back to a loop: {fallbacks}")
+        history = [json.loads(line) for line in
+                   (Path(tracker.dir) / "metrics.jsonl").read_text().splitlines()]
+        out[label] = (results, history)
+    seq, par = out["sequential"][0], out["fold-parallel"][0]
+    # metrics.jsonl: each fold's epochs in turn, one row a column, both runs
+    # in the same order
+    rows = [(a, b) for a, b in zip(out["sequential"][1], out["fold-parallel"][1])
+            if a["key"].endswith("_loss")]
+    if len(rows) != 2 * 2 * len(splits) or any(
+            (a["key"], a["step"]) != (b["key"], b["step"]) for a, b in rows):
+        raise RuntimeError("[parallel] the fold-parallel run's metrics rows differ in layout")
+    worst = {0: 0.0, 1: 0.0}
+    for a, b in rows:
+        first = 0 if a["step"] == 0 else 1
+        worst[first] = max(worst[first], abs(b["value"] - a["value"]))
+        if abs(b["value"] - a["value"]) > (5e-4 if first == 0 else 2e-3):
+            raise RuntimeError(f"[parallel] fold-parallel {a['key']} at epoch {a['step']}: "
+                               f"{b['value']} against the sequential {a['value']}")
+    for fold in splits:
+        a, b = np.asarray(seq[fold]["preds"]), np.asarray(par[fold]["preds"])
+        if a.shape != b.shape or np.mean(a == b) < 0.99 or \
+                seq[fold]["epoch"] != par[fold]["epoch"]:
+            raise RuntimeError(f"[parallel] fold-parallel fold {fold}: best epoch "
+                               f"{par[fold]['epoch']} vs {seq[fold]['epoch']}, predictions "
+                               f"agree on {np.mean(a == b):.4f}")
+    log(f"[parallel] train_window SimpleCNN, {len(splits)} folds x 2 epochs: sequential "
+        f"{walls['sequential']:.2f} s, --fold-parallel {walls['fold-parallel']:.2f} s; "
+        f"histories' losses within {worst[0]:.2e} in the first epoch (tol 5e-4), "
+        f"{worst[1]:.2e} after it (tol 2e-3), best epochs and predictions the same, no vmap "
+        f"fallback")
+
+
+def _fold_step_check() -> None:
+    """One batched step of two folds (SimpleCNN, the CLI's defaults, B =
+    WINDOW_BATCH, the folds' own batches, one draw of dropout masks) against
+    each fold's engine step on the card with the same masks: each fold's
+    loss (TRAIN_TOL) and every gradient leaf (rtol 1e-4, 2e-5 of the leaf's
+    largest, as tests/test_torch_folds.py holds it on the CPU); then the
+    device kernels of the batched step against one fold's step, by the
+    profiler: a batched program, not a loop over the folds."""
+    import warnings
+
+    from med_tpu_torch.parallel.folds import FoldParallel
+    from med_tpu_torch.train.engine import Experiment
+
+    cfg = _window_config("SimpleCNN")
+    rng = np.random.default_rng(SEED + 2)
+    exp = Experiment(cfg, device=CARD)
+    fp = FoldParallel(Experiment(cfg, device=CARD))
+    state = fp.init_states([SEED, SEED])
+    batches = [_window_batch(cfg, rng) for _ in range(2)]
+    stacked = {k: torch.as_tensor(np.stack([b[k] for b in batches]), device=CARD)
+               for k in batches[0]}
+    masks = fp.draw_masks(state, np.ones(2, bool), WINDOW_BATCH)
+    train = fp._train if state["class_counts"] is not None else torch.func.vmap(
+        fp._train_one, in_dims=(0, 0, 0, 0, None))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        grads, loss, _, _ = train(state["params"], state["buffers"], stacked, masks,
+                                  state["class_counts"])
+    if _vmap_fallbacks(caught):
+        raise RuntimeError(f"[parallel] fold step: vmap fell back: {_vmap_fallbacks(caught)}")
+    worst, rel = 0.0, 0.0
+    for f, batch in enumerate(batches):
+        exp.init_weights(SEED)
+        one, _ = exp.compute_gradients(batch, masks=[m[f] for m in masks])
+        rel = max(rel, _loss_within("[parallel] fold step", float(loss[f]), one.item()))
+        for k, p in exp.net.named_parameters():
+            w, g = p.grad, grads[f"net.{k}"][f]
+            scale = max(w.abs().max().item(), 1e-30)
+            err = (g - w).abs()
+            worst = max(worst, err.max().item() / scale)
+            if (err - 1e-4 * w.abs()).max().item() > 2e-5 * scale:
+                raise RuntimeError(f"[parallel] fold step: fold {f} {k} off its engine step "
+                                   f"by {err.max().item() / scale:.2e} of its largest")
+    log(f"[parallel] one fold-parallel step of 2 folds against each fold's engine step, "
+        f"B={WINDOW_BATCH}: loss rel {rel:.2e}, largest leaf error {worst:.2e} of its largest "
+        f"(tol 2e-5)")
+    one = exp._tensors(_window_batch(cfg, rng))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        folds = len(_device_events(lambda: fp.train_step(state, stacked, cfg.lr), 1))
+    if _vmap_fallbacks(caught):
+        raise RuntimeError(f"[parallel] fold step: vmap fell back: {_vmap_fallbacks(caught)}")
+    single = len(_device_events(lambda: exp.train_step(one), 1))
+    log(f"[parallel] one fold-parallel step of 2 folds: {folds} device kernels and copies; "
+        f"one fold's engine step: {single}")
+    if folds >= 1.5 * single:
+        raise RuntimeError(f"[parallel] a fold-parallel step of 2 folds ran {folds} device "
+                           f"events against one fold's {single}: a loop over the folds")
+
+
+def _fold_parallel_at_lr_0(root: Path, splits) -> None:
+    """``FoldParallelWindowRun`` against ``train_window_fold`` on phase 8's
+    folds (SimpleCNN, the CLI's defaults, 2 epochs) at a learning rate of
+    0: the weights stay and only the running statistics move, so Adam lifts
+    no rounding, and every epoch's train and test losses must agree to
+    TRAIN_TOL["loss"] (the CPU's runs: 3e-6, tests/test_torch_folds.py)."""
+    from med_tpu_torch.data.datasets import build_window_fold
+    from med_tpu_torch.parallel.folds import FoldParallelWindowRun
+    from med_tpu_torch.train.engine import Experiment
+    from med_tpu_torch.train.loop import train_window_fold
+
+    cfg = _window_config("SimpleCNN").replace(lr=0.0)
+    folds = [build_window_fold(str(root / "data" / fold), cfg) for fold in splits]
+    exp = Experiment(cfg, device=CARD)
+    seq = [train_window_fold(cfg, tf, ef, exp=exp) for tf, ef in folds]
+    par = FoldParallelWindowRun(exp, cfg, folds).run()
+    worst = 0.0
+    for fold, a, b in zip(splits, seq, par):
+        for x, y in zip(a["history"], b["history"]):
+            for k in ("train_loss", "test_loss"):
+                rel = abs(y[k] - x[k]) / abs(x[k])
+                worst = max(worst, rel)
+                if rel > TRAIN_TOL["loss"]:
+                    raise RuntimeError(f"[parallel] fold-parallel at lr 0, fold {fold} epoch "
+                                       f"{x['epoch']}: {k} {y[k]} against {x[k]}")
+    log(f"[parallel] FoldParallelWindowRun against train_window_fold at lr 0, SimpleCNN, "
+        f"{len(splits)} folds x 2 epochs: losses within {worst:.2e} (rel; tol "
+        f"{TRAIN_TOL['loss']})")
+
+
+def _prefetch_check() -> None:
+    """A TeCNo fold epoch (the CLI's defaults) over 4 trials of T = 4096 with
+    prefetch depth 2 against 0 (equal losses; both train times), and one
+    trial's features to the card from pinned and from pageable memory."""
+    from med_tpu_torch.train.loop import train_frame_fold
+
+    rng = np.random.default_rng(SEED + 4)
+    train = [_trial(rng, PARALLEL_FRAMES, f"Needle_Passing_{c}001") for c in "BCDE"]
+    test = [_trial(rng, PARALLEL_FRAMES, "Needle_Passing_F001")]
+    times, losses = {}, {}
+    for depth in (0, 2, 0, 2):
+        cfg = _family_config("TeCNo").replace(n_epochs=1, prefetch_depth=depth)
+        res = train_frame_fold(cfg, train, test)
+        times.setdefault(depth, []).append(res["history"][0]["train_time"] * 1e3)
+        losses[depth] = res["history"][0]["train_loss"]
+    if abs(losses[0] - losses[2]) > 1e-6 * abs(losses[0]):
+        raise RuntimeError(f"[parallel] prefetch changed the train loss: {losses}")
+    x = np.ascontiguousarray(train[0].images)
+    pinned = torch.from_numpy(x).pin_memory()
+    page = cuda_ms(lambda: torch.from_numpy(x).to(CARD), 5)
+    pin = cuda_ms(lambda: pinned.to(CARD, non_blocking=True), 5)
+    log(f"[parallel] TeCNo fold epoch, 4 trials at T={PARALLEL_FRAMES}: train time "
+        f"{min(times[2]):.1f} ms with prefetch depth 2, {min(times[0]):.1f} ms with 0 (best of "
+        f"2 each; losses {losses[2]:.9f} and {losses[0]:.9f}); one trial's {x.nbytes / 1e6:.1f} MB features to the card "
+        f"{pin:.3f} ms from pinned memory, {page:.3f} ms from pageable")
+
+
+def _nccl_group_of_one(root: Path, splits) -> None:
+    """The CLIs in an NCCL group of one rank: ``train_frame
+    --sequence-parallel`` and ``--trial-dp --trial-batch 2`` (COG at full
+    width, multimodal, 1 epoch, phase 8's folds: whole runs, finite F1),
+    the fold-parallel window CLI, ``resnet_finetune --mesh 1`` on phase
+    12's raw-frame folds."""
+    import torch.distributed as dist
+
+    from med_tpu_torch.cli import resnet_finetune, train_frame
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        argv = ["--model-name", "COG", "--data-type", "multimodal", "--data-root",
+                str(root / "data"), "--runs-root", str(root / "runs_parallel"),
+                "--folds", ",".join(splits), "--n-epochs", "1"]
+        for flags in (["--sequence-parallel"], ["--trial-dp", "--trial-batch", "2"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                results, tracker = train_frame.main([*argv, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mesh_line = next(line for line in buf.getvalue().splitlines() if "mesh" in line)
+            for fold in splits:
+                if not np.isfinite(results[fold]["test_f1"]):
+                    raise RuntimeError(f"[parallel] train_frame {flags}: fold {fold} F1 "
+                                       f"{results[fold]['test_f1']}")
+            for name in ("summary.json", "windowed_metrics.json"):
+                _finite_numbers(json.loads((Path(tracker.dir) / "artifacts" / name).read_text()))
+            log(f"[parallel] train_frame COG {' '.join(flags)} (NCCL group of one; "
+                f"{mesh_line.strip()}): 1 epoch on {len(splits)} folds in {wall:.2f} s, best "
+                f"test F1 { {f: round(results[f]['test_f1'], 4) for f in splits} }")
+        _fold_parallel_cli(root, splits)
+        ft = root / "finetune"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            resnet_finetune.main(["--data-root", str(ft / "raw"), "--output-root",
+                                  str(ft / "features_mesh"), "--folds", "1Out",
+                                  "--runs-root", str(ft / "runs_mesh"), "--n-epochs", "1",
+                                  "--seed", str(SEED), "--batch-size", str(FINETUNE_BATCH),
+                                  "--mesh", "1"])
+        torch.cuda.synchronize()
+        last = buf.getvalue().strip().splitlines()[-1]
+        exported = sorted((ft / "features_mesh" / "1Out").glob("*.npz"))
+        if not exported:
+            raise RuntimeError("[parallel] resnet_finetune --mesh 1 exported no features")
+        log(f"[parallel] resnet_finetune --mesh 1 (NCCL group of one), 1 epoch of fold "
+            f"1Out: {time.perf_counter() - t0:.2f} s, {last.strip()}, {len(exported)} trials "
+            f"exported")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(root: Path, splits) -> dict:
+    """Parallelism on the card (phase 13 of the module docstring). Returns
+    rank 0's SP COG launches."""
+    from med_tpu_torch.entry import dryrun_multichip
+    from med_tpu_torch.parallel import launch
+    from med_tpu_torch.parallel.mesh import make_mesh
+    from med_tpu_torch.parallel.sp_train import SPFrameTrainer
+
+    note = "(two ranks share one card: a correctness check, not a scaling measurement)"
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_parallel_rank, 2, str(root / "ranks"), backend="gloo", device=CARD)
+    log(f"[parallel] 2 ranks on cuda:0 over gloo {note}: {time.perf_counter() - t0:.1f} s")
+    for name in ("COG", "TeCNo"):
+        for r in ranks:
+            sp = r["sp"][name]
+            log(f"[parallel] SP {name} train step, T={PARALLEL_FRAMES} in {sp['shards']} shards, "
+                f"rank {sp['rank']}: loss rel {sp['loss_rel']:.2e} of one rank's (tol "
+                f"{TRAIN_TOL['loss']}), largest leaf error {sp['grad_err']:.2e} of its "
+                f"largest (tol {TRAIN_TOL['grad_atol']}) with the relu patterns pinned (FFN, "
+                f"TCN flips {sp['flips']}); K1/K3 launches "
+                f"{sp['launches']['sliding_window_attention_packed']}/"
+                f"{sp['launches']['sliding_window_attention_packed_bwd']} (one rank's step "
+                f"{sp['single_launches']['sliding_window_attention_packed']}/"
+                f"{sp['single_launches']['sliding_window_attention_packed_bwd']}); step "
+                f"{sp['step_ms']:.1f} ms {note}")
+    for r, out in enumerate(ranks):
+        for shape, w in out["window"].items():
+            log(f"[parallel] SimpleCNN window step B={WINDOW_BATCH} on mesh {shape}, rank {r}: "
+                f"loss rel {w['loss_rel']:.2e}, running statistics {w['stats_err']:.2e}, "
+                f"largest leaf error {w['grad_err']:.2e} (choices flipped {w['flips']}); "
+                f"split {w['tp'] or 'nothing'}")
+        pp = out["pipeline"]
+        log(f"[parallel] pipeline, TeCNo 2 refinement stages x {PIPELINE['M']} microbatches "
+            f"of T={PIPELINE['T']}, rank {r}: 2 SGD steps, losses {pp['losses']} (rel "
+            f"{pp['loss_rel']:.2e} of the sequential chain's), weights within "
+            f"{pp['weight_err']:.2e} of their largest")
+
+    _group_step_check([r["trial_dp"] for r in ranks])
+
+    # the SP step on one rank (plain stacks, the attention kernels)
+    cfg = _train_config()
+    trainer = SPFrameTrainer(cfg, make_mesh(), device=CARD)
+    trainer.exp.init_weights(SEED)
+    trial = _trial(np.random.default_rng(SEED + 7), PARALLEL_FRAMES, "Needle_Passing_B001")
+    local = trainer.shard(trainer.make_batch(trial, PARALLEL_FRAMES))
+
+    def one_rank_step():
+        trainer.exp.optimizer.zero_grad(set_to_none=False)
+        trainer._forward_loss(local, trainer.dropout(0, PARALLEL_FRAMES))[0].backward()
+
+    log(f"[parallel] SP COG train step at one rank, T={PARALLEL_FRAMES}: "
+        f"{_synced_ms(one_rank_step):.1f} ms")
+    gen = torch.Generator().manual_seed(SEED)
+    k1 = _attention_case("cog", PARALLEL_FRAMES // 2, gen)
+    k3 = _attention_bwd_case("cog", PARALLEL_FRAMES // 2, gen)
+    log(f"[parallel] K1 at the SP shard's T={PARALLEL_FRAMES // 2}: {k1['device_ms']:.4f} ms a "
+        f"launch (bound {k1['bound_ms']:.4f}); K3: {k3['device_ms']:.4f} ms (bound "
+        f"{k3['bound_ms']:.4f})")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(2, device=CARD, backend="gloo")
+    for line in buf.getvalue().splitlines():
+        log(f"[parallel] {line}")
+    log(f"[parallel] entry dry run, 2 ranks on cuda:0: {time.perf_counter() - t0:.1f} s")
+    _nccl_group_of_one(root, splits)
+    _fold_step_check()
+    _fold_parallel_at_lr_0(root, splits)
+    _prefetch_check()
+    return ranks[0]["sp"]["COG"]["launches"]
+
 
 def main(argv) -> int:
     if not torch.cuda.is_available():
@@ -3915,6 +4630,7 @@ def main(argv) -> int:
         int8_entries = timed("ensemble", phase_ensemble, Path(tmp), splits, cog_run, es_run)
         int8_entries["int8_conv/trunk"]["launches_finetune_export"] = timed(
             "finetune", phase_finetune, Path(tmp), profile)
+        sp_launches = timed("parallel", phase_parallel, Path(tmp), splits)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -4007,6 +4723,7 @@ def main(argv) -> int:
              "launches_bf16_tecno_fold": bf16_folds["TeCNo"][wrapper],
              "launches_group_fold": group_fold[wrapper],
              "launches_window": window[wrapper],
+             "launches_sp_rank": sp_launches[wrapper],
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     # the int8 kernel is no TPU kernel (it replaces XLA's int8 conv and dot)

@@ -1,20 +1,32 @@
 """Shared CLI plumbing: argparse <-> ExperimentConfig, fold orchestration,
 artifact writing (port of ``med_tpu.cli.common``: the same flags, defaults,
 printed lines and written files, the ``images/`` plots among them, plus
-``--device``)."""
+``--device``).
+
+Several GPUs: one process a rank, under ``torchrun``::
+
+    torchrun --nproc-per-node N -m med_tpu_torch.cli.train_frame \
+        --sequence-parallel ...
+
+(NCCL, one GPU a rank; without torchrun the CLI runs one rank.) Rank 0
+alone writes the run (tracker, checkpoints, artifacts, summary); every
+rank meets the others at a barrier before it exits."""
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config import LOSO_FOLDS, ExperimentConfig
 from ..data.datasets import build_frame_fold, build_window_fold
 from ..eval.rollup import compute_window_metrics
 from ..eval.summary import create_summary, summary_to_text
+from ..parallel import launch
 from ..tracking import RunTracker
 from ..train.checkpoint import save_checkpoint
 from ..train.engine import WINDOW_MODELS, Experiment
@@ -35,8 +47,6 @@ _CONFIG_FIELDS = [
 _BOOL_FIELDS = ["lr_scheduler", "pos_weight", "delete_ND", "siamese",
                 "mstcn_causal_conv", "use_pallas", "SRM", "use_skill_prompt",
                 "fused_epoch", "fused_run"]
-# flags of med_tpu's multi-chip layouts, parsed so that they fail by name
-_MULTI_GPU_FLAGS = ("mesh", "fold_parallel", "trial_dp", "sequence_parallel")
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -56,11 +66,17 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device to train on. Default: CUDA, which must "
                         "be there; 'cpu' runs the kernels' plain versions")
-    p.add_argument("--mesh", default=None,
-                   help="multi-GPU device mesh (not ported yet)")
-    for flag in ("--fold-parallel", "--trial-dp", "--sequence-parallel"):
-        p.add_argument(flag, action="store_true", default=False,
-                       help="multi-GPU layout (not ported yet)")
+    add_mesh_flag(p)
+    p.add_argument("--fold-parallel", action="store_true", default=False,
+                   help="window families: train ALL folds as one batched program "
+                        "(the fold axis over the mesh 'data' axis, "
+                        "parallel/folds.py::FoldParallelWindowRun)")
+    p.add_argument("--trial-dp", action="store_true", default=False,
+                   help="frame families: split the --trial-batch axis over the mesh "
+                        "'data' axis (data-parallel trials)")
+    p.add_argument("--sequence-parallel", action="store_true", default=False,
+                   help="frame families: split each trial's TIME axis over the mesh "
+                        "'data' axis (parallel/sp_train.py)")
     defaults = ExperimentConfig()
     for name, typ in _CONFIG_FIELDS:
         p.add_argument(f"--{name.replace('_', '-').lower()}", dest=name,
@@ -71,6 +87,49 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                        default=getattr(defaults, name))
         p.add_argument(f"--no-{flag}", dest=name, action="store_false")
     return p
+
+
+def add_mesh_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default=None,
+                   help="rank mesh for multi-GPU training: 'auto' (every rank, data x "
+                        "model) or a shape like '4,2' (data,model) that holds every "
+                        "rank of the torchrun world. Default: one rank")
+
+
+def mesh_from_args(args):
+    """The mesh ``--mesh`` asks for (None without the flag), over the ranks
+    of the ``torchrun`` world (one rank without torchrun). 'auto' lays them
+    out as (data, model) with model = 2 when the count is even
+    (parallel/mesh.py::make_mesh); 'N' or 'N,M' pins the shape, which must
+    hold every rank."""
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    launch.init_from_env(getattr(args, "device", None))
+    if spec == "auto":
+        return make_mesh()
+    shape = tuple(int(s) for s in spec.split(","))
+    need, have = math.prod(shape), launch.world_size()
+    if need > have:
+        raise SystemExit(f"--mesh {spec} needs {need} ranks, have {have} (start them "
+                         f"with torchrun --nproc-per-node {need})")
+    if need < have:
+        raise SystemExit(f"--mesh {spec} holds {need} ranks, the world has {have}: "
+                         "every rank takes a place in the mesh")
+    return make_mesh(shape)
+
+
+def _default_mesh(args, mesh=None):
+    """``mesh`` (``--mesh``'s), or every rank of the world in med_tpu's
+    'auto' layout (one rank without torchrun)."""
+    if mesh is None:
+        from ..parallel.mesh import make_mesh
+
+        launch.init_from_env(getattr(args, "device", None))
+        mesh = make_mesh()
+    return mesh
 
 
 def config_from_args(args, **overrides) -> ExperimentConfig:
@@ -103,13 +162,41 @@ def make_tracker(args, cfg: ExperimentConfig) -> RunTracker:
     experiment = args.experiment or (
         f"{cfg.model_name}_{cfg.frequency}Hz_{cfg.data_type}"
     )
+    if not launch.is_main():
+        return _RankTracker(_broadcast(None))
     run_id = None
     if getattr(args, "resume", False):
         run_id = _latest_run(os.path.join(args.runs_root, experiment))
     tracker = RunTracker(root=args.runs_root, experiment=experiment, run_id=run_id)
     tracker.log_params(cfg.to_dict())
     print(f"run: {tracker.dir}")
+    _broadcast(tracker.dir)
     return tracker
+
+
+def _broadcast(obj):
+    """Rank 0's ``obj`` on every rank (itself without a process group)."""
+    if not dist.is_initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class _RankTracker:
+    """Another rank's view of rank 0's run: it reads the run's snapshots and
+    writes nothing."""
+
+    def __init__(self, run_dir: str):
+        self.dir = run_dir
+
+    def checkpoint_path(self, name: str) -> str:
+        return os.path.join(self.dir, "checkpoints", name)
+
+    def log_params(self, *_args, **_kw) -> None:
+        pass
+
+    log_metrics = log_metric = log_dict = log_params
 
 
 def _dump_best(tracker: RunTracker, tag: str, best: dict, cfg) -> None:
@@ -126,13 +213,6 @@ def _dump_best(tracker: RunTracker, tag: str, best: dict, cfg) -> None:
     tracker.log_dict(dump, f"best_model_{tag}.json")
 
 
-def _refuse_multi_gpu(args) -> None:
-    for name in _MULTI_GPU_FLAGS:
-        if getattr(args, name, None):
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported yet: "
-                             "ROADMAP.md Queue A12 (multi-GPU)")
-
-
 def _save_best(tracker: RunTracker, tag: str, res: dict, cfg: ExperimentConfig) -> dict:
     """Write a fold's best checkpoint (with its meta) and prediction dump;
     returns its best row."""
@@ -141,6 +221,8 @@ def _save_best(tracker: RunTracker, tag: str, res: dict, cfg: ExperimentConfig) 
         raise SystemExit(f"[{tag}] nothing left to train: the snapshot is at or "
                          f"past --n-epochs {cfg.n_epochs}, or the first epoch's "
                          "train loss was not finite")
+    if not launch.is_main():
+        return best
     ckpt = res["checkpoint"]
     save_checkpoint(tracker.checkpoint_path(f"best_model_{tag}.npz"), ckpt["params"],
                     ckpt["batch_stats"], ckpt.get("constants"),
@@ -167,6 +249,15 @@ def _plot_fold(tracker: RunTracker, history, setting: str, out: str, best: dict)
         print(f"plotting skipped: {e}")
 
 
+def _finish(tracker, fold_results, samples_tr, samples_te) -> dict:
+    """The weighted summary (rank 0 writes it)."""
+    summary = create_summary(fold_results, samples_tr, samples_te)
+    if launch.is_main():
+        tracker.log_dict(summary, "summary.json")
+        print(summary_to_text(summary))
+    return summary
+
+
 def run_window_folds(args, cfg: ExperimentConfig,
                      extras_fn: Optional[Callable[[str, object, object], dict]] = None,
                      siamese_fn: Optional[Callable] = None):
@@ -175,9 +266,14 @@ def run_window_folds(args, cfg: ExperimentConfig,
     One :class:`Experiment` serves every fold. ``extras_fn(fold,
     train_fold, test_fold)`` gives a fold's extra per-window arrays (the
     sequential stage's gates), ``siamese_fn(fold, train_fold, test_fold)``
-    its materialized pairs (see ``train_window_fold``). Returns
-    (fold_results, tracker)."""
-    _refuse_multi_gpu(args)
+    its materialized pairs (see ``train_window_fold``). ``--fold-parallel``
+    goes to :func:`run_window_folds_parallel`. Returns (fold_results,
+    tracker)."""
+    if getattr(args, "fold_parallel", False):
+        return run_window_folds_parallel(args, cfg, extras_fn=extras_fn,
+                                         siamese_fn=siamese_fn)
+    launch.init_from_env(getattr(args, "device", None))
+    mesh_from_args(args)            # a --mesh the world cannot hold exits here
     folds = [f for f in args.folds.split(",") if f]
     shared_exp = Experiment(cfg, device=getattr(args, "device", None))
     tracker = make_tracker(args, cfg)
@@ -193,15 +289,76 @@ def run_window_folds(args, cfg: ExperimentConfig,
             extras=extras_fn(out, train_fold, test_fold) if extras_fn else None,
             exp=shared_exp, resume=getattr(args, "resume", False))
         best = _save_best(tracker, tag, res, cfg)
-        _plot_fold(tracker, res["history"], args.setting, out, best)
+        if launch.is_main():
+            _plot_fold(tracker, res["history"], args.setting, out, best)
         fold_results[out] = best
         samples_tr[out] = len(train_fold)
         samples_te[out] = len(test_fold)
         print(f"[{tag}] best test F1={best['test_f1']:.3f} "
               f"acc={best['test_acc']:.3f}")
-    summary = create_summary(fold_results, samples_tr, samples_te)
-    tracker.log_dict(summary, "summary.json")
-    print(summary_to_text(summary))
+    _finish(tracker, fold_results, samples_tr, samples_te)
+    launch.barrier()
+    return fold_results, tracker
+
+
+def run_window_folds_parallel(args, cfg: ExperimentConfig,
+                              extras_fn: Optional[Callable] = None,
+                              siamese_fn: Optional[Callable] = None):
+    """``--fold-parallel``: every LOSO fold trained as one batched program
+    (parallel/folds.py::FoldParallelWindowRun; the fold axis over the mesh's
+    'data' axis, each rank its own folds, no collective until the results
+    meet on rank 0), then the sequential driver's per-fold artifacts."""
+    if siamese_fn is not None or extras_fn is not None:
+        raise SystemExit("--fold-parallel supports the plain window family "
+                         "(no siamese pairs / sequential gates)")
+    if getattr(args, "resume", False):
+        raise SystemExit("--fold-parallel does not support --resume "
+                         "(the whole run is one device program)")
+    import time
+    import warnings
+
+    from ..parallel.folds import FoldParallelWindowRun
+
+    mesh = mesh_from_args(args)
+    names = [f for f in args.folds.split(",") if f]
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    mine = names
+    if n_data > 1:
+        if len(names) % n_data:
+            warnings.warn(f"{len(names)} folds not divisible by data axis {n_data}; "
+                          "every rank trains every fold")
+        else:
+            per = len(names) // n_data
+            mine = names[mesh.coord("data") * per:(mesh.coord("data") + 1) * per]
+        print(f"fold-parallel mesh: {mesh.shape}")
+    exp = Experiment(cfg, device=getattr(args, "device", None))
+    tracker = make_tracker(args, cfg)
+    folds = {}
+    for out in names:
+        tf, ef = build_window_fold(os.path.join(args.data_root, out), cfg, args.video_root)
+        folds[out] = (tf, ef)
+        print(f"[{args.setting}_{out}] train windows={len(tf)} test={len(ef)}")
+    t0 = time.time()
+    results = dict(zip(mine, FoldParallelWindowRun(exp, cfg, [folds[o] for o in mine]).run()))
+    if n_data > 1 and len(mine) < len(names):
+        gathered = [None] * launch.world_size()
+        dist.all_gather_object(gathered, results)
+        results = {k: v for part in gathered for k, v in part.items()}
+    print(f"fold-parallel wall: {time.time() - t0:.2f} s")
+    fold_results, samples_tr, samples_te = {}, {}, {}
+    for out in names:
+        tag = f"{args.setting}_{out}"
+        for row in results[out]["history"]:
+            tracker.log_metrics({k: v for k, v in row.items() if np.isscalar(v)},
+                                step=row["epoch"])
+        best = _save_best(tracker, tag, results[out], cfg)
+        if launch.is_main():
+            _plot_fold(tracker, results[out]["history"], args.setting, out, best)
+        fold_results[out] = best
+        samples_tr[out], samples_te[out] = len(folds[out][0]), len(folds[out][1])
+        print(f"[{tag}] best test F1={best['test_f1']:.3f} acc={best['test_acc']:.3f}")
+    _finish(tracker, fold_results, samples_tr, samples_te)
+    launch.barrier()
     return fold_results, tracker
 
 
@@ -214,11 +371,32 @@ def run_frame_folds(args, cfg: ExperimentConfig,
     train_frame.ipynb cells 2-4). ``frozen_fn(fold)`` gives a fold's frozen
     stage (TransSVNet's TeCNo); ``gates_fn(fold, train_trials,
     test_trials)`` its gates (the sequential regime's, see
-    ``train_frame_fold``). Returns (fold_results, tracker)."""
-    _refuse_multi_gpu(args)
+    ``train_frame_fold``). ``--sequence-parallel`` splits each trial's time
+    axis over the mesh's 'data' axis (parallel/sp_train.py), ``--trial-dp``
+    the trial groups (``train_frame_fold(mesh=)``); one or the other.
+    Returns (fold_results, tracker)."""
     if cfg.model_name in WINDOW_MODELS:
         raise SystemExit(f"{cfg.model_name} is a window model (ROADMAP.md A7): train "
                          "it with med_tpu_torch.cli.train_window")
+    launch.init_from_env(getattr(args, "device", None))
+    if getattr(args, "sequence_parallel", False) and getattr(args, "trial_dp", False):
+        raise SystemExit("--sequence-parallel and --trial-dp are mutually exclusive")
+    given = mesh_from_args(args)
+    mesh = sp_mesh = None
+    if getattr(args, "sequence_parallel", False):
+        sp_mesh = _default_mesh(args, given)
+        print(f"sequence-parallel mesh: {sp_mesh.shape} "
+              f"(T sharded over 'data'={sp_mesh.shape['data']})")
+    elif getattr(args, "trial_dp", False):
+        mesh = _default_mesh(args, given)
+        n_data = mesh.shape["data"]
+        if cfg.trial_batch % n_data:
+            print(f"--trial-dp: trial_batch {cfg.trial_batch} not a multiple of the "
+                  f"data axis {n_data}; batches will replicate (see "
+                  "parallel/mesh.py::shard_batch)")
+        if cfg.fused_epoch or cfg.fused_run:
+            cfg = cfg.replace(fused_epoch=False, fused_run=False)
+        print(f"trial-DP mesh: {mesh.shape} (trial_batch={cfg.trial_batch})")
     folds = [f for f in args.folds.split(",") if f]
     # before the run directory is made: without a GPU (and without --device
     # cpu) this raises, and nothing is left on disk
@@ -232,23 +410,28 @@ def run_frame_folds(args, cfg: ExperimentConfig,
         test_trials = build_frame_fold(fold_dir, cfg, "test.csv", args.video_root)
         tag = f"{args.setting}_{out}"
         print(f"[{tag}] train trials={len(train_trials)} test={len(test_trials)}")
-        res = train_frame_fold(cfg, train_trials, test_trials, tracker=tracker,
-                               frozen=frozen_fn(out) if frozen_fn else None,
-                               gates=gates_fn(out, train_trials, test_trials)
-                               if gates_fn else None,
-                               tag=tag, exp=shared_exp,
-                               resume=getattr(args, "resume", False))
+        frozen = frozen_fn(out) if frozen_fn else None
+        gates = gates_fn(out, train_trials, test_trials) if gates_fn else None
+        if sp_mesh is not None:
+            from ..parallel.sp_train import train_sp_frame_fold
+
+            res = train_sp_frame_fold(cfg, train_trials, test_trials, sp_mesh,
+                                      tracker=tracker, frozen=frozen, gates=gates, tag=tag,
+                                      resume=getattr(args, "resume", False), exp=shared_exp)
+        else:
+            res = train_frame_fold(cfg, train_trials, test_trials, tracker=tracker,
+                                   frozen=frozen, gates=gates, tag=tag, exp=shared_exp,
+                                   resume=getattr(args, "resume", False), mesh=mesh)
         best = _save_best(tracker, tag, res, cfg)
-        _plot_fold(tracker, res["history"], args.setting, out, best)
+        if launch.is_main():
+            _plot_fold(tracker, res["history"], args.setting, out, best)
         fold_results[out] = best
         samples_tr[out] = sum(t.n_frames for t in train_trials)
         samples_te[out] = sum(t.n_frames for t in test_trials)
         frame_dumps[out] = {k: best[k] for k in
                             ("preds", "labels", "gestures", "subjects")}
         print(f"[{tag}] best test F1={best['test_f1']:.3f}")
-    summary = create_summary(fold_results, samples_tr, samples_te)
-    tracker.log_dict(summary, "summary.json")
-    print(summary_to_text(summary))
+    _finish(tracker, fold_results, samples_tr, samples_te)
 
     # frame -> window rollup (train_frame.ipynb cell 4)
     binary = cfg.error_type == "global"
@@ -256,7 +439,9 @@ def run_frame_folds(args, cfg: ExperimentConfig,
         frame_dumps, cfg.window_size, cfg.stride, binary=binary,
         n_classes=2 if binary else 6,
     )
-    tracker.log_dict({"windowed": wsum, "cm": wcm.tolist()},
-                     "windowed_metrics.json")
-    print("windowed:", wsum)
+    if launch.is_main():
+        tracker.log_dict({"windowed": wsum, "cm": wcm.tolist()},
+                         "windowed_metrics.json")
+        print("windowed:", wsum)
+    launch.barrier()
     return fold_results, tracker

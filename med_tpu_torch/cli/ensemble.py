@@ -29,7 +29,7 @@ from ..eval.ensemble import cascade_ensemble, reconcile_nd, score_predictions, s
 from ..eval.results import check_run_alignment, prediction_overlap
 from ..eval.summary import weighted_mean_std
 from ..tracking import RunTracker
-from .common import _refuse_multi_gpu
+from .common import add_mesh_flag, mesh_from_args
 
 
 def _load_fold_dump(runs_root, run_id, setting, out):
@@ -69,13 +69,15 @@ def _serve_pixels(args, folds, cfg):
             kw["dtype"] = torch.float32
         if args.int8_trunk:
             kw.update(int8=True, calib_frames=train_trials[0].image_feats[:32])
-        fe = PixelFrontEnd.from_checkpoint(args.resnet_ckpt.format(fold=out), **kw)
+        fe = PixelFrontEnd.from_checkpoint(args.resnet_ckpt.format(fold=out), mesh=args.mesh,
+                                           **kw)
         feats = np.concatenate([fe.features(t.image_feats) for t in train_trials])
         kins = np.concatenate([t.kinematics for t in train_trials])
         stats = compute_fold_stats(feats, kins)
         calib = fe_calibration(feats, stats, cfg.window_size) if args.int8_fe else None
         server = load_ensemble(args.runs_root, [args.run_a, args.run_b], args.setting, out,
-                               mode="soft_vote", int8_fe_calib=calib, device=args.device)
+                               mode="soft_vote", mesh=args.mesh, int8_fe_calib=calib,
+                               device=args.device)
         all_preds, all_labels = [], []
         for t in test_trials:
             starts, preds, _ = predict_trial_from_pixels(
@@ -119,6 +121,9 @@ def _serve(args, folds):
 
     if args.mode != "soft_vote":
         raise SystemExit("--serve supports soft_vote (binary members)")
+    args.mesh = mesh_from_args(args)
+    if args.mesh is not None:
+        print(f"serving mesh: {args.mesh.shape}")
     cfg = run_config(RunTracker.find_run(args.runs_root, args.run_a))
     if args.pixels_root:
         if not args.resnet_ckpt:
@@ -129,7 +134,8 @@ def _serve(args, folds):
         train_fold, test_fold = build_window_fold(os.path.join(args.data_root, out), cfg, None)
         calib = np.asarray(train_fold.images[:64], np.float32) if args.int8_fe else None
         server = load_ensemble(args.runs_root, [args.run_a, args.run_b], args.setting, out,
-                               mode="soft_vote", int8_fe_calib=calib, device=args.device)
+                               mode="soft_vote", mesh=args.mesh, int8_fe_calib=calib,
+                               device=args.device)
         imgs = np.asarray(test_fold.images, np.float32)
         if args.int8_fe:
             imgs = _feature_store(server, imgs)
@@ -160,7 +166,7 @@ def main(argv=None):
                    help="live inference from the stored checkpoints "
                         "(eval/serving.py) instead of offline re-scoring")
     p.add_argument("--data-root", default=None, help="fold data for --serve")
-    p.add_argument("--mesh", default=None, help="device mesh for --serve (not ported yet)")
+    add_mesh_flag(p)
     p.add_argument("--device", default=None,
                    help="torch device for --serve. Default: CUDA, which must be there; "
                         "'cpu' runs the kernels' plain versions")
@@ -182,7 +188,6 @@ def main(argv=None):
     p.add_argument("--serve-batch-size", type=int, default=128,
                    help="trunk batch for --pixels-root")
     args = p.parse_args(argv)
-    _refuse_multi_gpu(args)
 
     folds = [f for f in args.folds.split(",") if f]
     if args.serve:

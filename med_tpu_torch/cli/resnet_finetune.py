@@ -38,12 +38,14 @@ from ..models import init_weights
 from ..models.resnet import ResNetClassifier, load_pretrained_trunk
 from ..ops.metrics import confusion_matrix, metrics_from_cm
 from ..ops.quant import quantize_resnet50_trunk, resnet50_int8_apply, tree_to
+from ..parallel import comm, launch
+from ..parallel.mesh import set_stats_group, split_rows
 from ..tracking import RunTracker
 from ..train.checkpoint import save_checkpoint
 from ..train.losses import bce_with_logits
 from ..utils.device import resolve_device
 from ..utils.jax_params import export_jax_params, load_jax_params
-from .common import _refuse_multi_gpu
+from .common import add_mesh_flag, mesh_from_args
 
 
 def _batches(images, labels, batch_size, shuffle, seed):
@@ -68,23 +70,43 @@ def preprocess(x: torch.Tensor, pixel_stats) -> torch.Tensor:
     return (x.to(torch.float32) / 255.0 - mean) / std
 
 
+def _rows(tree, rows: slice):
+    """The rows of an augmentation draw (tensors, tuples of them)."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_rows(v, rows) for v in tree)
+    return tree[rows]
+
+
 def train_step(model: ResNetClassifier, optimizer: torch.optim.Optimizer, imgs, labels,
-               mask, pixel_stats, freeze_bn: bool = False, draws=None) -> torch.Tensor:
+               mask, pixel_stats, freeze_bn: bool = False, draws=None,
+               mesh=None) -> torch.Tensor:
     """One fine-tune step on the model's device: augment (with ``draws``) or
     preprocess, the classifier with train-mode BatchNorm (running
     statistics with ``freeze_bn``, every parameter still trained), masked
-    BCE, Adam. Returns the loss; the gradients stay in ``.grad``."""
+    BCE, Adam. Returns the loss; the gradients stay in ``.grad``. On a
+    ``mesh`` this rank takes its rows of the batch (and of the draws) over
+    ``data``; BatchNorm's and the ghost-batch statistics, the BCE mean and
+    the gradients are the global batch's, as GSPMD makes them."""
     dev = pixel_stats[0].device
+    group, rows = None, split_rows(len(imgs), mesh)
+    if rows is not None:
+        imgs, labels, mask = imgs[rows], labels[rows], mask[rows]
+        draws = None if draws is None else _rows(draws, rows)
+        group = mesh.group("data")
     x = torch.as_tensor(imgs).to(dev, torch.float32)
     if draws is not None:
         pix = augment_batch(x, draws, normalize=pixel_stats)
     else:
         pix = preprocess(x, pixel_stats)
+    set_stats_group(model, group)
     logits = model(pix, train=not freeze_bn)
     loss = bce_with_logits(logits, torch.as_tensor(labels).to(dev),
-                           torch.as_tensor(mask).to(dev))
+                           torch.as_tensor(mask).to(dev), group=group)
     optimizer.zero_grad(set_to_none=False)
     loss.backward()
+    comm.all_reduce_grads(model.parameters(), group)
     optimizer.step()
     return loss.detach()
 
@@ -100,7 +122,10 @@ def eval_cm(model: ResNetClassifier, imgs, labels, mask, pixel_stats) -> torch.T
                             torch.as_tensor(mask).to(dev))
 
 
-def finetune_fold(fold_dir, args, tracker, fold_name):
+def finetune_fold(fold_dir, args, tracker, fold_name, mesh=None):
+    """One fold: fine-tune, keep the best epoch, export its features; on a
+    mesh every rank trains its rows and rank 0 alone writes (the export
+    pass runs there, unsharded)."""
     device = resolve_device(args.device)
 
     def load_split(csv):
@@ -143,20 +168,23 @@ def finetune_fold(fold_dir, args, tracker, fold_name):
                                            args.seed + epoch):
             draws = draw_augment(len(imgs), aug) if args.augment else None
             loss = train_step(model, optimizer, imgs, labels, mask, pixel_stats,
-                              args.freeze_bn, draws)
+                              args.freeze_bn, draws, mesh)
         cm = torch.zeros((2, 2), dtype=torch.int64, device=device)
         for imgs, labels, mask in _batches(test_imgs, test_labels,
                                            args.batch_size, False, 0):
             cm += eval_cm(model, imgs, labels, mask, pixel_stats)
         acc = metrics_from_cm(cm.cpu().numpy(), "binary")["accuracy"]
-        tracker.log_metrics({f"{fold_name}_loss": float(loss),
-                             f"{fold_name}_test_acc": acc}, step=epoch)
+        if tracker is not None:
+            tracker.log_metrics({f"{fold_name}_loss": float(loss),
+                                 f"{fold_name}_test_acc": acc}, step=epoch)
         print(f"[{fold_name}] epoch {epoch} acc={acc:.3f} "
               f"({time.time() - t0:.1f}s)")
         if acc > best_acc:
             best_acc = acc
             best = export_jax_params(model)
 
+    if not launch.is_main():
+        return best_acc
     save_checkpoint(tracker.checkpoint_path(f"resnet50_{fold_name}.npz"),
                     best["params"], best["batch_stats"],
                     meta={"mean": mean.tolist(), "std": std.tolist(),
@@ -216,8 +244,7 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device to train on. Default: CUDA, which must "
                         "be there; 'cpu' runs on the CPU")
-    p.add_argument("--mesh", default=None,
-                   help="multi-GPU data-parallel fine-tuning (not ported yet)")
+    add_mesh_flag(p)
     p.add_argument("--int8-trunk", action="store_true", default=False,
                    help="export features through the int8 PTQ serving "
                         "trunk (ops/quant.py). Serving-only knob")
@@ -235,20 +262,28 @@ def main(argv=None):
                         "to start the trunk from (the reference starts from "
                         "ImageNet pretrained weights)")
     args = p.parse_args(argv)
-    _refuse_multi_gpu(args)
     resolve_device(args.device)
+    launch.init_from_env(args.device)
+    # --mesh: data-parallel fine-tuning over the mesh 'data' axis
+    mesh = mesh_from_args(args)
+    if mesh is not None and args.batch_size % mesh.shape["data"]:
+        raise SystemExit(f"--mesh: batch size {args.batch_size} not a multiple of "
+                         f"the data axis ({mesh.shape['data']})")
     # fp32 as in the JAX package: no TF32 in matmuls or cuDNN (no Experiment
     # is made here to switch it off), and cuDNN's deterministic algorithms
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
 
-    tracker = RunTracker(root=args.runs_root, experiment="ResNet50_finetune")
-    tracker.log_params(vars(args))
+    tracker = None
+    if launch.is_main():
+        tracker = RunTracker(root=args.runs_root, experiment="ResNet50_finetune")
+        tracker.log_params(vars(args))
     for fold in args.folds.split(","):
         acc = finetune_fold(os.path.join(args.data_root, fold), args, tracker,
-                            fold)
+                            fold, mesh)
         print(f"fold {fold}: best acc {acc:.3f}")
+    launch.barrier()
 
 
 if __name__ == "__main__":

@@ -26,9 +26,8 @@ and the frame pixels for the ResNet-50 trunk.
   is a plain crop.
 
 ``med_tpu``'s ``preprocess_frames_native`` (its C++ host helper) has no copy
-here: :func:`preprocess_frames` is its counterpart. The double-buffered
-``decode_preprocess_batches`` waits for the port of ``utils/prefetch.py``
-(ROADMAP.md Queue A12).
+here: :func:`preprocess_frames` is its counterpart. ``decode_preprocess_batches``
+feeds it through the double-buffered ``utils/prefetch.py``.
 """
 
 from __future__ import annotations
@@ -351,3 +350,31 @@ def decode_video_frames(path: str, frequency: int = 30):
     per-frame PNG writes — downstream consumes arrays)."""
     frames = list(iter_video_frames(path, frequency))
     return np.stack(frames) if frames else np.empty((0, 0, 0, 3), np.uint8)
+
+
+def decode_preprocess_batches(path: str, frequency: int = 30, batch: int = 64,
+                              depth: int = 2, frames_iter=None, device=None):
+    """Decode -> fixed-size host batches -> double-buffered transfer to
+    ``device`` (CUDA unless the caller passes ``device="cpu"``) -> the
+    resize/crop/normalise graph: yields (n, 224, 224, 3) float32 tensors on
+    the device, ready for the ResNet trunk (``med_tpu``'s
+    ``decode_preprocess_batches``). ``frames_iter`` overrides the decoder
+    for pre-extracted frame streams."""
+    from ..utils.device import resolve_device
+    from ..utils.prefetch import prefetch_to_device
+
+    dev = resolve_device(device)
+    source = frames_iter if frames_iter is not None else iter_video_frames(path, frequency)
+
+    def host_batches():
+        buf = []
+        for f in source:
+            buf.append(f)
+            if len(buf) == batch:
+                yield {"frames": np.stack(buf)}
+                buf = []
+        if buf:
+            yield {"frames": np.stack(buf)}
+
+    for b in prefetch_to_device(host_batches(), depth=depth, device=dev):
+        yield preprocess_frames(torch.as_tensor(b["frames"], device=dev))

@@ -33,9 +33,26 @@ from ..utils.device import resolve_device
 from ..utils.jax_params import load_jax_params
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("serving on a mesh is not ported yet: ROADMAP.md Queue A12")
+def _on_mesh(fn, mesh, *xs: torch.Tensor):
+    """``fn`` over the rows of ``xs`` split across the mesh's ``data`` axis:
+    the batch padded (zeros) to a multiple of the axis, each rank its block,
+    the outputs gathered in row order and the padding cut back. A mesh of
+    one data rank, or none, runs ``fn`` on the whole batch."""
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    if n_data == 1:
+        return fn(*xs)
+    from ..parallel.comm import all_gather
+
+    n = xs[0].shape[0]
+    per = -(-n // n_data)
+    i = mesh.coord("data")
+    local = [torch.cat([x, x.new_zeros((per * n_data - n,) + x.shape[1:])])[i * per:(i + 1) * per]
+             for x in xs]
+    outs = fn(*local)
+    group = mesh.group("data")
+    if isinstance(outs, tuple):
+        return tuple(all_gather(o.contiguous(), group)[:n] for o in outs)
+    return all_gather(outs.contiguous(), group)[:n]
 
 
 class WindowModelBundle:
@@ -104,19 +121,23 @@ class EnsembleServer:
             raise ValueError(mode)
         if mode == "cascade" and len(members) != 2:
             raise ValueError("cascade needs exactly (binary, multiclass) members")
-        _refuse_mesh(mesh)
         devices = {m.device for m in members}
         if len(devices) != 1:
             raise ValueError(f"members on several devices: {sorted(map(str, devices))}")
         self.members = members
         self.mode = mode
-        self.mesh = None
+        self.mesh = mesh
         self.threshold = threshold
         self.device = members[0].device
 
     @torch.no_grad()
     def predict_tensors(self, images: torch.Tensor, kinematics: torch.Tensor):
-        """The fusion on the device: (preds int32, probs fp32) tensors."""
+        """The fusion on the device: (preds int32, probs fp32) tensors. On a
+        mesh each rank serves its rows of the window batch over ``data``
+        and every rank gets the whole batch's outputs."""
+        return _on_mesh(self._fuse, self.mesh, images, kinematics)
+
+    def _fuse(self, images: torch.Tensor, kinematics: torch.Tensor):
         if self.mode == "soft_vote":
             probs = [torch.sigmoid(m.logits(images, kinematics).reshape(-1))
                      for m in self.members]
@@ -146,8 +167,8 @@ def load_ensemble(runs_root: str, run_ids: List[str], setting: str, fold: str,
     """A server from stored runs of either package (``params.json`` and the
     fold's best checkpoint). ``int8_fe_calib``: an optional (B, W, 2048)
     feature batch; when given, every member with a FeatureExtractor serves
-    through the int8 PTQ FE calibrated on it."""
-    _refuse_mesh(mesh)
+    through the int8 PTQ FE calibrated on it. ``mesh``: serve the window
+    batches over its ``data`` axis (:class:`EnsembleServer`)."""
     members = []
     for run_id in run_ids:
         run_dir = RunTracker.find_run(runs_root, run_id)
@@ -158,7 +179,7 @@ def load_ensemble(runs_root: str, run_ids: List[str], setting: str, fold: str,
         if int8_fe_calib is not None:
             member.quantize_fe(int8_fe_calib)
         members.append(member)
-    return EnsembleServer(members, mode=mode)
+    return EnsembleServer(members, mode=mode, mesh=mesh)
 
 
 class PixelFrontEnd:
@@ -176,15 +197,14 @@ class PixelFrontEnd:
     them the ImageNet resize-240/crop-224 path
     (:func:`data.preprocessing.preprocess_frames`) runs. Frames go to the
     device in chunks of ``batch_size``, the last one zero-padded, so every
-    chunk has one shape. Serving on a mesh (``mesh=``) is not ported yet and
-    raises.
+    chunk has one shape. On a ``mesh`` each chunk's frames split over its
+    ``data`` axis and the features are gathered.
     """
 
     def __init__(self, trunk_params, trunk_stats, *, mean=None, std=None,
                  int8=False, calib_frames=None, dtype=torch.bfloat16,
                  stage_sizes=(3, 4, 6, 3), width=64, batch_size=128,
                  mesh=None, device=None):
-        _refuse_mesh(mesh)
         if (mean is None) != (std is None):
             given, missing = ("mean", "std") if std is None else ("std", "mean")
             raise ValueError(f"pixel statistics: a {given} without a {missing}; pass "
@@ -197,6 +217,7 @@ class PixelFrontEnd:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.batch_size = int(batch_size)
         self.stage_sizes = tuple(stage_sizes)
         self.mean = self.std = None
@@ -257,7 +278,7 @@ class PixelFrontEnd:
             if n < bs:
                 chunk = np.pad(chunk, ((0, bs - n),) + ((0, 0),) * 3)
             x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            out.append(self._features(x)[:n].cpu().numpy())
+            out.append(_on_mesh(self._features, self.mesh, x)[:n].cpu().numpy())
         return np.concatenate(out, axis=0)
 
 

@@ -1,5 +1,8 @@
 """Video feature compressor: MLP 2048 -> 512 -> 256 -> video_dims (port of
-``med_tpu.models.feature_extractor``; reference models.py:6-47)."""
+``med_tpu.models.feature_extractor``; reference models.py:6-47). Under
+tensor parallelism (``parallel/mesh.py``) ``dense0`` holds this rank's
+output columns and ``dense1`` its input rows: their partial product is
+summed over ``tp_group`` before ``dense1``'s bias."""
 
 from __future__ import annotations
 
@@ -7,7 +10,9 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..parallel.comm import psum
 from .layers import Dense
 
 
@@ -20,8 +25,14 @@ class FeatureExtractor(nn.Module):
             self.add_module(f"dense{i}", Dense(dims[i], dims[i + 1]))
         self.n_hidden = len(hidden_dims)
         self.out = Dense(dims[-1], output_dim)
+        self.tp_group = None
 
     def forward(self, x):
         for i in range(self.n_hidden):
-            x = torch.relu(getattr(self, f"dense{i}")(x))
+            layer = getattr(self, f"dense{i}")
+            if i == 1 and self.tp_group is not None:
+                x = psum(F.linear(x, layer.weight), self.tp_group) + layer.bias
+            else:
+                x = layer(x)
+            x = torch.relu(x)
         return self.out(x)

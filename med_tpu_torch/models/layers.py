@@ -27,6 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.tcn_fused import dilated_residual_stack
+from ..parallel import comm
 
 
 def _uniform_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -119,11 +120,17 @@ class Conv1d(nn.Module):
         return y
 
 
-def batch_moments(x: torch.Tensor, clip: bool = True):
+def batch_moments(x: torch.Tensor, clip: bool = True, group=None):
     """flax's training statistics of ``x`` over every axis but 1: the mean
     and the variance E[x²] − E[x]², clipped at 0 as ``nn.BatchNorm`` clips it
-    (``med_tpu``'s ghost-batch ``SubsampledBatchNorm`` does not)."""
+    (``med_tpu``'s ghost-batch ``SubsampledBatchNorm`` does not). ``group``:
+    the ranks whose rows make up the batch, or None for a whole batch."""
     dims = [d for d in range(x.dim()) if d != 1]
+    if group is not None:
+        # a data-parallel batch: the global moments (parallel/comm.py)
+        mean, sq = comm.global_moments(x, dims, group)
+        var = sq - mean * mean
+        return mean, torch.clamp(var, min=0.0) if clip else var
     mean = x.mean(dim=dims)
     var = (x * x).mean(dim=dims) - mean * mean
     return mean, torch.clamp(var, min=0.0) if clip else var
@@ -142,7 +149,10 @@ class BatchNorm(nn.Module):
     - eval normalises by the running statistics.
 
     Params weight/bias, buffers running_mean/running_var (flax's ``scale``,
-    ``bias`` and ``batch_stats`` ``mean``, ``var``)."""
+    ``bias`` and ``batch_stats`` ``mean``, ``var``). ``stats_group``: the
+    process group whose ranks hold the rows of a data-parallel batch
+    between them, over which training statistics are taken (set by
+    ``parallel.mesh.shard_state``); None for a whole batch."""
 
     flax_layout = "batchnorm"
 
@@ -153,6 +163,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.stats_group = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -163,7 +174,7 @@ class BatchNorm(nn.Module):
 
     def batch_statistics(self, x):
         """The batch's mean and variance in training (flax's, clipped)."""
-        return batch_moments(x)
+        return batch_moments(x, group=self.stats_group)
 
     def forward(self, x, train: bool = False):
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -254,7 +265,8 @@ class ResidualStack(nn.Module):
 
 class SingleStageTCN(nn.Module):
     """One MS-TCN stage: conv1x1 in -> dilated residual stack -> conv1x1 out.
-    Returns (features, logits); the logits are float32 in any ``dtype``."""
+    Returns (features, logits); the logits are float32 in any ``dtype``
+    (float64 for a float64 stage)."""
 
     def __init__(self, num_layers: int, in_dim: int, f_maps: int,
                  out_classes: int, causal: bool = True,
@@ -268,4 +280,6 @@ class SingleStageTCN(nn.Module):
         """x (B, T, in_dim); ``mask`` the stack's (L, B, T, C) keep-mask in
         training, or None -> (features, logits)."""
         out = self.stack(self.conv_in(x), mask)
-        return out, self.conv_out(out).to(torch.float32)
+        logits = self.conv_out(out)
+        # float32 logits from a bf16 stage; a float64 stage keeps float64
+        return out, logits.to(torch.promote_types(logits.dtype, torch.float32))

@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import layers
+from ..parallel import comm
 
 # the trunk's and head's relu and the stem's max pool, looked up at each
 # call: a card-vs-CPU or float32-vs-float64 check can pin the relu's
@@ -88,7 +89,18 @@ class BatchNorm(layers.BatchNorm):
     def batch_statistics(self, x):
         if self.stat_stride == 1:
             return super().batch_statistics(x)
-        return layers.batch_moments(x[: max(1, x.shape[0] // self.stat_stride)], clip=False)
+        group = self.stats_group
+        if group is None:
+            return layers.batch_moments(x[: max(1, x.shape[0] // self.stat_stride)],
+                                        clip=False)
+        # data-parallel: the first B // stride images of the GLOBAL batch,
+        # wherever they lie (the ranks hold equal consecutive blocks)
+        S = x.shape[0]
+        ghost = max(1, S * comm.group_size(group) // self.stat_stride)
+        take = min(S, max(0, ghost - comm.group_rank(group) * S))
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean, sq = comm.global_moments(x[:take], dims, group)
+        return mean, sq - mean * mean
 
     def forward(self, x, train: bool = False):
         if train:

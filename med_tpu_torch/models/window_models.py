@@ -112,7 +112,14 @@ class LSTMLayer(nn.Module):
             for p in (self.w_ih, self.w_hh, self.b):
                 p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
 
+    # set by a fold-parallel runner (parallel/folds.py): the recurrence as
+    # plain matmuls and pointwise ops, which torch.func.vmap batches over
+    # folds (torch.lstm has no batching rule)
+    unrolled = False
+
     def forward(self, x):
+        if self.unrolled:
+            return self._unrolled(x)
         B, H = x.shape[0], self.w_hh.shape[1]
         h0 = torch.zeros(1, B, H, dtype=x.dtype, device=x.device)
         zero = torch.zeros_like(self.b)       # the input side has no bias
@@ -124,6 +131,21 @@ class LSTMLayer(nn.Module):
             out, _, _ = torch.lstm(x, (h0, h0), [self.w_ih, self.w_hh, zero, self.b],
                                    True, 1, 0.0, torch.is_grad_enabled(), False, True)
         return out
+
+    def _unrolled(self, x):
+        """The same LSTM, one step at a time: gates x W_ih^T + h W_hh^T + b,
+        in the order i, f, g, o."""
+        xi = x @ self.w_ih.T
+        h = c = None
+        outs = []
+        for t in range(x.shape[1]):
+            gates = xi[:, t] + self.b if h is None else xi[:, t] + h @ self.w_hh.T + self.b
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = (torch.sigmoid(i) * torch.tanh(g) if c is None
+                 else torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g))
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return torch.stack(outs, dim=1)
 
 
 class Head(nn.Module):

@@ -111,23 +111,44 @@ def save_train_state(path: str, exp, epoch: int) -> None:
     The file is the port's own ``.npz`` ("param/<key>", "adam/<i>/step",
     "adam/<i>/exp_avg", "adam/<i>/exp_avg_sq", "generator", "epoch"). It is
     not interchangeable with ``med_tpu``'s ``leaf_i`` snapshot, which lists
-    the leaves of the flax ``TrainState`` (optax state and a JAX key)."""
-    arrays = {f"param/{k}": v.detach().cpu().numpy()
-              for k, v in exp.net.state_dict().items()}
-    for i, p in enumerate(exp.optimizer.param_groups[0]["params"]):
-        state = exp.optimizer.state[p]
-        for name in ("step", "exp_avg", "exp_avg_sq"):
-            arrays[f"adam/{i}/{name}"] = torch.as_tensor(state[name]).cpu().numpy()
+    the leaves of the flax ``TrainState`` (optax state and a JAX key).
+
+    A tensor-parallel experiment writes its whole state: every rank of the
+    ``model`` axis must call this (a gather), and rank 0 alone writes."""
+    from ..parallel.launch import is_main
+    from ..parallel.mesh import full_view
+
+    with full_view(exp):
+        arrays = {f"param/{k}": v.detach().cpu().numpy()
+                  for k, v in exp.net.state_dict().items()}
+        for i, p in enumerate(exp.optimizer.param_groups[0]["params"]):
+            state = exp.optimizer.state[p]
+            for name in ("step", "exp_avg", "exp_avg_sq"):
+                arrays[f"adam/{i}/{name}"] = torch.as_tensor(state[name]).cpu().numpy()
     arrays["generator"] = exp.generator.get_state().numpy()
     arrays["generator_device"] = np.asarray(exp.generator.device.type)
     arrays["epoch"] = np.asarray(epoch)
-    np.savez(path, **arrays)
+    if is_main():
+        np.savez(path, **arrays)
 
 
 def load_train_state(path: str, exp) -> int:
     """Restore a snapshot of :func:`save_train_state` into ``exp`` (built
     from the same config, on the same kind of device: a generator's state
-    does not move between the CPU and CUDA). Returns the next epoch."""
+    does not move between the CPU and CUDA). A tensor-parallel experiment
+    takes it whole and is placed on its mesh again. Returns the next
+    epoch."""
+    from ..parallel.mesh import shard_state, unshard_state
+
+    mesh = getattr(exp, "mesh", None)
+    unshard_state(exp)
+    epoch = _load_train_state(path, exp)
+    if mesh is not None:
+        shard_state(exp, mesh)
+    return epoch
+
+
+def _load_train_state(path: str, exp) -> int:
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path) as z:

@@ -42,6 +42,8 @@ import torch.nn as nn
 from ..config import ExperimentConfig
 from ..models import build_feature_extractor, build_model, build_tecno, init_weights
 from ..ops.metrics import confusion_matrix
+from ..parallel import comm
+from ..parallel.mesh import full_view, shard_state, split_rows, unshard_state
 from ..utils.device import resolve_device
 from ..utils.jax_params import export_jax_params, load_jax_params
 from . import losses
@@ -74,10 +76,12 @@ class WindowNet(FrameNet):
 
 
 def window_loss(cfg: ExperimentConfig, family: str, out: torch.Tensor,
-                batch: Dict[str, torch.Tensor], class_counts=None):
+                batch: Dict[str, torch.Tensor], class_counts=None, group=None):
     """The window branch of med_tpu's ``_loss_for_family``. With
     ``pos_weight`` and the train fold's ``class_counts``: BCE's pos_weight
-    cc[0] / cc[1] for 'global', CE's class weights cc otherwise.
+    cc[0] / cc[1] for 'global', CE's class weights cc otherwise. With a
+    data-parallel ``group`` the means run over every rank's rows (the
+    confusion matrices stay this rank's).
 
     - siamese, or 'global': BCE on the logit; preds sigmoid > 0.5, a
       binary "cm";
@@ -97,14 +101,14 @@ def window_loss(cfg: ExperimentConfig, family: str, out: torch.Tensor,
             class_weights = class_counts
     if family == "siamese" or cfg.error_type == "global":
         logits = out.reshape(-1)
-        loss = losses.bce_with_logits(logits, labels, mask, pos_weight)
+        loss = losses.bce_with_logits(logits, labels, mask, pos_weight, group)
         probs = torch.sigmoid(logits.detach())
         preds = (probs > 0.5).to(torch.int32)
         return loss, {"cm": confusion_matrix(labels, preds, 2, mask), "probs": probs,
                       "preds": preds}
     detached = out.detach()
     if cfg.error_type == "all_errors":
-        loss = losses.cross_entropy(out, labels, mask, class_weights)
+        loss = losses.cross_entropy(out, labels, mask, class_weights, group)
         preds = torch.argmax(detached, dim=-1)
         return loss, {
             "cm": confusion_matrix(labels, preds, cfg.out_features, mask),
@@ -114,7 +118,7 @@ def window_loss(cfg: ExperimentConfig, family: str, out: torch.Tensor,
     if cfg.error_type == "sequential":
         err = (labels != 0).to(torch.float32)
         m = err if mask is None else err * mask
-        loss = losses.cross_entropy(out, torch.clamp(labels - 1, min=0), m)
+        loss = losses.cross_entropy(out, torch.clamp(labels - 1, min=0), m, group=group)
         preds = torch.argmax(detached, dim=-1) + 1
         gate = batch.get("gate", err)
         gated = torch.where(gate > 0, preds, torch.zeros_like(preds))
@@ -256,6 +260,9 @@ class Experiment:
         # the window families' loss weights: the train fold's class counts
         # (med_tpu's ``constants["class_counts"]``), set by init_weights
         self.class_counts: Optional[torch.Tensor] = None
+        # data/tensor parallelism (parallel/mesh.py::shard_state)
+        self.mesh = None
+        self.tp: Dict[str, int] = {}
 
     def load_frozen(self, frozen: Dict) -> None:
         """Give a TransSVNet experiment its frozen TeCNo, a TeCNo of the same
@@ -292,8 +299,12 @@ class Experiment:
         statistics, restart the optimiser and the dropout stream from the
         config's seed, and take the train fold's ``class_counts`` (the
         window families' loss weights, or None)."""
+        mesh = self.mesh
+        unshard_state(self)         # drawn at their whole shapes, then placed
         init_weights(self.net, torch.Generator().manual_seed(seed))
         self.optimizer = make_optimizer(self.cfg, self.net.parameters())
+        if mesh is not None:
+            shard_state(self, mesh)
         self.generator.manual_seed(self.cfg.seed)
         self.class_counts = (None if class_counts is None else
                              torch.tensor(np.asarray(class_counts, np.float32),
@@ -303,7 +314,8 @@ class Experiment:
         """The parameters, running statistics and constants as a ``med_tpu``
         checkpoint tree (numpy copies): {"params", "batch_stats",
         "constants"}, the class counts among the constants when set."""
-        tree = export_jax_params(self.net)
+        with full_view(self):
+            tree = export_jax_params(self.net)
         tree.setdefault("batch_stats", {})
         if self.class_counts is not None:
             tree.setdefault("constants", {})["class_counts"] = (
@@ -353,18 +365,20 @@ class Experiment:
         out_list, _ = model(x, train=train, masks=masks, generator=self.generator)
         return out_list
 
-    def _loss(self, out, data: Dict[str, torch.Tensor]):
+    def _loss(self, out, data: Dict[str, torch.Tensor], group=None):
         if self.family in WINDOW_FAMILIES:
-            return window_loss(self.cfg, self.family, out, data, self.class_counts)
+            return window_loss(self.cfg, self.family, out, data, self.class_counts, group)
         if self.family == "cog":
             return cog_loss(self.cfg, out, data)
         return binary_frame_loss(self.family, out, data)
 
-    def _trial_loss(self, data: Dict[str, torch.Tensor], train: bool, masks=None):
+    def _trial_loss(self, data: Dict[str, torch.Tensor], train: bool, masks=None,
+                    group=None):
         """One trial's (loss, metrics), or a trial group's (see the module
-        docstring) when ``trial_batch`` > 1."""
+        docstring) when ``trial_batch`` > 1. With a data-parallel ``group``
+        the loss is the whole batch's or group's (the metrics this rank's)."""
         if self.cfg.trial_batch <= 1 or self.family in WINDOW_FAMILIES:
-            return self._loss(self._forward(data, train, masks), data)
+            return self._loss(self._forward(data, train, masks), data, group)
         weight = data.pop("trial_weight", None)
         G = data["labels"].shape[0]
         trials = [{k: v[g] for k, v in data.items()} for g in range(G)]
@@ -380,7 +394,12 @@ class Experiment:
         if weight is None:
             weight = torch.ones(G, device=self.device)
         per_trial = torch.stack([loss for loss, _ in results])
-        loss = (per_trial * weight).sum() / torch.clamp(weight.sum(), min=1e-12)
+        if group is not None:
+            # a short group's zero-weight repeats: the global weighted mean,
+            # not a mean of the ranks' means
+            loss = losses._global_ratio((per_trial * weight).sum(), weight.sum(), group)
+        else:
+            loss = (per_trial * weight).sum() / torch.clamp(weight.sum(), min=1e-12)
         metrics = {}
         for key in results[0][1]:
             values = torch.stack([m[key] for _, m in results])
@@ -396,10 +415,45 @@ class Experiment:
         TransSVNet has no dropout), the loss, and its backward into every
         parameter's ``.grad``. Returns (loss, metrics)."""
         data = self._tensors(batch)
+        data, masks, group = self._local_rows(data, masks, True)
         self.optimizer.zero_grad(set_to_none=False)
-        loss, metrics = self._trial_loss(data, True, masks)
+        loss, metrics = self._trial_loss(data, True, masks, group)
         loss.backward()
-        return loss.detach(), metrics
+        comm.all_reduce_grads(self.net.parameters(), group)
+        return loss.detach(), _whole_batch(metrics, group)
+
+    def _local_rows(self, data, masks, train: bool):
+        """This rank's rows of a window batch or trial group over the mesh's
+        ``data`` axis, with the rows of the dropout masks that one rank would
+        draw for the whole batch (or of the ``masks`` given, in the same
+        global layout), and the axis' group; (data, masks, None) where the
+        batch stays whole."""
+        if (self.mesh is None or self.mesh.shape["data"] == 1
+                or (self.family not in WINDOW_FAMILIES and self.cfg.trial_batch <= 1)):
+            return data, masks, None
+        rows = split_rows(data["labels"].shape[0], self.mesh)
+        if rows is None:
+            return data, masks, None
+        if train and masks is None:
+            masks = self._global_masks(data)
+        local = {k: v[rows] if v.dim() else v for k, v in data.items()}
+        return local, _mask_rows(masks, rows), self.mesh.group("data")
+
+    def _global_masks(self, data):
+        """The dropout masks a one-rank step draws for this whole batch or
+        group, in the same order from the same generator."""
+        model = self.net.model
+        n = data["labels"].shape[0]
+        if self.family in WINDOW_FAMILIES:
+            return model.dropout_masks(n, self.generator)
+        T = data["labels"].shape[-1]
+        if self.family == "cog":
+            return model.dropout_masks(T, self.generator, n)
+        if self.family == "tecno":
+            per = [model.dropout_masks(T, self.generator, 1) for _ in range(n)]
+            return {s: {"stack": torch.cat([m[s]["stack"] for m in per], dim=1)}
+                    for s in per[0]}
+        return None
 
     def train_step(self, batch: Dict[str, np.ndarray], masks=None
                    ) -> Dict[str, torch.Tensor]:
@@ -421,7 +475,9 @@ class Experiment:
         cfg = self.cfg
         data = self._tensors(batch)
         if "labels" in data:
-            loss, metrics = self._trial_loss(data, False)
+            data, _, group = self._local_rows(data, None, False)
+            loss, metrics = self._trial_loss(data, False, group=group)
+            metrics = _whole_batch(metrics, group)
             metrics["loss"] = loss
             return metrics
         if (cfg.error_type == "sequential" or cfg.trial_batch > 1
@@ -436,6 +492,36 @@ class Experiment:
             n_classes, final = 2, out[-1] if self.family == "tecno" else out
         preds, probs = _predictions(final, n_classes)
         return {"preds": preds, "probs": probs}
+
+
+def _mask_rows(masks, rows: slice):
+    """The rows of a batch's dropout masks (a window model's list, a twin
+    pair's two lists, or a frame model's {stage: {"stack": (L, B, T, C),
+    "channel": (B, 1, C)}})."""
+    if masks is None:
+        return None
+    if isinstance(masks, dict):
+        return {name: {k: v[:, rows] if k == "stack" else v[rows] for k, v in stage.items()}
+                for name, stage in masks.items()}
+    if isinstance(masks, tuple):
+        return tuple(_mask_rows(m, rows) for m in masks)
+    return [m[rows] for m in masks]
+
+
+def _whole_batch(metrics, group):
+    """A data-parallel step's metrics for the whole batch: confusion matrices
+    summed over the ranks, predictions gathered in row order."""
+    if group is None:
+        return metrics
+    out = {}
+    for k, v in metrics.items():
+        if k.startswith("cm"):
+            out[k] = comm.psum(v, group)
+        elif k in ("preds", "probs"):
+            out[k] = comm.all_gather(v, group)
+        else:
+            out[k] = v
+    return out
 
 
 def _trial_masks(masks, g: int):

@@ -25,6 +25,7 @@ from ..config import ExperimentConfig
 from ..data.datasets import (FrameTrial, WindowFold, array_batches, batch_schedule,
                              bucket_length, frame_batch, window_arrays)
 from ..ops.metrics import metrics_from_cm
+from ..utils.prefetch import prefetch_to_device
 from .checkpoint import load_train_state, save_train_state
 from .engine import Experiment
 from .optim import epoch_lr, set_lr
@@ -170,18 +171,25 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
     as in med_tpu. ``frozen``: TransSVNet's frozen TeCNo as med_tpu's
     ``{"tecno_params": <params tree>}``. ``gates``: the sequential regime's
     {"train": {trial name: (T,) 0/1}, "test": {...}} (see
-    :func:`_with_true_gates`). ``mesh`` belongs to a layout the port does
-    not have yet.
+    :func:`_with_true_gates`). ``mesh``: data-parallel trials (trial-DP,
+    ``--trial-dp``): the state is replicated (the FeatureExtractor
+    tensor-parallel over ``model``, ``parallel/mesh.py``) and each rank
+    steps its ``G / n_data`` trials of every group; the numbers are the
+    single-rank loop's. It takes the per-epoch loop: ``fused_epoch`` and
+    ``fused_run`` must be off, as in med_tpu.
 
     With ``trial_batch`` = G > 1 every trial is padded to the fold's common
     bucket; a step takes the next G trials of the epoch's order and the
     eval pass the test trials G at a time, short groups padded with
     zero-weight repeats (see :mod:`.engine`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_frame_fold(mesh=...) is not ported yet: ROADMAP.md Queue A12 "
-            "(multi-GPU)")
+    if mesh is not None and (cfg.fused_epoch or cfg.fused_run):
+        raise ValueError("mesh trial-DP uses the per-epoch loop; set "
+                         "fused_epoch/fused_run False")
     exp = exp or Experiment(cfg, device=device)
+    if mesh is not None:
+        from ..parallel.mesh import shard_state
+
+        shard_state(exp, mesh)
     if frozen is not None:
         exp.load_frozen(frozen)
     exp.init_weights(cfg.seed)
@@ -212,7 +220,8 @@ def train_frame_fold(cfg: ExperimentConfig, train_trials: List[FrameTrial],
         batches = _batches(cfg, [train_trials[i] for i in order], bucket, train_gates)
         if G > 1:
             batches = [_group(batches[s:s + G], G) for s in range(0, len(batches), G)]
-        steps = [exp.train_step(b) for b in batches]
+        steps = [exp.train_step(b) for b in
+                 prefetch_to_device(batches, cfg.prefetch_depth, exp.device)]
         cms = torch.stack([m["cm"] for m in steps]).cpu().numpy()
         step_losses = torch.stack([m["loss"] for m in steps]).cpu().numpy()
         train_time = time.time() - t0
@@ -267,11 +276,10 @@ def evaluate_frame_fold(cfg: ExperimentConfig, exp: Experiment,
     t0 = time.time()
     batches = _batches(cfg, test_trials, common_bucket or 256,
                        None if gates is None else gates["test"])
-    if G > 1:
-        outs = [exp.eval_step(_group(batches[s:s + G], G))
-                for s in range(0, len(batches), G)]
-    else:
-        outs = [exp.eval_step(b) for b in batches]
+    steps = ([_group(batches[s:s + G], G) for s in range(0, len(batches), G)]
+             if G > 1 else batches)
+    outs = [exp.eval_step(b) for b in
+            prefetch_to_device(steps, cfg.prefetch_depth, exp.device)]
     cms = torch.stack([m["cm"] for m in outs]).cpu().numpy()
     losses = torch.stack([m["loss"] for m in outs]).cpu().numpy()
     host = []     # (preds, probs) a trial; a group's padding repeats come last
@@ -331,8 +339,9 @@ class _Split:
         """The epoch's batches (each with its "mask") by
         :func:`batch_schedule` of ``cfg.seed`` + ``epoch``."""
         if not self.resident:
-            yield from array_batches(self.arrays, cfg.batch_size, shuffle, cfg.seed,
-                                     epoch)
+            yield from prefetch_to_device(
+                array_batches(self.arrays, cfg.batch_size, shuffle, cfg.seed, epoch),
+                cfg.prefetch_depth, self.device)
             return
         sel, mask = batch_schedule(self.n, cfg.batch_size, shuffle, cfg.seed, epoch)
         sel = torch.as_tensor(sel, device=self.device)

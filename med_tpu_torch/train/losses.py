@@ -21,31 +21,47 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.comm import psum
 
-def _masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+
+def _masked_mean(per: torch.Tensor, mask: Optional[torch.Tensor], group=None) -> torch.Tensor:
+    """The mean of ``per`` over its unmasked entries; with a data-parallel
+    ``group``, over the entries of every rank's rows (one psum pair)."""
+    if group is not None:
+        m = torch.ones_like(per) if mask is None else mask.reshape(per.shape).to(per.dtype)
+        return _global_ratio((per * m).sum(), m.sum(), group)
     if mask is None:
         return per.mean()
     m = mask.reshape(per.shape).to(per.dtype)
     return (per * m).sum() / torch.clamp(m.sum(), min=1e-12)
 
 
+def _global_ratio(num: torch.Tensor, den: torch.Tensor, group) -> torch.Tensor:
+    """psum(num) / max(psum(den), 1e-12): a weighted mean over a data axis.
+    The loss's all-reduce has the identity as its backward (every rank
+    computes the same loss from it; parallel/comm.py)."""
+    return psum(num, group) / torch.clamp(psum(den.detach(), group), min=1e-12)
+
+
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    pos_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    pos_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Mean binary cross-entropy with logits (torch BCEWithLogitsLoss), the
-    positive term weighted by ``pos_weight``."""
+    positive term weighted by ``pos_weight``; over a data-parallel batch
+    with ``group``."""
     logits = logits.reshape(-1)
     labels = labels.reshape(-1).to(logits.dtype)
     w_pos = 1.0 if pos_weight is None else pos_weight
     per = -(w_pos * labels * F.logsigmoid(logits) + (1.0 - labels) * F.logsigmoid(-logits))
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  class_weights: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Mean CE over integer labels (torch CrossEntropyLoss semantics: with
-    class weights, the mean is weighted by each example's class weight)."""
+    class weights, the mean is weighted by each example's class weight);
+    over a data-parallel batch with ``group``."""
     logp = F.log_softmax(logits, dim=-1)
     labels = labels.reshape(logits.shape[:-1]).long()
     per = -torch.gather(logp, -1, labels[..., None])[..., 0]
@@ -53,8 +69,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         w = class_weights[labels]
         if mask is not None:
             w = w * mask.reshape(w.shape)
+        if group is not None:
+            return _global_ratio((per * w).sum(), w.sum(), group)
         return (per * w).sum() / torch.clamp(w.sum(), min=1e-12)
-    return _masked_mean(per, mask)
+    return _masked_mean(per, mask, group)
 
 
 def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,

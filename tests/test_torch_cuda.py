@@ -1629,3 +1629,64 @@ def test_augment_batch_same_on_card_and_cpu(cuda_device, rng):
     got = augment_batch(torch.from_numpy(frames).cuda(), draws).cpu().numpy()
     want = augment_batch(torch.from_numpy(frames), draws).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------------------ parallelism
+def test_prefetch_copies_through_pinned_memory_on_a_side_stream(cuda_device, rng):
+    """Each batch's arrays reach the card intact ('_' keys stay on the
+    host), whatever the depth, and the consumer's stream owns them."""
+    from med_tpu_torch.utils.prefetch import prefetch_to_device
+
+    batches = [{"x": rng.normal(size=(64, 33)).astype(np.float32),
+                "y": torch.arange(5) + i, "_name": f"t{i}"} for i in range(7)]
+    for depth in (0, 1, 2, 5):
+        out = list(prefetch_to_device(iter(batches), depth=depth, device=cuda_device))
+        assert len(out) == 7
+        for a, b in zip(out, batches):
+            x = torch.as_tensor(a["x"]).to(cuda_device)
+            np.testing.assert_array_equal(x.cpu().numpy(), b["x"])
+            assert torch.equal(torch.as_tensor(a["y"]).cpu(), b["y"])
+            assert a["_name"] == b["_name"]
+            if depth:
+                assert a["x"].is_cuda and a["y"].is_cuda
+
+
+def _cuda_collectives():
+    """On each gloo rank sharing the card: the shift, halo and gather of CUDA
+    tensors (gloo takes them only through host memory) and an all-reduce."""
+    from med_tpu_torch.parallel import comm, launch
+    from med_tpu_torch.parallel.mesh import make_mesh
+
+    g = make_mesh((launch.world_size(), 1)).group("data")
+    i, S = launch.rank(), 8
+    x = (torch.arange(2 * S * 3, dtype=torch.float32).reshape(2 * S, 3)[i * S:(i + 1) * S]
+         .cuda().requires_grad_())
+    y = comm.seq_shift_right(x, 3, g)
+    h = comm.halo_left(x, 5, g, fill_row=torch.full((3,), -1.0, device="cuda"))
+    z = comm.all_gather(x, g)
+    s = comm.psum(x, g)
+    (y.sum() + h.sum() + z.sum() + s.sum()).backward()
+    return [t.detach().cpu().numpy() for t in (y, h, z, s, x.grad)] + [y.is_cuda and z.is_cuda]
+
+
+def test_collectives_of_cuda_tensors_under_gloo(cuda_device, tmp_path):
+    from med_tpu_torch.parallel import launch
+
+    out = launch.spawn(_cuda_collectives, 2, str(tmp_path), backend="gloo", device="cuda")
+    full = np.arange(48, dtype=np.float32).reshape(16, 3)
+    shifted = np.concatenate([np.zeros((3, 3), np.float32), full[:13]])
+    for i, (y, h, z, s, g, on_card) in enumerate(out):
+        assert on_card
+        np.testing.assert_array_equal(y, shifted[i * 8:(i + 1) * 8])
+        rows = i * 8 - 5 + np.arange(5)
+        np.testing.assert_array_equal(h, np.where((rows >= 0)[:, None], full[np.clip(rows, 0, None)],
+                                                  -1.0))
+        np.testing.assert_array_equal(z, full)
+        np.testing.assert_array_equal(s, full[:8] + full[8:])
+    # every row's cotangents: the gather's and the psum's (its backward the
+    # identity), and wherever the shift or a halo read it
+    grads = np.concatenate([g for *_, g, _ in out])
+    want = np.full((16, 3), 2.0, np.float32)
+    want[:13] += 1.0                              # read by the shift
+    want[3:8] += 1.0                              # rank 1's halo: rows 3..7
+    np.testing.assert_array_equal(grads, want)

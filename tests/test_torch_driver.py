@@ -37,6 +37,7 @@ from med_tpu_torch.data import trials as ttrials
 from med_tpu_torch.data import windowing as twindowing
 from med_tpu_torch.eval import rollup as trollup
 from med_tpu_torch.eval import summary as tsummary
+from med_tpu_torch.parallel.mesh import make_mesh
 from med_tpu_torch.tracking import RunTracker
 from med_tpu_torch.train import checkpoint as tckpt
 from med_tpu_torch.train.engine import Experiment
@@ -413,9 +414,11 @@ def test_best_checkpoint_is_not_overwritten_by_later_steps(rng):
 
 
 def test_train_frame_fold_refuses_what_is_not_ported(rng):
+    """Trial-DP (mesh=, once refused naming A12) takes the per-epoch loop,
+    as med_tpu's does."""
     cfg = ExperimentConfig(model_name="COG", dataset_type="frame", out_features=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        train_frame_fold(cfg, [], [], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="fused_epoch/fused_run False"):
+        train_frame_fold(cfg, [], [], device="cpu", mesh=make_mesh())
     # a frozen stage is TransSVNet's alone
     with pytest.raises(ValueError, match="TransSVNet"):
         train_frame_fold(cfg, [], [], device="cpu", frozen={"tecno_params": {}})
@@ -444,8 +447,11 @@ def test_train_frame_fold_takes_the_sequential_gates(two_folds):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (("--mesh", "auto"), "A12"), (("--trial-dp",), "A12"),
-    (("--sequence-parallel",), "A12"), (("--fold-parallel",), "A12"),
+    # the parallel flags (once refused naming A12): a mesh larger than the
+    # world of one rank, and sequence parallelism with trial-DP
+    (("--mesh", "2,1"), "needs 2 ranks, have 1"), (("--mesh", "1,2"), "needs 2 ranks, have 1"),
+    (("--sequence-parallel", "--trial-dp"), "mutually exclusive"),
+    (("--mesh", "auto", "--trial-dp", "--sequence-parallel"), "mutually exclusive"),
     (("--model-name", "SimpleCNN"), "A7"),
     (("--model-name", "TransSVNet"), "--run-id"),  # its frozen TeCNo's run
 ])
@@ -455,6 +461,24 @@ def test_cli_names_the_roadmap_item_of_what_is_not_ported(two_folds, tmp_path, f
     with pytest.raises((SystemExit, NotImplementedError), match=item):
         tcli.main(argv)
     assert not os.path.exists(tmp_path / "runs")
+
+
+@pytest.mark.parametrize("flags, line", [
+    (("--sequence-parallel",), "sequence-parallel mesh: {'data': 1, 'model': 1}"),
+    (("--trial-dp", "--trial-batch", "2"), "trial-DP mesh: {'data': 1, 'model': 1}"),
+    (("--mesh", "1", "--trial-dp"), "trial-DP mesh: {'data': 1, 'model': 1}"),
+])
+def test_cli_parallel_flags_run_one_epoch_at_one_rank(two_folds, tmp_path, capsys, flags, line):
+    """The flags once refused naming A12 run one epoch of a fold on one rank
+    and write the run layout."""
+    argv = ["--data-root", two_folds, "--runs-root", str(tmp_path / "runs"),
+            "--folds", "1Out", "--n-epochs", "1", *SMALL_FLAGS, *flags]
+    results, tracker = tcli.main(argv)
+    assert line in capsys.readouterr().out
+    for out in ("1Out",):
+        assert np.isfinite(results[out]["test_f1"]) and np.isfinite(results[out]["train_loss"])
+        assert os.path.exists(tracker.checkpoint_path(f"best_model_LOSO_{out}.npz"))
+    assert os.path.exists(os.path.join(tracker.dir, "artifacts", "summary.json"))
 
 
 @pytest.mark.parametrize("flags, params", [

@@ -33,6 +33,7 @@ from med_tpu_torch.config import ExperimentConfig, run_config
 from med_tpu_torch.data import datasets as tdata
 from med_tpu_torch.eval import ensemble as tens
 from med_tpu_torch.eval import serving as tserv
+from med_tpu_torch.parallel.mesh import make_mesh
 
 PROB_TOL = 1e-5
 
@@ -230,16 +231,21 @@ def test_short_fold_skips_the_int8_fe_calibration():
 
 def test_refusals(tmp_path):
     """The twins compare pairs and cannot be ensemble members; a mesh is not
-    ported (A12); CUDA is the default device and must be there."""
+    a mesh (once refused naming A12) must hold the world's ranks, and one of
+    one rank serves as no mesh does; CUDA is the default device and must be
+    there."""
     fields = dict(model_name="Siamese_CNN", siamese=True)
     with pytest.raises(ValueError, match="pairs"):
         tserv.WindowModelBundle(ExperimentConfig(**fields), {}, device="cpu")
     _, member = _bundles(0, data_type="kinematics")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tserv.EnsembleServer([member], mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tserv.load_ensemble(str(tmp_path), [], "LOSO", "1Out", mesh=object())
-    with pytest.raises(SystemExit, match="A12"):
+    rng = np.random.default_rng(1)
+    images = rng.normal(size=(5, 10, 2048)).astype(np.float32)
+    kin = rng.normal(size=(5, 10, 26)).astype(np.float32)
+    plain = tserv.EnsembleServer([member]).predict(images, kin)
+    meshed = tserv.EnsembleServer([member], mesh=make_mesh()).predict(images, kin)
+    for a, b in zip(plain, meshed):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(SystemExit, match="needs 2 ranks, have 1"):
         tcli.main(["--mode", "soft_vote", "--run-a", "a", "--run-b", "b", "--serve",
                    "--data-root", str(tmp_path), "--mesh", "2,1"])
     if not torch.cuda.is_available():

@@ -54,8 +54,10 @@ from med_tpu_torch.data.trials import Trial, load_trial, save_trial_npz
 from med_tpu_torch.eval.serving import PixelFrontEnd
 from med_tpu_torch.models import init_weights, resnet
 from med_tpu_torch.models.resnet import BatchNorm, ResNetClassifier
+from med_tpu_torch.parallel import launch
 from med_tpu_torch.train.checkpoint import flatten_tree, load_checkpoint
 from med_tpu_torch.utils.jax_params import export_jax_params, load_jax_params
+from torch_rank_bodies import finetune_dp_suite
 
 SMALL = dict(stage_sizes=(1, 1, 1, 1), width=8)
 LR = 1e-3
@@ -512,9 +514,46 @@ def test_cli_init_weights_and_freeze_bn(tmp_path, rng):
 def test_cli_refuses_mesh_and_needs_a_gpu_unless_told_cpu(tmp_path, monkeypatch):
     argv = ["--data-root", str(tmp_path), "--output-root", str(tmp_path / "o"),
             "--runs-root", str(tmp_path / "runs")]
-    with pytest.raises(SystemExit, match="Queue A12"):
+    # --mesh (once refused naming A12): a mesh larger than the one-rank world
+    with pytest.raises(SystemExit, match="needs 2 ranks, have 1"):
         tcli.main([*argv, "--mesh", "2,1", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)
     assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_data_parallel_step_takes_the_global_batch_statistics(n, rng, tmp_path):
+    """``train_step`` on a (n, 1) mesh of spawned gloo ranks, each on its
+    rows of a padded batch of 8, against one rank on the whole batch, in
+    float64 (no relu can flip): BatchNorm's statistics over the global
+    batch, and with bn_stat_stride 4 the ghost statistics over the global
+    batch's first 2 images (held by rank 0 alone; the other ranks add
+    nothing), as GSPMD takes them; the BCE's mean over the global mask, the
+    gradients summed once. Loss, every gradient and every running
+    statistic to 1e-10 of its largest."""
+    imgs, labels, mask, mean, std = _padded_batch(rng, 13, 8, 32)
+    net, _ = _seeded(2, **SMALL)
+    state = net.double().state_dict()
+    stats = (torch.from_numpy(mean), torch.from_numpy(std))
+    strides = (1, 4)
+    got = launch.spawn(finetune_dp_suite, n, str(tmp_path / "ranks"),
+                       args=(state, SMALL, strides, imgs, labels, mask, stats), device="cpu")
+    for stride in strides:
+        one = ResNetClassifier(bn_stat_stride=stride, dtype=torch.float64, **SMALL)
+        one.load_state_dict(state)
+        one.double()
+        opt = torch.optim.Adam(one.parameters(), lr=LR, betas=(0.9, 0.999), eps=1e-8)
+        loss = float(tcli.train_step(one, opt, imgs, labels, mask, stats, False))
+        grads = {k: p.grad.numpy() for k, p in one.named_parameters()}
+        bufs = {k: b.numpy() for k, b in one.named_buffers()}
+        for r in got:
+            r_loss, r_grads, r_bufs = r[stride]
+            assert r_loss == pytest.approx(loss, rel=1e-10)
+            for want, have in ((grads, r_grads), (bufs, r_bufs)):
+                assert set(want) == set(have)
+                for k, w in want.items():
+                    np.testing.assert_allclose(have[k], w, rtol=0,
+                                               atol=1e-10 * max(np.abs(w).max(), 1e-30),
+                                               err_msg=f"stride {stride} {k}")

@@ -1,5 +1,6 @@
-"""The port stands alone: med_tpu_torch, chip_smoke.py and trunk_gain.py
-import neither JAX nor anything of the JAX package med_tpu. The import check
+"""The port stands alone: med_tpu_torch, chip_smoke.py, trunk_gain.py and
+the parallel tests' rank bodies (tests/torch_rank_bodies.py) import neither
+JAX nor anything of the JAX package med_tpu. The import check
 runs in a fresh interpreter, since this test process (conftest.py) has
 imported JAX."""
 
@@ -21,6 +22,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import trunk_gain
+sys.path.insert(0, "tests")
+import torch_rank_bodies
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "med_tpu")]
 print(json.dumps({"modules": names, "forbidden": loaded}))
@@ -40,13 +43,18 @@ def test_port_imports_no_jax_and_no_med_tpu():
                  "cli.train_window_es_sequential", "viz.utils", "eval.ensemble",
                  "eval.results", "ops.quant", "cli.ensemble", "cli.results",
                  "data.consensus", "data.augment", "cli.preprocess", "cli.resnet_finetune",
-                 "models.clip_tokenizer", "models.clip_text", "models.prompts"):
+                 "models.clip_tokenizer", "models.clip_text", "models.prompts",
+                 "parallel.comm", "parallel.launch", "parallel.mesh", "parallel.folds",
+                 "parallel.seqpar", "parallel.sp_cog", "parallel.sp_tsvn",
+                 "parallel.sp_train", "parallel.pipeline", "utils.prefetch",
+                 "utils.profiling", "entry"):
         assert f"med_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
 
 def test_port_sources_name_no_jax_or_med_tpu_import():
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "trunk_gain.py"]
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "trunk_gain.py",
+                                               ROOT / "tests" / "torch_rank_bodies.py"]
     assert len(sources) > 10
     for path in sources:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

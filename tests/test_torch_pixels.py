@@ -25,6 +25,7 @@ from med_tpu.train import checkpoint as jckpt
 from med_tpu.train.engine import Experiment as JaxExperiment
 from med_tpu_torch.config import ExperimentConfig
 from med_tpu_torch.eval.serving import FrameModelServer, PixelFrontEnd
+from med_tpu_torch.parallel.mesh import make_mesh
 
 BF16_JIT_REL = 2e-2
 
@@ -160,7 +161,8 @@ def test_frame_server_from_pixels_matches_jax(tmp_path, rng):
 
 def test_pixel_front_end_unported_options_and_device_rule(tiny, rng):
     """The int8 trunk (ported since) needs its calibration frames and then
-    serves finite features of the trunk's width; a mesh stays unported; the
+    serves finite features of the trunk's width; on a mesh of one rank (a
+    mesh was once refused, naming A12) the features are the same; the
     default device is CUDA, which must be there."""
     params, stats = tiny
     kw = dict(stage_sizes=(1, 1, 1, 1), width=8, device="cpu")
@@ -171,8 +173,9 @@ def test_pixel_front_end_unported_options_and_device_rule(tiny, rng):
                        std=[0.25] * 3, batch_size=2, **kw)
     got = fe.features(frames)
     assert got.shape == (3, 256) and got.dtype == np.float32 and np.isfinite(got).all()
-    with pytest.raises(NotImplementedError, match="A12"):
-        PixelFrontEnd(params, stats, mesh=object(), **kw)
+    meshed = PixelFrontEnd(params, stats, int8=True, calib_frames=frames, mean=[0.5] * 3,
+                           std=[0.25] * 3, batch_size=2, mesh=make_mesh(), **kw)
+    np.testing.assert_array_equal(meshed.features(frames), got)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PixelFrontEnd(params, stats, stage_sizes=(1, 1, 1, 1), width=8)

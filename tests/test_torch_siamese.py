@@ -182,8 +182,9 @@ def test_window_command_lines_write_the_run_layout_read_by_jax(folds, tmp_path, 
     the same binary run."""
     runs = str(tmp_path / "runs")
     argv = ["--data-root", folds, "--runs-root", runs, *SMALL]
-    with pytest.raises(SystemExit, match="A12"):
-        twin.main([*argv, "--fold-parallel"])
+    # --fold-parallel (once refused naming A12) refuses --resume, as med_tpu's
+    with pytest.raises(SystemExit, match="does not support --resume"):
+        twin.main([*argv, "--fold-parallel", "--resume"])
     assert not os.path.exists(runs)
     results, binary = twin.main([*argv, "--model-name", "SimpleLSTM", "--pos-weight"])
     params = _layout(binary)
@@ -240,14 +241,19 @@ def test_window_command_lines_write_the_run_layout_read_by_jax(folds, tmp_path, 
 
 def _reference_blob(path, model_name, rng):
     """A reference window model's ``best_model`` blob, the reference's key
-    names, its BatchNorm statistics away from (0, 1)."""
-    model = ref_style_cnn() if model_name.endswith("CNN") else ref_style_lstm()
+    names, its BatchNorm statistics away from (0, 1). torch's modules draw
+    their initial weights from a torch seed taken from ``rng``, not from
+    the global generator, whose state depends on what ran before in the
+    process."""
+    with torch.random.fork_rng():
+        torch.manual_seed(int(rng.integers(2 ** 31)))
+        model = ref_style_cnn() if model_name.endswith("CNN") else ref_style_lstm()
+        fe = ref_style_feature_extractor()
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, torch.nn.BatchNorm1d):
                 mod.running_mean.copy_(torch.tensor(rng.normal(size=mod.running_mean.shape)))
                 mod.running_var.copy_(torch.tensor(rng.random(mod.running_var.shape) + 0.5))
-    fe = ref_style_feature_extractor()
     torch.save({"feature_extractor": fe.state_dict(), "model": model.state_dict()}, path)
     return model.eval(), fe.eval()
 
