@@ -29,7 +29,10 @@ non-zero and the last line is not printed:
    instances at TransSVNet's encoder shapes (8 heads of width 2, m = W =
    30; the yardstick one ``scaled_dot_product_attention`` call over the
    frames' windows as its batch) and K2b/K5 at one TeCNo stage's stack (8
-   layers at C=64 over the whole trial); K1 and K3 at the shapes of the
+   layers at C=64 over the whole trial), and again in training at dropout
+   rate KEEP_RATE (a Bernoulli keep-mask and the keep scale 1 / (1 -
+   rate)), each timed in turns against the same call at rate 0.5's scale
+   2 on the same mask; K1 and K3 at the shapes of the
    error-specific regime (ES_ATTENTION: m = 45 and m = 8 queries a frame,
    and 16 heads, a trial group of two; the yardstick the windowed
    library call); then (``[ops]``
@@ -167,7 +170,8 @@ non-zero and the last line is not printed:
    step's) and sequence-parallel TeCNo; the SimpleCNN window step (the
    CLI's defaults, B = 512) on meshes (2, 1) and (1, 2) with its running
    statistics; the TeCNo pipeline over 2 refinement stages and 4
-   microbatches against the sequential chain. The ranks also take a
+   microbatches against the sequential chain, at dropout rates 0.5 and
+   KEEP_RATE (its launches counted). The ranks also take a
    trial-parallel COG step (trial_batch 2 on T = 1000 and 1500, one trial
    a rank), which the parent holds, with the card's own grouped step,
    against the CPU's float64 grouped step (itself equal to its one-trial
@@ -186,7 +190,8 @@ non-zero and the last line is not printed:
    at the SP shard's T = 2048; the SP step at one rank;
 14. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
    int8 kernel's, on the int8 trunk's and FE's paths, the trunk's with the
-   fine-tune export's launches too), then ``{"ok": true, "device": ...}``
+   fine-tune export's launches too; K2b/K5 at KEEP_RATE's scale take the
+   rate-0.3 pipeline's launches), then ``{"ok": true, "device": ...}``
    last.
 A ``[time]`` line gives each phase's wall time.
 
@@ -238,6 +243,12 @@ TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
        "tcn_stack_fwd/tecno": (1e-4, 1e-4), "tcn_stack_bwd/tecno": (1e-4, 1e-5),
        **{f"swa_packed_{way}/{shape}": (1e-4, 1e-5) for way in ("fwd", "bwd")
           for shape in ("m45", "m8", "heads16")}}
+# a TeCNo stack in training at a dropout rate other than 0.5 (the keep scale
+# 1 / (1 - rate)): phase 3's K2b/K5 cases at the rate-0.5 cases' tolerance
+# and phase 13's second pipeline step
+KEEP_RATE = 0.3
+TOL.update({f"{k}_rate{KEEP_RATE}": TOL[k] for k in ("tcn_stack_fwd/tecno",
+                                                     "tcn_stack_bwd/tecno")})
 # the driver phase: 6 trials, the first 4 train fold 1Out and the last 2 test
 # it; fold 2Out tests trials 0 and 3 and trains on the rest
 DRIVER_FRAMES = (300, 1000, 2000, 4096, 500, 1500)
@@ -800,6 +811,88 @@ def _tecno_stack_bwd_case(T: int, gen: torch.Generator):
                 **_device_launches(run, "tcn_bwd_kernel"))
 
 
+def _keep_scale_inputs(T: int):
+    """TECNO_STACK's weights, x, a cotangent and a Bernoulli(1 - KEEP_RATE)
+    keep-mask over T frames, from a generator of their own (the cases
+    before and after them draw what they drew before), and the scale."""
+    from med_tpu_torch.models.layers import keep_scale
+
+    gen = torch.Generator().manual_seed(SEED + T)
+    L, C = TECNO_STACK["L"], TECNO_STACK["C"]
+    (w,) = _stage_weights(gen, (L,), C)
+    x, g = (torch.randn((T, C), generator=gen).cuda() for _ in range(2))
+    mask = (torch.rand((L, T, C), generator=gen) < 1 - KEEP_RATE).to(torch.uint8).cuda()
+    return w, x, g, mask, keep_scale(KEEP_RATE)
+
+
+def _in_turns(run, at_2, iters: int) -> tuple:
+    """ms of ``run`` and of ``at_2`` timed in turns (run, at_2, run, at_2):
+    each the mean of its two timings."""
+    ms = [cuda_ms(f, iters) for f in (run, at_2, run, at_2)]
+    return (ms[0] + ms[2]) / 2, (ms[1] + ms[3]) / 2
+
+
+def _tecno_stack_scale_case(T: int, gen: torch.Generator):
+    """K2b at TECNO_STACK in a training forward at dropout rate KEEP_RATE:
+    the keep-mask and the keep scale 1 / (1 - rate), against its plain
+    version; the same call at scale 2 on the same mask timed in turns."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    w, x, _, mask, scale = _keep_scale_inputs(T)
+    L, C = TECNO_STACK["L"], TECNO_STACK["C"]
+    run = lambda: tcn.dilated_residual_stack(x, *w, mask=mask, scale=scale)  # noqa: E731
+    plain = lambda: tcn.dilated_stack_xla(x, *w, mask=mask, scale=scale)  # noqa: E731
+    at_2 = lambda: tcn.dilated_residual_stack(x, *w, mask=mask)  # noqa: E731
+    err = check_close(f"TeCNo stack at scale {scale:.7f} T={T}", run(), plain(),
+                      *TOL[f"tcn_stack_fwd/tecno_rate{KEEP_RATE}"])
+    ms, ms_2 = _in_turns(run, at_2, 20)
+    nbytes, flops = _tcn_flops_bytes(T, C, (L,), 1, 1)
+    b_ms, b_by = bound(nbytes + L * T * C, flops)       # the uint8 mask read once
+    device = _device_launches(run, "tcn_stack_kernel")
+    device_2 = _device_launches(at_2, "tcn_stack_kernel")["device_ms"]
+    device["phase_note"] += (f"; scale {scale:.7f} (rate {KEEP_RATE}); the same call at "
+                             f"scale 2 on the same mask {ms_2:.4f} ms, timed in turns, "
+                             f"device {device_2:.4f} ms a launch")
+    return dict(run=run, max_abs_err=err, ms=ms, ms_scale_2=ms_2,
+                device_ms_scale_2=device_2, plain_ms=cuda_ms(plain, 5),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, **device)
+
+
+def _tecno_stack_bwd_scale_case(T: int, gen: torch.Generator):
+    """K5 at TECNO_STACK behind a training forward at dropout rate
+    KEEP_RATE (keep-mask, scale 1 / (1 - rate)), against its plain
+    version; two runs equal bit for bit; the same call at scale 2 on the
+    same saved activations timed in turns."""
+    from med_tpu_torch.ops import tcn_fused as tcn
+
+    w, x, g, mask, scale = _keep_scale_inputs(T)
+    L, C = TECNO_STACK["L"], TECNO_STACK["C"]
+    _, h, y = tcn._stages_fwd(x, [w], [mask], True, tcn.dilated_residual_stack, save=True,
+                              scale=scale)
+    run = lambda: tcn.dilated_residual_stack_bwd(  # noqa: E731
+        g, h, y, w[0], w[2], mask=mask, scale=scale)
+    plain = lambda: tcn._stages_bwd_plain(  # noqa: E731
+        g[None], h, y, [(w[0], w[2])], [mask], True, scale)
+    at_2 = lambda: tcn.dilated_residual_stack_bwd(g, h, y, w[0], w[2], mask=mask)  # noqa: E731
+    rtol, atol = TOL[f"tcn_stack_bwd/tecno_rate{KEEP_RATE}"]
+    got, (p_dx, (p_dw,)) = run(), plain()
+    err = max(check_grads(f"TeCNo stack bwd at scale {scale:.7f} T={T} {n}", [a], [b],
+                          rtol, atol)
+              for n, a, b in zip(("dx", "dw3", "db3", "dw1", "db1"), got, (p_dx, *p_dw)))
+    _same_bits(f"TeCNo stack bwd at scale {scale:.7f} T={T}", run)
+    ms, ms_2 = _in_turns(run, at_2, 10)
+    nbytes, flops = _tcn_bwd_flops_bytes(T, C, (L,), 1, 1)
+    b_ms, b_by = bound(nbytes, flops)
+    device = _device_launches(run, "tcn_bwd_kernel")
+    device_2 = _device_launches(at_2, "tcn_bwd_kernel")["device_ms"]
+    device["phase_note"] += (f"; scale {scale:.7f} (rate {KEEP_RATE}); two runs equal bit "
+                             f"for bit; the same call at scale 2 {ms_2:.4f} ms, timed in "
+                             f"turns, device {device_2:.4f} ms a launch")
+    return dict(run=run, max_abs_err=err, ms=ms, ms_scale_2=ms_2,
+                device_ms_scale_2=device_2, plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, **device)
+
+
 # K1 and K3's cases: heads, head width, queries a frame and window; the
 # key frames (COG's visual sequence has W - 1 pad frames before the T of
 # the trial, TransSVNet's keys are the T frames); the library yardstick:
@@ -945,6 +1038,8 @@ KERNEL_CASES = (("swa_packed_fwd", functools.partial(_attention_case, "cog")),
                   for way, case in (("fwd", _attention_case), ("bwd", _attention_bwd_case))),
                 ("tcn_stack_fwd/tecno", _tecno_stack_case),
                 ("tcn_stack_bwd/tecno", _tecno_stack_bwd_case),
+                (f"tcn_stack_fwd/tecno_rate{KEEP_RATE}", _tecno_stack_scale_case),
+                (f"tcn_stack_bwd/tecno_rate{KEEP_RATE}", _tecno_stack_bwd_scale_case),
                 *((f"swa_packed_{way}/{shape}", functools.partial(case, shape))
                   for way, case in (("fwd", _attention_case), ("bwd", _attention_bwd_case))
                   for shape in ES_ATTENTION))
@@ -1337,8 +1432,8 @@ def _tcn_relu(record=None, pin=None, flips=None):
     plain = tcn_fused._stages_fwd
     calls = iter(range(1 << 30))
 
-    def stages_fwd(x, stage_weights, masks, causal, counter, save):
-        out = plain(x, stage_weights, masks, causal, counter, save)
+    def stages_fwd(x, stage_weights, masks, causal, counter, save, scale=2.0):
+        out = plain(x, stage_weights, masks, causal, counter, save, scale)
         if not save:
             return out
         hs, h_saved, y_saved = out
@@ -4212,12 +4307,13 @@ def _window_dp_rank_check(shape) -> dict:
                 flips=_flips_within(tag, flips), tp=sorted(exp.tp))
 
 
-def _pipeline_rank_check() -> dict:
+def _pipeline_rank_check(rate: float) -> dict:
     """Two pipelined TeCNo train steps (the CLI's TeCNo with 3 stages: stage 0
     on every rank, refinement stage r + 1 on rank r; PIPELINE microbatches;
-    SGD) against the sequential chain's two steps on the card, with the
-    same per-(stage, microbatch) dropout masks: losses and every stage's
-    weights."""
+    SGD) at dropout ``rate`` against the sequential chain's two steps on the
+    card, with the same per-(stage, microbatch) keep-masks: losses and every
+    stage's weights; the kernels the two pipelined steps launched."""
+    from med_tpu_torch import ops
     from med_tpu_torch.parallel import launch
     from med_tpu_torch.parallel.mesh import make_mesh
     from med_tpu_torch.parallel.pipeline import make_pp_tecno_train_step
@@ -4232,11 +4328,17 @@ def _pipeline_rank_check() -> dict:
     labels = torch.from_numpy(rng.integers(0, 2, (M, T))).to(CARD)
     mask = torch.ones(M, T, device=CARD)
     shape = (cfg.mstcn_layers, T, cfg.mstcn_f_maps)
-    masks = {(s, m): torch.from_numpy(rng.integers(0, 2, shape).astype(np.uint8)).to(CARD)
+    if rate == 0.5:
+        draws = [rng.integers(0, 2, shape) for _ in range(3 * M)]
+    else:
+        draws = [rng.random(shape) < 1 - rate for _ in range(3 * M)]
+    masks = {(s, m): torch.from_numpy(draws[s * M + m].astype(np.uint8)).to(CARD)
              for s in range(3) for m in range(M)}
     seq = Experiment(cfg, device=CARD)
     seq.init_weights(SEED)
     model = seq.net.model
+    for st in model.stages():
+        st.stack.dropout_rate = rate       # the chain's stacks drop at the step's rate
     opt = torch.optim.SGD(model.parameters(), lr=lr)
     stage_masks = {f"stage{s}": {"stack": torch.stack([masks[(s, m)] for m in range(M)], 1)}
                    for s in range(3)}
@@ -4254,8 +4356,16 @@ def _pipeline_rank_check() -> dict:
     stage0, stage = pp.net.model.stage0, pp.net.model.stages()[d + 1]
     step = make_pp_tecno_train_step(stage0, stage, torch.optim.SGD(stage0.parameters(), lr=lr),
                                     torch.optim.SGD(stage.parameters(), lr=lr),
-                                    mesh.group("data"), dropout_rate=0.5)
+                                    mesh.group("data"), dropout_rate=rate)
+    ops.reset_launch_counts()
     got = [step(x, labels, mask, masks).item() for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    # stage 0 on M microbatches and this rank's stage on M + R - 1 steps, a step
+    fwd = 2 * (2 * M + launch.world_size() - 1)
+    if launches["dilated_residual_stack"] != fwd or launches["dilated_residual_stack_bwd"] < 1:
+        raise RuntimeError(f"{tag} at rate {rate}: stack launches {launches}, expected {fwd} "
+                           f"forward and some backward")
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
     if rel > TRAIN_TOL["loss"]:
         raise RuntimeError(f"{tag}: losses {got} against the chain's {want}")
@@ -4266,7 +4376,7 @@ def _pipeline_rank_check() -> dict:
             err = max(err, e)
             if e > TRAIN_TOL["grad_atol"]:
                 raise RuntimeError(f"{tag}: {k} off the chain's by {e:.2e} of its largest")
-    return dict(loss_rel=rel, weight_err=err, losses=got)
+    return dict(loss_rel=rel, weight_err=err, losses=got, launches=launches)
 
 
 def _parallel_rank() -> dict:
@@ -4276,7 +4386,7 @@ def _parallel_rank() -> dict:
     return {"sp": {name: _sp_rank_check(name) for name in ("COG", "TeCNo")},
             "trial_dp": _trial_dp_rank_check(),
             "window": {str(shape): _window_dp_rank_check(shape) for shape in ((2, 1), (1, 2))},
-            "pipeline": _pipeline_rank_check()}
+            "pipeline": {rate: _pipeline_rank_check(rate) for rate in (0.5, KEEP_RATE)}}
 
 
 def _vmap_fallbacks(caught) -> list:
@@ -4521,9 +4631,9 @@ def _nccl_group_of_one(root: Path, splits) -> None:
         dist.destroy_process_group()
 
 
-def phase_parallel(root: Path, splits) -> dict:
+def phase_parallel(root: Path, splits) -> tuple:
     """Parallelism on the card (phase 13 of the module docstring). Returns
-    rank 0's SP COG launches."""
+    rank 0's SP COG launches and its pipeline steps' launches by rate."""
     from med_tpu_torch.entry import dryrun_multichip
     from med_tpu_torch.parallel import launch
     from med_tpu_torch.parallel.mesh import make_mesh
@@ -4552,11 +4662,13 @@ def phase_parallel(root: Path, splits) -> dict:
                 f"loss rel {w['loss_rel']:.2e}, running statistics {w['stats_err']:.2e}, "
                 f"largest leaf error {w['grad_err']:.2e} (choices flipped {w['flips']}); "
                 f"split {w['tp'] or 'nothing'}")
-        pp = out["pipeline"]
-        log(f"[parallel] pipeline, TeCNo 2 refinement stages x {PIPELINE['M']} microbatches "
-            f"of T={PIPELINE['T']}, rank {r}: 2 SGD steps, losses {pp['losses']} (rel "
-            f"{pp['loss_rel']:.2e} of the sequential chain's), weights within "
-            f"{pp['weight_err']:.2e} of their largest")
+        for rate, pp in out["pipeline"].items():
+            log(f"[parallel] pipeline, TeCNo 2 refinement stages x {PIPELINE['M']} "
+                f"microbatches of T={PIPELINE['T']}, dropout rate {rate}, rank {r}: 2 SGD "
+                f"steps, losses {pp['losses']} (rel {pp['loss_rel']:.2e} of the sequential "
+                f"chain's), weights within {pp['weight_err']:.2e} of their largest; K2b/K5 "
+                f"launches {pp['launches']['dilated_residual_stack']}/"
+                f"{pp['launches']['dilated_residual_stack_bwd']}")
 
     _group_step_check([r["trial_dp"] for r in ranks])
 
@@ -4590,7 +4702,8 @@ def phase_parallel(root: Path, splits) -> dict:
     _fold_step_check()
     _fold_parallel_at_lr_0(root, splits)
     _prefetch_check()
-    return ranks[0]["sp"]["COG"]["launches"]
+    return (ranks[0]["sp"]["COG"]["launches"],
+            {rate: pp["launches"] for rate, pp in ranks[0]["pipeline"].items()})
 
 
 def main(argv) -> int:
@@ -4630,7 +4743,7 @@ def main(argv) -> int:
         int8_entries = timed("ensemble", phase_ensemble, Path(tmp), splits, cog_run, es_run)
         int8_entries["int8_conv/trunk"]["launches_finetune_export"] = timed(
             "finetune", phase_finetune, Path(tmp), profile)
-        sp_launches = timed("parallel", phase_parallel, Path(tmp), splits)
+        sp_launches, pp_launches = timed("parallel", phase_parallel, Path(tmp), splits)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -4677,6 +4790,12 @@ def main(argv) -> int:
                "tcn_stack_bwd/tecno": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
                                        "med_tpu/ops/tcn_fused.py:193",
                                        "dilated_residual_stack_bwd"),
+               f"tcn_stack_fwd/tecno_rate{KEEP_RATE}": ("med_tpu_torch/csrc/tcn_stack_fwd.cu",
+                                                       "med_tpu/ops/tcn_fused.py:91",
+                                                       "dilated_residual_stack"),
+               f"tcn_stack_bwd/tecno_rate{KEEP_RATE}": ("med_tpu_torch/csrc/tcn_stack_bwd.cu",
+                                                       "med_tpu/ops/tcn_fused.py:193",
+                                                       "dilated_residual_stack_bwd"),
                **{f"swa_packed_fwd/{shape}": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                               "med_tpu/ops/attention.py:390",
                                               "sliding_window_attention_packed")
@@ -4693,13 +4812,16 @@ def main(argv) -> int:
     # step (K3), the trial_batch = 2 fold for 16 heads, and COG's training
     # run for the others; every phase's count beside it (the pixel request's
     # trunk is ResNet50; the driver's COG count is its first run, 2 folds x 2
-    # epochs)
+    # epochs); the TeCNo stacks at KEEP_RATE's scale the rate-KEEP_RATE
+    # pipeline's two steps
     own_path = {"resnet_stage": fused_trunk, "tcn_stack_fwd/concatenated": op_api,
                 "tcn_stack_bwd/concatenated": op_api, "swa_headmajor_fwd": op_api,
                 "swa_headmajor_bwd": op_api, "swa_packed_fwd/d2": families["TransSVNet"],
                 "swa_packed_bwd/d2": families["TransSVNet"],
                 "tcn_stack_fwd/tecno": families["TeCNo"],
                 "tcn_stack_bwd/tecno": families["TeCNo"],
+                f"tcn_stack_fwd/tecno_rate{KEEP_RATE}": pp_launches[KEEP_RATE],
+                f"tcn_stack_bwd/tecno_rate{KEEP_RATE}": pp_launches[KEEP_RATE],
                 **{f"swa_packed_fwd/{shape}": variants[v]["serving"]
                    for shape, v in ES_VARIANT_SHAPE.items()},
                 **{f"swa_packed_bwd/{shape}": variants[v]["step"]
@@ -4724,6 +4846,8 @@ def main(argv) -> int:
              "launches_group_fold": group_fold[wrapper],
              "launches_window": window[wrapper],
              "launches_sp_rank": sp_launches[wrapper],
+             **{f"launches_pipeline_rate{rate}": pp[wrapper]
+                for rate, pp in pp_launches.items()},
              **kernels[name]}
             for name, (src, rep, wrapper) in sources.items()]
     # the int8 kernel is no TPU kernel (it replaces XLA's int8 conv and dot)

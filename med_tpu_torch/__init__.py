@@ -5,3 +5,5 @@ of ``med_tpu``: it keeps its own copies of what it needs. Entry points run on
 CUDA unless the caller passes ``device="cpu"``, and raise when there is no
 CUDA device.
 """
+
+from . import config  # noqa: F401

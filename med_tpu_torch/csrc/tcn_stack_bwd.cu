@@ -10,7 +10,8 @@
 //
 // Per layer l, in reverse, from the forward's saved input h and post-relu y
 // (tcn_stack_fwd.cu writes both when training):
-//   dz  = dh * 2*mask                       (dh when there is no mask)
+//   dz  = dh * scale*mask                   (dh when there is no mask; scale =
+//                                            1 / (1 - dropout rate))
 //   dW1 = y^T dz,  db1 = sum_t dz
 //   da  = (dz W1^T) * [y > 0],  db3 = sum_t da
 //   dW3_j = sum_t h[t - s_j]^T da[t]
@@ -85,6 +86,7 @@ struct Stages {
   const float* w3[kStagesPerLaunch];
   const float* w1[kStagesPerLaunch];
   const unsigned char* mask[kStagesPerLaunch];   // null: no mask
+  float scale;   // a kept element's factor, 1 / (1 - dropout rate)
   int layers[kStagesPerLaunch];
   int S;
 };
@@ -518,8 +520,8 @@ __global__ void __launch_bounds__(kThreads, 1) tcn_bwd_kernel(Stages st, Buffers
           for (int q = 0; q < 4; ++q) dz[q] = acc[r][q];
           if (mask != nullptr) {
             const uchar4 m = __ldg(reinterpret_cast<const uchar4*>(mask + at));
-            dz[0] *= (float)m.x * 2.f; dz[1] *= (float)m.y * 2.f;
-            dz[2] *= (float)m.z * 2.f; dz[3] *= (float)m.w * 2.f;
+            dz[0] *= (float)m.x * st.scale; dz[1] *= (float)m.y * st.scale;
+            dz[2] *= (float)m.z * st.scale; dz[3] *= (float)m.w * st.scale;
           }
           store4(io.dz + a_off + at, dz);
         }
@@ -640,8 +642,8 @@ struct StageOperands {
 // for every launch the runtime accepted; blocks and rows receive the grid
 // and tile height they ran with.
 template <class Operands>
-int run(int S, Operands operands, Buffers io, int C, int* launched, int* blocks, int* rows,
-        void* stream) {
+int run(int S, Operands operands, float scale, Buffers io, int C, int* launched, int* blocks,
+        int* rows, void* stream) {
   if (S < 1) return cudaErrorInvalidValue;
   bool aligned = aligned16(io.g) && aligned16(io.h_saved) && aligned16(io.y_saved) &&
                  aligned16(io.dh) && aligned16(io.dz) && aligned16(io.da) &&
@@ -667,6 +669,7 @@ int run(int S, Operands operands, Buffers io, int C, int* launched, int* blocks,
   for (int a = (S - 1) / kStagesPerLaunch * kStagesPerLaunch; a >= 0; a -= kStagesPerLaunch) {
     Stages st{};
     st.S = S - a < kStagesPerLaunch ? S - a : kStagesPerLaunch;
+    st.scale = scale;
     long long n = 0;
     for (int s = 0; s < st.S; ++s) {
       const StageOperands o = operands(a + s);
@@ -721,7 +724,7 @@ extern "C" int tcn_stack_bwd_chunks(int T) { return chunks(T); }
 // C) uint8; dx (T, C) out; dz, da (Lt, T, C) scratch; partial see
 // tcn_stack_bwd_chunks; dw3 (Lt, 3, C, C), db3 (Lt, C), dw1 (Lt, C, C),
 // db1 (Lt, C) out; marks null or 4 device words (see mark(); the last
-// launch's). One launch for every 16 stages. launched is raised by
+// launch's); scale the forward's factor of a kept element. One launch for every 16 stages. launched is raised by
 // one for every launch the runtime accepted; blocks and rows receive the
 // grid and the tile height. Returns a cudaError_t code.
 extern "C" int tcn_stages_bwd(const float* g, const float* h_saved, const float* y_saved,
@@ -730,13 +733,14 @@ extern "C" int tcn_stages_bwd(const float* g, const float* h_saved, const float*
                               float* dx, float* dz, float* da, float* partial, float* dw3,
                               float* db3, float* dw1, float* db1,
                               unsigned long long* marks, int T, int C, int causal,
-                              int* launched, int* blocks, int* rows, void* stream) {
+                              float scale, int* launched, int* blocks, int* rows,
+                              void* stream) {
   const auto operands = [&](int s) {
     return StageOperands{w3[s], w1[s], masks != nullptr ? masks[s] : nullptr, layers[s]};
   };
   const Buffers io{g, h_saved, y_saved, dx, dz, da, partial, dw3, db3, dw1, db1, marks, T,
                    causal, 1, 0};
-  return run(S, operands, io, C, launched, blocks, rows, stream);
+  return run(S, operands, scale, io, C, launched, blocks, rows, stream);
 }
 
 // Stacks of L0, Lr, Lr, ... layers (Lt in all) with their operands
@@ -749,8 +753,8 @@ extern "C" int tcn_multistack_bwd(const float* g, const float* h_saved, const fl
                                   float* dx, float* dz, float* da, float* partial, float* dw3,
                                   float* db3, float* dw1, float* db1,
                                   unsigned long long* marks, int T, int C, int Lt, int L0,
-                                  int Lr, int causal, int* launched, int* blocks, int* rows,
-                                  void* stream) {
+                                  int Lr, int causal, float scale, int* launched, int* blocks,
+                                  int* rows, void* stream) {
   if (L0 < 1 || Lr < 1 || Lt < L0 || (Lt - L0) % Lr != 0) return cudaErrorInvalidValue;
   const auto operands = [&](int s) {
     const long long off = s == 0 ? 0 : L0 + (long long)(s - 1) * Lr;
@@ -759,7 +763,7 @@ extern "C" int tcn_multistack_bwd(const float* g, const float* h_saved, const fl
   };
   const Buffers io{g, h_saved, y_saved, dx, dz, da, partial, dw3, db3, dw1, db1, marks, T,
                    causal, 1, 0};
-  return run(1 + (Lt - L0) / Lr, operands, io, C, launched, blocks, rows, stream);
+  return run(1 + (Lt - L0) / Lr, operands, scale, io, C, launched, blocks, rows, stream);
 }
 
 // The floor of the design: a backward's grid (blocks of the instance with

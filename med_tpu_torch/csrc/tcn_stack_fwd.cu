@@ -12,7 +12,8 @@
 // Layer i of a stack, at dilation d = 2^i:
 //   y   = relu(b3 + sum_j h[t - s_j] @ w3[j])      taps s = (2d, d, 0) causal,
 //                                                   (d, 0, -d) acausal
-//   z   = y @ w1 + b1     (times 2*mask when a uint8 keep-mask is given)
+//   z   = y @ w1 + b1     (times scale*mask when a uint8 keep-mask is given;
+//                          scale = 1 / (1 - dropout rate), 2 at rate 0.5)
 //   out = h + z
 // Rows outside [0, T) read zero. x, h, out (T, C) row-major; w3 (3, C, C) and
 // w1 (C, C) [in][out]; b3, b1 (C); mask (T, C). The output of a stack's last
@@ -74,6 +75,7 @@ struct Stages {
   const float* w1[kStagesPerLaunch];
   const float* b1[kStagesPerLaunch];
   const unsigned char* mask[kStagesPerLaunch];   // null: no mask
+  float scale;   // a kept element's factor, 1 / (1 - dropout rate)
   int layers[kStagesPerLaunch];
   int S;
 };
@@ -279,8 +281,8 @@ __global__ void __launch_bounds__(kThreads, 1) tcn_stack_kernel(Stages st, Buffe
                         acc[r][3] + bias1.w};
           if (mask != nullptr) {
             const uchar4 m = __ldg(reinterpret_cast<const uchar4*>(mask + at));
-            z[0] *= (float)m.x * 2.f; z[1] *= (float)m.y * 2.f;
-            z[2] *= (float)m.z * 2.f; z[3] *= (float)m.w * 2.f;
+            z[0] *= (float)m.x * st.scale; z[1] *= (float)m.y * st.scale;
+            z[2] *= (float)m.z * st.scale; z[3] *= (float)m.w * st.scale;
           }
           const float4 h = *reinterpret_cast<const float4*>(xs + (center * R + r0 + r) * C + o);
           if (h_out != nullptr) store4(h_out + at, h.x, h.y, h.z, h.w);
@@ -387,8 +389,8 @@ struct StageOperands {
 // launched is raised by one for every launch the runtime accepted; blocks
 // and rows receive the grid and tile height they ran with.
 template <class Operands>
-int run(int S, Operands operands, Buffers io, int C, int* launched, int* blocks, int* rows,
-        void* stream) {
+int run(int S, Operands operands, float scale, Buffers io, int C, int* launched, int* blocks,
+        int* rows, void* stream) {
   if (S < 1) return cudaErrorInvalidValue;
   bool aligned = aligned16(io.x) && aligned16(io.hs) && aligned16(io.scratch) &&
                  aligned16(io.h_saved) && aligned16(io.y_saved);
@@ -407,6 +409,7 @@ int run(int S, Operands operands, Buffers io, int C, int* launched, int* blocks,
   for (int a = 0; a < S; a += kStagesPerLaunch) {
     Stages st{};
     st.S = S - a < kStagesPerLaunch ? S - a : kStagesPerLaunch;
+    st.scale = scale;
     for (int s = 0; s < st.S; ++s) {
       const StageOperands o = operands(a + s);
       st.w3[s] = o.w3;
@@ -447,8 +450,8 @@ size_t smem_for_rows(int rows) {
 
 // Stages back to back with per-stage operands: w3[s] (L_s, 3, C, C), b3[s]
 // (L_s, C), w1[s] (L_s, C, C), b1[s] (L_s, C), masks[s] (L_s, T, C) uint8;
-// masks, and h_saved with y_saved, may be null. One launch for every 16
-// stages. launched is raised by one for every launch the runtime accepted;
+// masks, and h_saved with y_saved, may be null; scale multiplies a kept
+// element (1 / (1 - dropout rate)). One launch for every 16 stages. launched is raised by one for every launch the runtime accepted;
 // blocks and rows receive the grid and the tile height. Returns a
 // cudaError_t code.
 extern "C" int tcn_stages_fwd(const float* x, const float* const* w3,
@@ -456,12 +459,13 @@ extern "C" int tcn_stages_fwd(const float* x, const float* const* w3,
                               const float* const* b1, const unsigned char* const* masks,
                               const int* layers, int S, float* hs, float* h_saved,
                               float* y_saved, float* scratch, int T, int C, int causal,
-                              int* launched, int* blocks, int* rows, void* stream) {
+                              float scale, int* launched, int* blocks, int* rows,
+                              void* stream) {
   const auto operands = [&](int s) {
     return StageOperands{w3[s], b3[s], w1[s], b1[s],
                          masks != nullptr ? masks[s] : nullptr, layers[s]};
   };
-  return run(S, operands, Buffers{x, hs, scratch, h_saved, y_saved, T, causal}, C,
+  return run(S, operands, scale, Buffers{x, hs, scratch, h_saved, y_saved, T, causal}, C,
              launched, blocks, rows, stream);
 }
 
@@ -473,16 +477,17 @@ extern "C" int tcn_multistack_fwd(const float* x, const float* w3, const float* 
                                   const float* w1, const float* b1,
                                   const unsigned char* mask, float* hs, float* h_saved,
                                   float* y_saved, float* scratch, int T, int C, int Lt,
-                                  int L0, int Lr, int causal, int* launched, int* blocks,
-                                  int* rows, void* stream) {
+                                  int L0, int Lr, int causal, float scale, int* launched,
+                                  int* blocks, int* rows, void* stream) {
   if (L0 < 1 || Lr < 1 || Lt < L0 || (Lt - L0) % Lr != 0) return cudaErrorInvalidValue;
   const auto operands = [&](int s) {
     const long long off = s == 0 ? 0 : L0 + (long long)(s - 1) * Lr;
     return StageOperands{w3 + off * 3 * C * C, b3 + off * C, w1 + off * C * C, b1 + off * C,
                          mask != nullptr ? mask + off * T * C : nullptr, s == 0 ? L0 : Lr};
   };
-  return run(1 + (Lt - L0) / Lr, operands, Buffers{x, hs, scratch, h_saved, y_saved, T, causal},
-             C, launched, blocks, rows, stream);
+  return run(1 + (Lt - L0) / Lr, operands, scale,
+             Buffers{x, hs, scratch, h_saved, y_saved, T, causal}, C, launched, blocks, rows,
+             stream);
 }
 
 // The floor of the design: a forward's grid (blocks of the instance with

@@ -10,8 +10,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..config import ERROR_TYPE_TO_COLUMN, ExperimentConfig
-from .labels import class_distributions, powerset_error_labels, skill_one_hot
+from ..config import ExperimentConfig
+from .labels import (class_distributions, powerset_error_labels, select_error_labels,
+                     skill_one_hot)
 from .trials import compute_fold_stats, load_fold, load_fold_stats, load_fold_trials
 from .windowing import window_data
 
@@ -19,11 +20,9 @@ from .windowing import window_data
 def _labels_for(e_powerset: np.ndarray, error_type: str) -> np.ndarray:
     """Integer training labels per error_type (reference
     define_error_labels + the argmax in the ES/sequential loops)."""
-    if error_type == "global":
-        return e_powerset[:, -1].astype(np.int64)
     if error_type in ("all_errors", "sequential"):
         return np.argmax(e_powerset[:, :6], axis=1).astype(np.int64)
-    return e_powerset[:, ERROR_TYPE_TO_COLUMN[error_type]].astype(np.int64)
+    return select_error_labels(e_powerset, error_type).astype(np.int64)
 
 
 @dataclasses.dataclass

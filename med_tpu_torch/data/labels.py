@@ -15,11 +15,11 @@ global flag.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import numpy as np
 
-from ..config import SKILL_LEVELS, SKILL_ORDER
+from ..config import ERROR_TYPE_TO_COLUMN, SKILL_LEVELS, SKILL_ORDER
 
 
 def skill_one_hot(subject: str, n_frames: int) -> np.ndarray:
@@ -82,6 +82,26 @@ def powerset_error_labels(
 
     out[~err, 0] = 1
     return out, nd_mask
+
+
+def select_error_labels(
+    e_labels: np.ndarray, error_type: str, dataset_type: str = "window"
+) -> np.ndarray:
+    """The label column(s) of ``error_type`` in powerset labels (reference
+    modeling_utils.py:137-191, ``define_error_labels``): 'global' the last
+    column, 'all_errors' columns 0..5, an error name its column. Window
+    labels (N, 7) index axis 1, frame labels (B, T, 7) axis 2."""
+    if error_type not in ERROR_TYPE_TO_COLUMN:
+        raise ValueError(f"error_type {error_type!r} not supported; "
+                         f"one of {list(ERROR_TYPE_TO_COLUMN)}")
+    col: Union[int, tuple] = ERROR_TYPE_TO_COLUMN[error_type]
+    idx = col if isinstance(col, int) else list(col)
+    e = np.asarray(e_labels)
+    if dataset_type == "window":
+        return e[:, idx]
+    if dataset_type == "frame":
+        return e[:, :, idx]
+    raise ValueError(f"unknown dataset_type {dataset_type!r}")
 
 
 def class_distributions(e_labels_powerset: np.ndarray) -> Tuple[tuple, list]:

@@ -17,7 +17,13 @@ from .feature_extractor import FeatureExtractor
 from .layers import init_weights  # noqa: F401
 from .tcn import TeCNo
 from .transsvnet import TransSVNet
-from .window_models import window_model
+from .window_models import (  # noqa: F401
+    SiameseCNN,
+    SiameseLSTM,
+    WindowCNN,
+    WindowLSTM,
+    window_model,
+)
 
 
 def compute_dtype(cfg: ExperimentConfig) -> Optional[torch.dtype]:

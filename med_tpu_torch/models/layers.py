@@ -46,6 +46,16 @@ def ln0(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def keep_scale(rate: float) -> float:
+    """The factor of an element that dropout at ``rate`` keeps, 1 / (1 -
+    rate), as med_tpu's ResidualStack computes it (1.0 at rate 0; the
+    kernels and the plain versions take it in float32). A rate outside
+    [0, 1) raises ValueError, where med_tpu would divide by zero at 1."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"a dropout rate lies in [0, 1); got {rate}")
+    return 1.0 / (1.0 - rate)
+
+
 def init_weights(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``net`` from ``generator``, in module order."""
     for module in net.modules():
@@ -194,17 +204,20 @@ class ResidualStack(nn.Module):
     """``num_layers`` dilated residual layers (dilation 2^i) over (B, T, C),
     weights stacked per stage: w3 (L, 3, C, C), b3 (L, C), w1 (L, C, C),
     b1 (L, C) — the layout the TCN kernel takes. Training passes a dropout
-    keep-mask (rate 0.5, scale 2.0 in the kernel). In float32 each trial's
-    stack is one call of the kernel; with a ``dtype`` the whole batch runs
-    the plain layer loop in that type (see the module docstring)."""
+    keep-mask drawn at ``dropout_rate`` (0.5 by default, as med_tpu's), and
+    a kept element is scaled by 1 / (1 - rate), in the kernel in float32.
+    In float32 each trial's stack is one call of the kernel; with a
+    ``dtype`` the whole batch runs the plain layer loop in that type (see
+    the module docstring)."""
 
     flax_layout = "stack"
 
     def __init__(self, num_layers: int, channels: int, causal: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout_rate: float = 0.5):
         super().__init__()
+        keep_scale(dropout_rate)        # raises outside [0, 1)
         L, C = num_layers, channels
-        self.causal, self.dtype = causal, dtype
+        self.causal, self.dtype, self.dropout_rate = causal, dtype, dropout_rate
         self.w3 = nn.Parameter(torch.zeros(L, 3, C, C))
         self.b3 = nn.Parameter(torch.zeros(L, C))
         self.w1 = nn.Parameter(torch.zeros(L, C, C))
@@ -219,12 +232,23 @@ class ResidualStack(nn.Module):
     def weights(self):
         return self.w3, self.b3, self.w1, self.b1
 
-    def dropout_mask(self, B: int, T: int, generator: torch.Generator) -> torch.Tensor:
-        """The (L, B, T, C) uint8 Bernoulli(0.5) keep-mask of one training
-        forward, drawn from ``generator`` (on the model's device). One random
-        bit per element, unpacked along T: element t takes bit t % 32 of word
-        t // 32, as med_tpu's ResidualStack.dropout_mask does."""
+    def dropout_mask(self, B: int, T: int, generator: torch.Generator,
+                     rate: Optional[float] = None) -> Optional[torch.Tensor]:
+        """The (L, B, T, C) uint8 keep-mask of one training forward at
+        ``rate`` (the stack's ``dropout_rate`` unless given), drawn from
+        ``generator`` on the model's device; None at rate 0. At 0.5 one
+        random bit per element, unpacked along T: element t takes bit t % 32
+        of word t // 32, as med_tpu's ResidualStack.dropout_mask does; at
+        any other rate a Bernoulli(1 - rate) draw, contiguous uint8 as the
+        kernels read it."""
+        rate = self.dropout_rate if rate is None else rate
+        keep_scale(rate)                # raises outside [0, 1)
+        if rate == 0.0:
+            return None
         L, C = self.w3.shape[0], self.w3.shape[-1]
+        if rate != 0.5:
+            u = torch.rand((L, B, T, C), generator=generator, device=self.w3.device)
+            return (u < 1.0 - rate).to(torch.uint8)
         tw = (T + 31) // 32
         words = torch.randint(0, 2 ** 32, (L, B, tw, 1, C), generator=generator,
                               device=self.w3.device, dtype=torch.int64)
@@ -232,21 +256,23 @@ class ResidualStack(nn.Module):
         bits = ((words >> shifts) & 1).to(torch.uint8)
         return bits.reshape(L, B, tw * 32, C)[:, :, :T].contiguous()
 
-    def forward(self, x, mask=None):
-        """x (B, T, C); ``mask`` the (L, B, T, C) keep-mask, or None (eval)."""
+    def forward(self, x, mask=None, rate: Optional[float] = None):
+        """x (B, T, C); ``mask`` the (L, B, T, C) keep-mask, or None (eval),
+        drawn at ``rate`` (the stack's ``dropout_rate`` unless given)."""
+        scale = keep_scale(self.dropout_rate if rate is None else rate)
         if self.dtype is not None:
-            return self._layers_in(self.dtype, x, mask)
+            return self._layers_in(self.dtype, x, mask, scale)
         return torch.stack([
-            dilated_residual_stack(xb, *self.weights(), causal=self.causal,
+            dilated_residual_stack(xb, *self.weights(), causal=self.causal, scale=scale,
                                    mask=None if mask is None else mask[:, b].contiguous())
             for b, xb in enumerate(x)
         ])
 
-
-    def _layers_in(self, dtype: torch.dtype, x, mask):
+    def _layers_in(self, dtype: torch.dtype, x, mask, scale: float):
         """med_tpu's unfused stack (layers.py ResidualStack.__call__), every
         op in ``dtype``: per layer the three dilated taps summed, relu, the
-        1x1 conv, dropout, the residual add."""
+        1x1 conv, dropout (a kept element times ``scale``), the residual
+        add."""
         w3, b3, w1, b1 = (t.to(dtype) for t in self.weights())
         x = x.to(dtype)
         T = x.shape[1]
@@ -258,7 +284,7 @@ class ResidualStack(nn.Module):
                 y = y + xp[:, j * d: j * d + T] @ w3[i, j]
             y = torch.relu(y + b3[i]) @ w1[i] + b1[i]
             if mask is not None:
-                y = y * mask[i].to(dtype) * 2.0
+                y = y * mask[i].to(dtype) * scale
             x = x + y
         return x
 
@@ -270,16 +296,18 @@ class SingleStageTCN(nn.Module):
 
     def __init__(self, num_layers: int, in_dim: int, f_maps: int,
                  out_classes: int, causal: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, dropout_rate: float = 0.5):
         super().__init__()
         self.conv_in = Conv1d(in_dim, f_maps, dtype=dtype)
-        self.stack = ResidualStack(num_layers, f_maps, causal=causal, dtype=dtype)
+        self.stack = ResidualStack(num_layers, f_maps, causal=causal, dtype=dtype,
+                                   dropout_rate=dropout_rate)
         self.conv_out = Conv1d(f_maps, out_classes, dtype=dtype)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, rate: Optional[float] = None):
         """x (B, T, in_dim); ``mask`` the stack's (L, B, T, C) keep-mask in
-        training, or None -> (features, logits)."""
-        out = self.stack(self.conv_in(x), mask)
+        training, or None, drawn at ``rate`` (the stack's ``dropout_rate``
+        unless given) -> (features, logits)."""
+        out = self.stack(self.conv_in(x), mask, rate)
         logits = self.conv_out(out)
         # float32 logits from a bf16 stage; a float64 stage keeps float64
         return out, logits.to(torch.promote_types(logits.dtype, torch.float32))

@@ -2,13 +2,18 @@
 PyTorch version; a wrapper launches the kernel for a CUDA tensor, runs the
 plain version for a CPU tensor, and counts its launches in ``.launches``."""
 
-from .attention import (
+from .attention import (  # noqa: F401
+    layer_norm,
+    multi_head_attention,
     sliding_window_attention,
     sliding_window_attention_bwd_pallas,
     sliding_window_attention_packed,
     sliding_window_attention_packed_bwd,
     sliding_window_attention_pallas,
+    sliding_windows,
 )
+from .interpolate import interp1d_linear, interp1d_nearest  # noqa: F401
+from .metrics import confusion_matrix, metrics_from_cm  # noqa: F401
 from .resnet_fused import fused_bottleneck_stage
 from .tcn_fused import (
     dilated_residual_multistack,

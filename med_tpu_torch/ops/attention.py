@@ -73,6 +73,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.softmax(scores, dim=-1) @ v
 
 
+def multi_head_attention(q, k, v):
+    """Alias of :func:`attend` for (B, H, L, d) layouts."""
+    return attend(q, k, v)
+
+
 def sliding_windows(x: torch.Tensor, window: int) -> torch.Tensor:
     """(T, ...) -> (T, window, ...): the window ending at t, zero-padded at
     the left."""

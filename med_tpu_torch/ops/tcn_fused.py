@@ -2,9 +2,10 @@
 
 A TCN stage is ``num_layers`` dilated residual layers at C channels,
 
-    h_{i+1} = h_i + mask_i * 2 * (W1 · relu(dconv3_{2^i}(h_i) + b3) + b1)
+    h_{i+1} = h_i + mask_i * scale * (W1 · relu(dconv3_{2^i}(h_i) + b3) + b1)
 
-with the mask only in training. Shapes:  x (T, C);  w3 (L, 3, C, C)
+with the mask only in training; ``scale`` is the dropout's keep scale
+1 / (1 - rate), 2.0 (rate 0.5) unless a caller passes another. Shapes:  x (T, C);  w3 (L, 3, C, C)
 [tap, in, out];  b3 (L, C);  w1 (L, C, C) [in, out];  b1 (L, C);  mask
 (L, T, C) uint8 or None. Layer i of a stage uses dilation 2**i.
 
@@ -56,10 +57,10 @@ def _shift_rows(h: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def dilated_stack_xla(x, w3, b3, w1, b1, *, causal: bool = True, mask=None,
-                      saved: Optional[List] = None):
+                      saved: Optional[List] = None, scale: float = 2.0):
     """Plain PyTorch version of a stack, one layer at a time (named after the
     JAX oracle it ports). ``saved``, when given, collects each layer's
-    (input h, post-relu y)."""
+    (input h, post-relu y); ``scale`` multiplies a kept element."""
     h = x.to(torch.float32)
     for i in range(w3.shape[0]):
         acc = b3[i][None, :]
@@ -70,15 +71,15 @@ def dilated_stack_xla(x, w3, b3, w1, b1, *, causal: bool = True, mask=None,
             saved.append((h, y))
         z = y @ w1[i] + b1[i][None, :]
         if mask is not None:
-            z = z * (mask[i].to(torch.float32) * 2.0)
+            z = z * (mask[i].to(torch.float32) * scale)
         h = h + z
     return h
 
 
-def _layer_bwd_plain(dh, h, y, w3, w1, mask, d: int, causal: bool):
+def _layer_bwd_plain(dh, h, y, w3, w1, mask, d: int, causal: bool, scale: float = 2.0):
     """One layer's backward, the TPU kernel's arithmetic (tcn_fused.py
     _bwd_kernel): returns (dh at the layer input, dw3, db3, dw1, db1)."""
-    dz = dh * (mask.to(torch.float32) * 2.0) if mask is not None else dh
+    dz = dh * (mask.to(torch.float32) * scale) if mask is not None else dh
     dw1 = y.T @ dz
     db1 = dz.sum(0)
     da = torch.where(y > 0.0, dz @ w1.T, torch.zeros_like(dz))
@@ -90,7 +91,8 @@ def _layer_bwd_plain(dh, h, y, w3, w1, mask, d: int, causal: bool):
     return dh, dw3, db3, dw1, db1
 
 
-def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool):
+def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool,
+                      scale: float = 2.0):
     """Plain backward of stages run back to back: g (S, T, C) cotangents of
     the stage outputs, entering at each stage's last layer; stage_weights
     per stage (w3, w1)."""
@@ -105,7 +107,7 @@ def _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal: bool):
             l -= 1
             dh, *dw = _layer_bwd_plain(dh, h_saved[l], y_saved[l], w3[i], w1[i],
                                        None if masks is None else masks[s][i],
-                                       2 ** i, causal)
+                                       2 ** i, causal, scale)
             per_layer.append(dw)
         dws[s] = tuple(torch.stack(t[::-1]) for t in zip(*per_layer))
     return dh, dws
@@ -171,7 +173,8 @@ def _ptr(t) -> Optional[int]:
 
 _FWD, _BWD = "tcn_stack_fwd", "tcn_stack_bwd"
 _STAGES_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 4 \
-    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.POINTER(ctypes.c_int)] * 3 \
+    + [ctypes.c_void_p]
 
 
 def _launch(lib: str, entry: str, argtypes, counter, *args) -> None:
@@ -190,11 +193,11 @@ def _launch(lib: str, entry: str, argtypes, counter, *args) -> None:
 
 
 def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
-                 counter, save: bool = False):
+                 counter, save: bool = False, scale: float = 2.0):
     """Run the stages back to back, one launch for every 16; returns the (S, T, C) stage
     outputs, and with ``save`` also the (Lt, T, C) layer inputs h and
     post-relu activations y. ``counter`` is the public wrapper whose launch
-    count the launch raises."""
+    count the launch raises; ``scale`` multiplies a kept element."""
     T, C = x.shape
     dev = x.device
     _check_operand("x", x, dev, torch.float32)
@@ -211,7 +214,7 @@ def _stages_cuda(x, stage_weights: Sequence[StageWeights], masks, causal: bool,
                 ctypes.addressof(w3s), ctypes.addressof(b3s), ctypes.addressof(w1s),
                 ctypes.addressof(b1s), None if mks is None else ctypes.addressof(mks),
                 ctypes.addressof(layers), S, hs.data_ptr(), _ptr(h_saved),
-                _ptr(y_saved), scratch.data_ptr(), T, C, int(causal))
+                _ptr(y_saved), scratch.data_ptr(), T, C, int(causal), scale)
     return (hs, h_saved, y_saved) if save else hs
 
 
@@ -251,7 +254,8 @@ def backward_barrier_count(layers: int, T: int) -> int:
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 9 \
-    + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.POINTER(ctypes.c_int)] * 3 \
+    + [ctypes.c_void_p]
 
 
 def _pointers(tensors):
@@ -274,7 +278,7 @@ def _bwd_buffers(T: int, C: int, Lt: int, dev):
 
 
 def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
-                     counter, marks=None):
+                     counter, marks=None, scale: float = 2.0):
     """Backward of :func:`_stages_cuda` on the card: every layer and the
     weight gradients in one launch of ``tcn_stack_bwd.cu`` for every 16
     stages. ``stage_weights`` holds each stage's (w3, w1). ``marks``, for
@@ -309,7 +313,7 @@ def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
                 ctypes.addressof(w1s), None if mks is None else ctypes.addressof(mks),
                 ctypes.addressof(layers), S, dx.data_ptr(), dz.data_ptr(), da.data_ptr(),
                 _ptr(partial), dw3.data_ptr(), db3.data_ptr(), dw1.data_ptr(),
-                db1.data_ptr(), _ptr(marks), T, C, int(causal))
+                db1.data_ptr(), _ptr(marks), T, C, int(causal), scale)
     dws, a = [], 0
     for L in Ls:
         dws.append((dw3[a:a + L], db3[a:a + L], dw1[a:a + L], db1[a:a + L]))
@@ -317,17 +321,18 @@ def _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks, causal: bool,
     return dx, dws
 
 
-def _stages_fwd(x, stage_weights, masks, causal: bool, counter, save: bool):
+def _stages_fwd(x, stage_weights, masks, causal: bool, counter, save: bool,
+                scale: float = 2.0):
     """(S, T, C) stage outputs, and with ``save`` the (Lt, T, C) saved h, y."""
     if x.is_cuda:
-        return _stages_cuda(x, stage_weights, masks, causal, counter, save)
+        return _stages_cuda(x, stage_weights, masks, causal, counter, save, scale)
     if x.device.type != "cpu":
         raise ValueError(f"no TCN stack for device {x.device}")
     outs, saved, h = [], [] if save else None, x
     for s, (w3, b3, w1, b1) in enumerate(stage_weights):
         h = dilated_stack_xla(h, w3, b3, w1, b1, causal=causal,
                               mask=None if masks is None else masks[s],
-                              saved=saved)
+                              saved=saved, scale=scale)
         outs.append(h)
     if save:
         return (torch.stack(outs), torch.stack([p[0] for p in saved]),
@@ -335,13 +340,14 @@ def _stages_fwd(x, stage_weights, masks, causal: bool, counter, save: bool):
     return torch.stack(outs)
 
 
-def _stages_bwd(g, h_saved, y_saved, stage_weights, masks, causal: bool, counter):
+def _stages_bwd(g, h_saved, y_saved, stage_weights, masks, causal: bool, counter,
+                scale: float = 2.0):
     if g.is_cuda:
         return _stages_bwd_cuda(g, h_saved, y_saved, stage_weights, masks,
-                                causal, counter)
+                                causal, counter, scale=scale)
     if g.device.type != "cpu":
         raise ValueError(f"no TCN stack backward for device {g.device}")
-    return _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal)
+    return _stages_bwd_plain(g, h_saved, y_saved, stage_weights, masks, causal, scale)
 
 
 class _Stages(torch.autograd.Function):
@@ -352,45 +358,50 @@ class _Stages(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, spec, *tensors):
-        n_stages, causal, fwd_counter, bwd_counter = spec
+        n_stages, causal, fwd_counter, bwd_counter, scale = spec
         ws = [tuple(tensors[4 * s:4 * s + 4]) for s in range(n_stages)]
         masks = list(tensors[4 * n_stages:]) or None
         hs, h_saved, y_saved = _stages_fwd(x, ws, masks, causal, fwd_counter,
-                                           save=True)
+                                           save=True, scale=scale)
         ctx.spec = spec
         ctx.save_for_backward(h_saved, y_saved, *tensors)
         return hs
 
     @staticmethod
     def backward(ctx, g):
-        n_stages, causal, _, bwd_counter = ctx.spec
+        n_stages, causal, _, bwd_counter, scale = ctx.spec
         h_saved, y_saved, *tensors = ctx.saved_tensors
         ws = [(tensors[4 * s], tensors[4 * s + 2]) for s in range(n_stages)]
         masks = list(tensors[4 * n_stages:]) or None
         dx, dws = _stages_bwd(g.contiguous(), h_saved, y_saved, ws, masks,
-                              causal, bwd_counter)
+                              causal, bwd_counter, scale)
         n_masks = len(tensors) - 4 * n_stages
         return (dx, None, *[d for dw in dws for d in dw], *([None] * n_masks))
 
 
-def _run_stages(x, stage_weights, masks, causal: bool, fwd_counter, bwd_counter):
+def _run_stages(x, stage_weights, masks, causal: bool, fwd_counter, bwd_counter,
+                scale: float):
     """The saving autograd path when a gradient is needed, else the plain
     forward (serving saves nothing)."""
     flat = [t for w in stage_weights for t in w]
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x, *flat]):
-        spec = (len(stage_weights), causal, fwd_counter, bwd_counter)
+        spec = (len(stage_weights), causal, fwd_counter, bwd_counter, scale)
         return _Stages.apply(x, spec, *flat, *(masks or []))
-    return _stages_fwd(x, stage_weights, masks, causal, fwd_counter, save=False)
+    return _stages_fwd(x, stage_weights, masks, causal, fwd_counter, save=False,
+                       scale=scale)
 
 
 def dilated_residual_stack(x, w3, b3, w1, b1, *, causal: bool = True,
-                           mask=None) -> torch.Tensor:
-    """One stack, (T, C) -> (T, C). A CUDA tensor runs the CUDA kernel, one
-    launch, whose (blocks, rows a tile) ``.last_launch`` keeps (replacing med_tpu/ops/tcn_fused.py::_fwd_kernel); a
-    CPU tensor the plain version; any other device raises. Differentiable
-    through :func:`dilated_residual_stack_bwd`."""
+                           mask=None, scale: float = 2.0) -> torch.Tensor:
+    """One stack, (T, C) -> (T, C); ``scale`` multiplies an element that
+    ``mask`` keeps (1 / (1 - dropout rate)). A CUDA tensor runs the CUDA
+    kernel, one launch, whose (blocks, rows a tile) ``.last_launch`` keeps
+    (replacing med_tpu/ops/tcn_fused.py::_fwd_kernel); a CPU tensor the
+    plain version; any other device raises. Differentiable through
+    :func:`dilated_residual_stack_bwd`."""
     return _run_stages(x, [(w3, b3, w1, b1)], None if mask is None else [mask],
-                       causal, dilated_residual_stack, dilated_residual_stack_bwd)[0]
+                       causal, dilated_residual_stack, dilated_residual_stack_bwd,
+                       scale)[0]
 
 
 dilated_residual_stack.launches = 0
@@ -398,7 +409,7 @@ dilated_residual_stack.last_launch = None
 
 
 def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = True,
-                               mask=None):
+                               mask=None, scale: float = 2.0):
     """Backward of one stack from its saved layer inputs and post-relu
     activations (L, T, C) and the output cotangent g (T, C) -> (dx, dw3,
     db3, dw1, db1), as med_tpu's ``_bwd_call``. A CUDA tensor runs the CUDA
@@ -407,7 +418,7 @@ def dilated_residual_stack_bwd(g, h_saved, y_saved, w3, w1, *, causal: bool = Tr
     plain loop."""
     dx, dws = _stages_bwd(g[None].contiguous(), h_saved, y_saved, [(w3, w1)],
                           None if mask is None else [mask], causal,
-                          dilated_residual_stack_bwd)
+                          dilated_residual_stack_bwd, scale)
     return (dx, *dws[0])
 
 
@@ -424,20 +435,21 @@ def _check_layer_counts(stage_weights, L0: int, Lr: int) -> None:
 
 def dilated_residual_multistack_stages(x, stage_weights: Sequence[StageWeights],
                                        L0: int, Lr: int, *, causal: bool = True,
-                                       masks: Optional[Sequence] = None
-                                       ) -> torch.Tensor:
+                                       masks: Optional[Sequence] = None,
+                                       scale: float = 2.0) -> torch.Tensor:
     """Stacks of L0, Lr, Lr, ... layers back to back, (T, C) -> the (S, T, C)
     stage outputs. ``stage_weights`` is a sequence of per-stage
     (w3, b3, w1, b1); ``masks`` a matching sequence of (L_s, T, C) uint8
-    keep-masks, or None. A CUDA tensor runs the CUDA kernel, one launch for
-    every 16 stacks, whose (blocks, rows a tile) ``.last_launch`` keeps
-    (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel_s); a CPU
+    keep-masks, or None; ``scale`` multiplies a kept element. A CUDA tensor
+    runs the CUDA kernel, one launch for every 16 stacks, whose (blocks,
+    rows a tile) ``.last_launch`` keeps (replacing
+    med_tpu/ops/tcn_fused.py::_multi_fwd_kernel_s); a CPU
     tensor the plain version; any other device raises. Differentiable
     through :func:`dilated_residual_multistack_stages_bwd`."""
     _check_layer_counts(stage_weights, L0, Lr)
     return _run_stages(x, stage_weights, masks, causal,
                        dilated_residual_multistack_stages,
-                       dilated_residual_multistack_stages_bwd)
+                       dilated_residual_multistack_stages_bwd, scale)
 
 
 dilated_residual_multistack_stages.launches = 0
@@ -446,7 +458,8 @@ dilated_residual_multistack_stages.last_launch = None
 
 def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
                                            L0: int, Lr: int, *,
-                                           causal: bool = True, masks=None):
+                                           causal: bool = True, masks=None,
+                                           scale: float = 2.0):
     """Backward of :func:`dilated_residual_multistack_stages` from the saved
     (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
     stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
@@ -458,7 +471,7 @@ def dilated_residual_multistack_stages_bwd(g, h_saved, y_saved, stage_weights,
     _check_layer_counts(stage_weights, L0, Lr)
     return _stages_bwd(g.contiguous(), h_saved, y_saved,
                        [(w[0], w[2]) for w in stage_weights], masks, causal,
-                       dilated_residual_multistack_stages_bwd)
+                       dilated_residual_multistack_stages_bwd, scale)
 
 
 dilated_residual_multistack_stages_bwd.launches = 0
@@ -483,7 +496,7 @@ def _split(t, lengths):
 
 def dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0: int, Lr: int, *,
                                       causal: bool = True, mask=None,
-                                      save: bool = False):
+                                      save: bool = False, scale: float = 2.0):
     """Plain PyTorch version of :func:`dilated_residual_multistack`, stage by
     stage through :func:`dilated_stack_xla` -> the (S, T, C) stage outputs,
     and with ``save`` also the (Lt, T, C) layer inputs h and post-relu y."""
@@ -494,7 +507,7 @@ def dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0: int, Lr: int, *,
     for s, (sw3, sb3, sw1, sb1) in enumerate(ws):
         h = dilated_stack_xla(h, sw3, sb3, sw1, sb1, causal=causal,
                               mask=None if masks is None else masks[s],
-                              saved=saved)
+                              saved=saved, scale=scale)
         outs.append(h)
     if save:
         return (torch.stack(outs), torch.stack([p[0] for p in saved]),
@@ -504,13 +517,13 @@ def dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0: int, Lr: int, *,
 
 def dilated_residual_multistack_bwd_plain(g, h_saved, y_saved, w3, w1, L0: int,
                                           Lr: int, *, causal: bool = True,
-                                          mask=None):
+                                          mask=None, scale: float = 2.0):
     """Plain PyTorch version of :func:`dilated_residual_multistack_bwd`,
     layer by layer through :func:`_layer_bwd_plain`."""
     lengths = _stage_lengths(w3.shape[0], L0, Lr)
     dx, dws = _stages_bwd_plain(g, h_saved, y_saved,
                                 list(zip(_split(w3, lengths), _split(w1, lengths))),
-                                _split(mask, lengths), causal)
+                                _split(mask, lengths), causal, scale)
     return (dx, *(torch.cat(t) for t in zip(*dws)))
 
 
@@ -535,14 +548,14 @@ def _check_multistack(T: int, C: int, dev, named, mask) -> int:
     return Lt
 
 
-_MULTI_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
+_MULTI_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
-_MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+_MULTI_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_float] \
     + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_void_p]
 
 
 def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool,
-                         save: bool):
+                         save: bool, scale: float):
     T, C = x.shape
     dev = x.device
     Lt = _check_multistack(T, C, dev, dict(x=x, w3=w3, b3=b3, w1=w1, b1=b1), mask)
@@ -554,21 +567,22 @@ def _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0: int, Lr: int, causal: bool
                 x.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(),
                 b1.data_ptr(), _ptr(mask), hs.data_ptr(), _ptr(h_saved),
                 _ptr(y_saved), scratch.data_ptr(), T, C, Lt, L0, max(Lr, 1),
-                int(causal))
+                int(causal), scale)
     return (hs, h_saved, y_saved) if save else hs
 
 
-def _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save):
+def _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save, scale: float = 2.0):
     if x.is_cuda:
-        return _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0, Lr, causal, save)
+        return _multistack_fwd_cuda(x, w3, b3, w1, b1, mask, L0, Lr, causal, save, scale)
     if x.device.type != "cpu":
         raise ValueError(f"no TCN multistack for device {x.device}")
-    return dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0, Lr,
-                                             causal=causal, mask=mask, save=save)
+    return dilated_residual_multistack_plain(x, w3, b3, w1, b1, L0, Lr, causal=causal,
+                                             mask=mask, save=save, scale=scale)
 
 
 def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
-                                    Lr: int, *, causal: bool = True, mask=None):
+                                    Lr: int, *, causal: bool = True, mask=None,
+                                    scale: float = 2.0):
     """Backward of :func:`dilated_residual_multistack` from the saved
     (Lt, T, C) layer inputs and post-relu activations and the (S, T, C)
     stage-output cotangents, g[s] entering at stage s's last layer -> (dx,
@@ -579,7 +593,7 @@ def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
     the plain version; any other device raises."""
     if g.device.type == "cpu":
         return dilated_residual_multistack_bwd_plain(
-            g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=mask)
+            g, h_saved, y_saved, w3, w1, L0, Lr, causal=causal, mask=mask, scale=scale)
     if not g.is_cuda:
         raise ValueError(f"no TCN multistack backward for device {g.device}")
     S, T, C = g.shape
@@ -597,7 +611,7 @@ def dilated_residual_multistack_bwd(g, h_saved, y_saved, w3, w1, L0: int,
                 y_saved.data_ptr(), w3.data_ptr(), w1.data_ptr(), _ptr(mask),
                 dx.data_ptr(), dz.data_ptr(), da.data_ptr(), _ptr(partial),
                 dw3.data_ptr(), db3.data_ptr(), dw1.data_ptr(), db1.data_ptr(), None, T,
-                C, Lt, L0, max(Lr, 1), int(causal))
+                C, Lt, L0, max(Lr, 1), int(causal), scale)
     return dx, dw3, db3, dw1, db1
 
 
@@ -611,38 +625,39 @@ class _Multistack(torch.autograd.Function):
     the mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, w3, b3, w1, b1, mask, L0, Lr, causal):
+    def forward(ctx, x, w3, b3, w1, b1, mask, L0, Lr, causal, scale):
         hs, h_saved, y_saved = _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr,
-                                               causal, save=True)
-        ctx.spec = (L0, Lr, causal)
+                                               causal, save=True, scale=scale)
+        ctx.spec = (L0, Lr, causal, scale)
         ctx.save_for_backward(h_saved, y_saved, w3, w1, mask)
         return hs
 
     @staticmethod
     def backward(ctx, g):
-        L0, Lr, causal = ctx.spec
+        L0, Lr, causal, scale = ctx.spec
         h_saved, y_saved, w3, w1, mask = ctx.saved_tensors
         grads = dilated_residual_multistack_bwd(g.contiguous(), h_saved, y_saved,
                                                 w3, w1, L0, Lr, causal=causal,
-                                                mask=mask)
-        return (*grads, None, None, None, None)
+                                                mask=mask, scale=scale)
+        return (*grads, None, None, None, None, None)
 
 
 def dilated_residual_multistack(x, w3, b3, w1, b1, L0: int, Lr: int, *,
-                                causal: bool = True, mask=None) -> torch.Tensor:
+                                causal: bool = True, mask=None,
+                                scale: float = 2.0) -> torch.Tensor:
     """Stacks of L0, Lr, Lr, ... layers back to back, (T, C) -> the (S, T, C)
     stage outputs, with the stacks' weights concatenated on the layer axis:
     w3 (Lt, 3, C, C), b3 (Lt, C), w1 (Lt, C, C), b1 (Lt, C), ``mask`` the
-    (Lt, T, C) uint8 keep-mask or None; layer l uses dilation 2**(its index
-    within its stage). A CUDA tensor runs the CUDA kernel, one launch for
+    (Lt, T, C) uint8 keep-mask or None, ``scale`` the factor of a kept
+    element; layer l uses dilation 2**(its index within its stage). A CUDA tensor runs the CUDA kernel, one launch for
     every 16 stacks, whose (blocks, rows a tile) ``.last_launch`` keeps
     (replacing med_tpu/ops/tcn_fused.py::_multi_fwd_kernel); a
     CPU tensor the plain version; any other device raises. Differentiable
     through :func:`dilated_residual_multistack_bwd`."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, w3, b3, w1, b1)):
-        return _Multistack.apply(x, w3, b3, w1, b1, mask, L0, Lr, causal)
-    return _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save=False)
+        return _Multistack.apply(x, w3, b3, w1, b1, mask, L0, Lr, causal, scale)
+    return _multistack_fwd(x, w3, b3, w1, b1, mask, L0, Lr, causal, save=False, scale=scale)
 
 
 dilated_residual_multistack.launches = 0

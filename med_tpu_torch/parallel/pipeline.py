@@ -12,11 +12,13 @@ sending its cotangent the other way. Every step's output stays in the
 graph (the steps outside a rank's window with zero weight), so every rank
 makes the same exchanges in the same order, forward and backward.
 
-Dropout (rate 0.5 after each layer's 1x1 conv, as the stacks take it) uses
+Dropout after each layer's 1x1 conv, at the step's rate in [0, 1), uses
 the port's own convention: the (L, T, C) keep-mask of (global stage s,
-microbatch m) is drawn from a generator seeded by (seed, s, m), so a rank
-draws its own stage's masks with no traffic and a sequential chain drawing
-alike takes the same masks; tests can inject them.
+microbatch m) is drawn at that rate (``ResidualStack.dropout_mask``) from a
+generator seeded by (seed, s, m), so a rank draws its own stage's masks
+with no traffic and a sequential chain drawing alike takes the same masks;
+tests can inject them. The stacks scale a kept element by 1 / (1 - rate)
+(med_tpu's pipeline divides by 1 - rate: the two can differ by an ulp).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..models.layers import SingleStageTCN
+from ..models.layers import SingleStageTCN, keep_scale
 from ..train import losses
 from .comm import all_reduce_grads, fetch, group_rank, group_size, psum
 
@@ -48,21 +50,26 @@ def shard_stage_params(stacked: Dict[str, torch.Tensor], stage: SingleStageTCN, 
 
 
 def stage_dropout_mask(stage: SingleStageTCN, s: int, m: int, T: int, seed: int,
-                       device) -> torch.Tensor:
-    """The (L, T, C) keep-mask of global stage ``s`` on microbatch ``m``."""
+                       device, rate: float = 0.5) -> Optional[torch.Tensor]:
+    """The (L, T, C) keep-mask of global stage ``s`` on microbatch ``m`` at
+    dropout ``rate`` (None at 0)."""
     gen = torch.Generator(device=device).manual_seed((seed * 1_000_003 + s) * 1_000_003 + m)
-    return stage.stack.dropout_mask(1, T, gen)[:, 0]
+    mask = stage.stack.dropout_mask(1, T, gen, rate)
+    return None if mask is None else mask[:, 0]
 
 
-def _stage_out(stage: SingleStageTCN, x: torch.Tensor, mask=None) -> torch.Tensor:
-    return stage(x[None], None if mask is None else mask[:, None])[1][0]
+def _stage_out(stage: SingleStageTCN, x: torch.Tensor, mask=None,
+               rate: Optional[float] = None) -> torch.Tensor:
+    return stage(x[None], None if mask is None else mask[:, None], rate)[1][0]
 
 
 def pipeline_refine(stage: SingleStageTCN, logits0: torch.Tensor, group,
-                    masks: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                    masks: Optional[List[torch.Tensor]] = None,
+                    rate: Optional[float] = None) -> torch.Tensor:
     """Run the R refinement stages (this rank's ``stage`` is stage rank + 1)
     over the M microbatches of ``logits0`` (M, T, C), stage 0's logits.
-    ``masks``: this rank's stage's keep-masks a microbatch, or None.
+    ``masks``: this rank's stage's keep-masks a microbatch, drawn at
+    ``rate`` (the stack's ``dropout_rate`` unless given), or None.
     Returns this rank's stage's logits for every microbatch, (M, T, C)."""
     R, d = group_size(group), group_rank(group)
     M = logits0.shape[0]
@@ -72,7 +79,8 @@ def pipeline_refine(stage: SingleStageTCN, logits0: torch.Tensor, group,
     for j in range(M + R - 1):
         m = min(max(j - d, 0), M - 1)
         inp = torch.where(first, logits0[min(j, M - 1)], buf)
-        out = _stage_out(stage, torch.softmax(inp, dim=-1), None if masks is None else masks[m])
+        out = _stage_out(stage, torch.softmax(inp, dim=-1),
+                         None if masks is None else masks[m], rate)
         outs.append(out)
         if j < M + R - 2:
             buf = fetch(out, -1, group)
@@ -88,11 +96,11 @@ def make_pp_tecno_train_step(stage0: SingleStageTCN, stage: SingleStageTCN, opt0
     :func:`pipeline_refine`, the stage-averaged soft CE over all S = R + 1
     stages (``tecno_stage_loss``). Stage 0's gradient (made on rank 0) is
     summed over the ranks; each rank's stage updates by its own optimizer.
+    Dropout runs at ``dropout_rate`` in [0, 1), whatever rate the stages
+    were built with.
     ``masks``: {(s, m): (L, T, C)} keep-masks to take instead of
     :func:`stage_dropout_mask`'s draws. Returns the loss."""
-    if dropout_rate not in (0.0, 0.5):
-        raise NotImplementedError(f"the stacks drop at rate 0.5 or not at all, not "
-                                  f"{dropout_rate}")
+    keep_scale(dropout_rate)            # raises outside [0, 1)
     R, d = group_size(group), group_rank(group)
     S = R + 1
 
@@ -104,14 +112,15 @@ def make_pp_tecno_train_step(stage0: SingleStageTCN, stage: SingleStageTCN, opt0
                 return None
             if masks is not None:
                 return masks[(s, m)]
-            return stage_dropout_mask(st, s, m, T, seed, x.device)
+            return stage_dropout_mask(st, s, m, T, seed, x.device, dropout_rate)
 
         opt0.zero_grad(set_to_none=False)
         opt_r.zero_grad(set_to_none=False)
-        out0 = torch.stack([_stage_out(stage0, x[m], mask_for(stage0, 0, m))
+        out0 = torch.stack([_stage_out(stage0, x[m], mask_for(stage0, 0, m), dropout_rate)
                             for m in range(M)])
         own = [mask_for(stage, d + 1, m) for m in range(M)]
-        outs = pipeline_refine(stage, out0, group, None if own[0] is None else own)
+        outs = pipeline_refine(stage, out0, group, None if own[0] is None else own,
+                               dropout_rate)
         targets = losses.binary_targets(labels, outs.dtype)
         ce = losses.soft_cross_entropy(outs, targets, mask)
         ce0 = losses.soft_cross_entropy(out0, targets, mask)

@@ -14,8 +14,11 @@ PyTorch ops, as ``med_tpu``'s do: the TCN kernels take whole sequences.
 
 Dropout masks are drawn whole, from a generator seeded by (seed, step), at
 the global T, and each rank takes its rows: a trajectory is the same on 1,
-2 or 4 shards. The port's modules (``models/tcn.py``'s TeCNo) carry the
-weights, so SP runs the single-rank checkpoints unchanged.
+2 or 4 shards. The stack functions take ``dropout_rate`` (0.5 by default,
+as ``med_tpu``'s) and scale a kept element by 1 / (1 - rate); the train
+step drops at 0.5 or not at all, as ``med_tpu``'s does. The port's modules
+(``models/tcn.py``'s TeCNo) carry the weights, so SP runs the single-rank
+checkpoints unchanged.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import ResidualStack
+from ..models.layers import ResidualStack, keep_scale
 from ..train import losses
 from .comm import all_reduce_grads, group_rank, group_size, seq_shift_right
 
@@ -40,14 +43,17 @@ relu = torch.relu
 
 
 def sp_residual_stack(x: torch.Tensor, stack: ResidualStack, group,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None,
+                      dropout_rate: float = 0.5) -> torch.Tensor:
     """A causal dilated residual stack (``ResidualStack``'s layer loop) on
     this rank's (T_local, C) block: per layer the taps at t-2d, t-d and t
     (the first two by the distributed shift), ReLU, the 1x1 conv, dropout
-    by the (L, T_local, C) keep-mask rows ``mask`` (rate 0.5, scale 2), and
-    the residual add."""
+    by the (L, T_local, C) keep-mask rows ``mask`` drawn at
+    ``dropout_rate`` (a kept element times 1 / (1 - rate)), and the
+    residual add."""
     if not stack.causal:
         raise ValueError("sequence parallelism runs causal stacks (mstcn_causal_conv)")
+    scale = keep_scale(dropout_rate)
     w3, b3, w1, b1 = stack.weights()
     for i in range(w3.shape[0]):
         d = 2 ** i
@@ -55,7 +61,7 @@ def sp_residual_stack(x: torch.Tensor, stack: ResidualStack, group,
              + seq_shift_right(x, d, group) @ w3[i, 1] + x @ w3[i, 2] + b3[i])
         y = relu(y) @ w1[i] + b1[i]
         if mask is not None:
-            y = y * mask[i].to(y.dtype) * 2.0
+            y = y * mask[i].to(y.dtype) * scale
         x = x + y
     return x
 
@@ -70,20 +76,24 @@ def _logits(conv, h: torch.Tensor) -> torch.Tensor:
     return y.to(torch.promote_types(y.dtype, torch.float32))
 
 
-def sp_single_stage(stage, x: torch.Tensor, group, mask=None):
+def sp_single_stage(stage, x: torch.Tensor, group, mask=None, dropout_rate: float = 0.5):
     """One MS-TCN stage (``SingleStageTCN``) on a (T_local, C_in) block ->
     (features, logits)."""
-    h = sp_residual_stack(_conv1x1(stage.conv_in, x), stage.stack, group, mask)
+    h = sp_residual_stack(_conv1x1(stage.conv_in, x), stage.stack, group, mask,
+                          dropout_rate)
     return h, _logits(stage.conv_out, h)
 
 
-def sp_tecno_forward(model, x: torch.Tensor, group, masks=None) -> torch.Tensor:
+def sp_tecno_forward(model, x: torch.Tensor, group, masks=None,
+                     dropout_rate: float = 0.5) -> torch.Tensor:
     """TeCNo on a (T_local, C_in) block -> (num_stages, T_local, 2). ``masks``:
-    {"stage<s>": (L, T_local, C)} keep-mask rows, or None (no dropout)."""
+    {"stage<s>": (L, T_local, C)} keep-mask rows drawn at ``dropout_rate``,
+    or None (no dropout)."""
     outputs, h = [], x
     for s, stage in enumerate(model.stages()):
         _, logits = sp_single_stage(stage, h, group,
-                                    None if masks is None else masks[f"stage{s}"])
+                                    None if masks is None else masks[f"stage{s}"],
+                                    dropout_rate)
         outputs.append(logits)
         h = torch.softmax(logits, dim=-1)
     return torch.stack(outputs)
@@ -97,9 +107,10 @@ def soft_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor, grou
     return losses._global_ratio((per * m).sum(), m.sum(), group)
 
 
-def sp_tecno_loss(model, x, labels, mask, group, masks=None) -> torch.Tensor:
+def sp_tecno_loss(model, x, labels, mask, group, masks=None,
+                  dropout_rate: float = 0.5) -> torch.Tensor:
     """The stage-averaged soft CE over the global T (``tecno_stage_loss``)."""
-    logits = sp_tecno_forward(model, x, group, masks)
+    logits = sp_tecno_forward(model, x, group, masks, dropout_rate)
     return torch.stack([soft_ce(s, labels, mask, group) for s in logits]).mean()
 
 
@@ -126,21 +137,30 @@ def shard_sequence(x, group, axis: int = 0):
         x.take(range(i * per, (i + 1) * per), axis=axis)
 
 
-def make_sp_tecno_train_step(model, optimizer, group, seed: int = 0, dropout: bool = True):
+def make_sp_tecno_train_step(model, optimizer, group, seed: int = 0,
+                             dropout_rate: float = 0.5):
     """An SP TeCNo train step: ``step(x, labels, mask, step_index, masks=None)``
     on this rank's blocks (x (T_local, C_in), labels and mask (T_local,)),
-    parameters replicated. Dropout masks (the whole trial's, ``masks`` in
-    :func:`sp_dropout_masks`' layout, or drawn from
-    :func:`sp_dropout_generator`) are cut to this rank's rows. One psum
-    pair for the loss, one gradient all-reduce. Returns the loss."""
+    parameters replicated. Dropout at ``dropout_rate`` 0.5 or 0 (others
+    raise NotImplementedError here, as ``med_tpu``'s step does at build
+    time): masks (the whole trial's, ``masks`` in :func:`sp_dropout_masks`'
+    layout, or drawn from :func:`sp_dropout_generator`) are cut to this
+    rank's rows. One psum pair for the loss, one gradient all-reduce.
+    Returns the loss."""
+    if dropout_rate not in (0.0, 0.5):
+        raise NotImplementedError(f"SP dropout supports rate 0.5 (reference) or 0.0, "
+                                  f"got {dropout_rate}")
+
     def step(x, labels, mask, step_index: int, masks=None):
-        if dropout and masks is None:
+        if not dropout_rate:
+            masks = None
+        elif masks is None:
             T = x.shape[0] * group_size(group)
             masks = sp_dropout_masks(model, T, sp_dropout_generator(seed, step_index, x.device))
         if masks is not None:
             masks = {k: shard_sequence(v, group, axis=1) for k, v in masks.items()}
         optimizer.zero_grad(set_to_none=False)
-        loss = sp_tecno_loss(model, x, labels, mask, group, masks)
+        loss = sp_tecno_loss(model, x, labels, mask, group, masks, dropout_rate)
         loss.backward()
         all_reduce_grads(model.parameters(), group)
         optimizer.step()

@@ -8,7 +8,9 @@ equal bit for bit; for the head-major attention the widest windows the
 kernels before them took, m = 1 and 300, and two backward runs equal bit
 for bit; operands in views 4 bytes past a 16-byte boundary, which the
 head-major kernels read through their 4-byte instance and the TCN
-wrappers refuse by name), the small COG
+wrappers refuse by name), the TCN stack and its backward at the keep
+scale 1 / 0.7 of dropout rate 0.3 (and ``ResidualStack(dropout_rate=0.3)``
+card against CPU), the small COG
 served on the card against the CPU, and a small ResNet trunk and pixel
 front end on the card against the CPU; K1 and K3 at the error-specific
 regime's shapes (m = 45 and 8 queries a frame, a trial group's 16 heads),
@@ -1097,6 +1099,62 @@ def test_tcn_kernels_at_tecnos_shape_over_the_whole_trial(cuda_device, rng):
                                            [(w[0].cpu(), w[2].cpu())], [mask.cpu()], True)
     for a, b in zip((dx, *dws), (p_dx, *p_dw)):
         _close_grad(a.cpu(), b)
+
+
+@pytest.mark.parametrize("T,causal", [(300, True), (1000, False)])
+def test_tcn_stack_and_its_backward_at_the_keep_scale_of_rate_0_3(cuda_device, rng, T, causal):
+    """K2b and K5 at the keep scale 1 / 0.7 of dropout rate 0.3, a
+    Bernoulli(0.7) keep-mask, against their plain versions at that scale;
+    then ``ResidualStack(dropout_rate=0.3)``'s training forward and backward
+    on the card, one launch each way a trial, against the same module's on
+    the CPU."""
+    from med_tpu_torch.models import init_weights
+    from med_tpu_torch.models.layers import ResidualStack, keep_scale
+
+    L, C, rate = 5, 32, 0.3
+    scale = keep_scale(rate)
+    b = 1.0 / np.sqrt(3 * C)
+    w = [_dev(rng.uniform(-b, b, size=s).astype(np.float32), cuda_device)
+         for s in ((L, 3, C, C), (L, C), (L, C, C), (L, C))]
+    x, g = (_dev(rng.normal(size=(T, C)).astype(np.float32), cuda_device) for _ in range(2))
+    mask = _dev((rng.random((L, T, C)) < 1 - rate).astype(np.uint8), cuda_device)
+    got = ttcn._stages_fwd(x, [w], [mask], causal, ttcn.dilated_residual_stack, save=True,
+                           scale=scale)
+    want = ttcn._stages_fwd(x.cpu(), [[t.cpu() for t in w]], [mask.cpu()], causal,
+                            ttcn.dilated_residual_stack, save=True, scale=scale)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-4, atol=1e-4)
+    out = ttcn.dilated_residual_stack(x, *w, causal=causal, mask=mask, scale=scale)
+    torch.testing.assert_close(out.cpu(), want[0][0], rtol=1e-4, atol=1e-4)
+    dx, *dws = ttcn.dilated_residual_stack_bwd(g, got[1], got[2], w[0], w[2], causal=causal,
+                                               mask=mask, scale=scale)
+    p_dx, (p_dw,) = ttcn._stages_bwd_plain(g.cpu()[None], got[1].cpu(), got[2].cpu(),
+                                           [(w[0].cpu(), w[2].cpu())], [mask.cpu()], causal,
+                                           scale)
+    for a, b_ in zip((dx, *dws), (p_dx, *p_dw)):
+        _close_grad(a.cpu(), b_)
+
+    stack = init_weights(ResidualStack(L, C, causal=causal, dropout_rate=rate),
+                         torch.Generator().manual_seed(3))
+    xs = rng.normal(size=(2, T, C)).astype(np.float32)
+    masks = stack.dropout_mask(2, T, torch.Generator().manual_seed(4))
+    runs = []
+    for device in ("cpu", cuda_device):
+        net = stack.to(device)
+        xt = _dev(xs, device).requires_grad_()
+        before = ttcn.dilated_residual_stack.launches, ttcn.dilated_residual_stack_bwd.launches
+        out = net(xt, masks.to(device))
+        (out * _dev(xs, device)).sum().backward()
+        launched = (ttcn.dilated_residual_stack.launches - before[0],
+                    ttcn.dilated_residual_stack_bwd.launches - before[1])
+        runs.append((out.detach().cpu(), xt.grad.cpu(),
+                     [p.grad.cpu() for p in net.weights()], launched))
+        net.zero_grad()
+    (c_out, c_dx, c_dw, c_n), (g_out, g_dx, g_dw, g_n) = runs
+    assert c_n == (0, 0) and g_n == (2, 2)
+    torch.testing.assert_close(g_out, c_out, rtol=1e-4, atol=1e-4)
+    for a, b_ in zip((g_dx, *g_dw), (c_dx, *c_dw)):
+        _close_grad(a, b_)
 
 
 FAMILY_SMALL = dict(dataset_type="frame", data_type="video", video_dims=2048,

@@ -8,7 +8,12 @@ trials streaming through (med_tpu's tests/test_pipeline.py):
   sequential chain: losses (rtol 1e-5) and every stage's weights, without
   dropout and with injected per-(stage, microbatch) masks;
 - without dropout, med_tpu's ``make_pp_tecno_train_step`` on its mesh from
-  the same weights gives the same losses and weights.
+  the same weights gives the same losses and weights;
+- with dropout at rates 0.5 and 0.3 on 2 ranks, so does med_tpu's step
+  ``make_pp_tecno_train_step(mesh, tx, dropout_rate=r)``, its masks
+  recomputed from its key (``_stage_dropout_mask``) and injected into the
+  port: losses at rtol 1e-5, weights at rtol 1e-5, atol 1e-7 (med_tpu
+  divides by 1 - r where the port multiplies by 1 / (1 - r): an ulp apart).
 """
 
 import functools
@@ -21,8 +26,8 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
-from med_tpu.parallel.pipeline import (make_pp_tecno_train_step, shard_stage_params,
-                                       stack_stage_params)
+from med_tpu.parallel.pipeline import (_stage_dropout_mask, make_pp_tecno_train_step,
+                                       shard_stage_params, stack_stage_params)
 from med_tpu_torch.config import ExperimentConfig
 from med_tpu_torch.parallel import launch
 from med_tpu_torch.train import losses
@@ -31,11 +36,21 @@ from med_tpu_torch.utils.jax_params import export_jax_params
 from torch_rank_bodies import pipeline_cases
 
 M, T, LR, STEPS = 4, 32, 0.05, 2
+RATES = [0.5, 0.3]          # med_tpu's masks at each rate, on 2 ranks
+KEY = 5
 
 
 def _fields(n):
     return dict(model_name="TeCNo", dataset_type="frame", data_type="kinematics",
                 out_features=2, mstcn_stages=n + 1, mstcn_layers=3, mstcn_f_maps=8)
+
+
+def _jax_masks(n, rate):
+    """med_tpu's pipeline masks of every (stage, microbatch) from its key,
+    as uint8 (L, T, C)."""
+    key = jax.random.key(KEY)
+    return {(s, m): np.asarray(_stage_dropout_mask(key, s, m, 3, T, 8, rate), np.uint8)
+            for s in range(n + 1) for m in range(M)}
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +68,9 @@ def setup(tmp_path_factory):
                  for s in range(n + 1) for m in range(M)}
         cases = [(_fields(n), tree, x, labels, mask, None, STEPS, LR),
                  (_fields(n), tree, x, labels, mask, masks, STEPS, LR)]
+        if n == 2:
+            cases += [(_fields(n), tree, x, labels, mask, _jax_masks(n, r), STEPS, LR, r)
+                      for r in RATES]
         ranks = launch.spawn(pipeline_cases, n, str(tmp_path_factory.mktemp(f"pp{n}")),
                              args=(cases,), device="cpu")
         out[n] = (tree, masks, ranks)
@@ -127,3 +145,39 @@ def test_pipeline_matches_med_tpu_on_its_mesh(setup, n):
                                 jax.tree_util.tree_leaves(got)):
             np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7,
                                        err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_pipeline_with_dropout_matches_med_tpu_on_its_mesh(setup, rate):
+    x, labels, mask, out = setup
+    n = 2
+    tree, _, ranks = out[n]
+    params = jax.tree.map(jnp.asarray, tree["params"]["model"])
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("data",))
+    tx = optax.sgd(LR)
+    stage0 = params["stage0"]
+    stacked = shard_stage_params(stack_stage_params(params, n + 1), mesh)
+    opt0, opt_r = tx.init(stage0), tx.init(stacked)
+    step = make_pp_tecno_train_step(mesh, tx, dropout_rate=rate)
+    jl = []
+    for _ in range(STEPS):
+        stage0, stacked, opt0, opt_r, loss = step(stage0, stacked, opt0, opt_r,
+                                                  jnp.asarray(x), jnp.asarray(labels),
+                                                  jnp.asarray(mask), jax.random.key(KEY))
+        jl.append(float(loss))
+    for d, r in enumerate(ranks):
+        got = r[2 + RATES.index(rate)]
+        np.testing.assert_allclose(got["losses"], jl, rtol=1e-5)
+        exp = Experiment(ExperimentConfig(**_fields(n)), device="cpu")
+        model = exp.net.model
+        model.stage0.load_state_dict({k: torch.from_numpy(v) for k, v in got["stage0"].items()})
+        model.stages()[d + 1].load_state_dict({k: torch.from_numpy(v)
+                                               for k, v in got["stage"].items()})
+        tree_got = export_jax_params(exp.net)["params"]["model"]
+        want_stage = jax.device_get(jax.tree.map(functools.partial(lambda i, a: a[i], d),
+                                                 stacked))
+        for name, want in (("stage0", jax.device_get(stage0)), (f"stage{d + 1}", want_stage)):
+            for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(want),
+                                    jax.tree_util.tree_leaves(tree_got[name])):
+                np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7,
+                                           err_msg=name + jax.tree_util.keystr(path))

@@ -10,7 +10,11 @@ dropout masks:
   edge): the loss (rtol 1e-5), the final track's logits, every gradient
   leaf to 1e-5 of its largest |value|;
 - TransSVNet over its frozen TeCNo, a masked tail: in float64 on both
-  sides (its LayerNorms over two classes keep only float32's last digits).
+  sides (its LayerNorms over two classes keep only float32's last digits);
+- TeCNo's ``sp_tecno_loss`` with dropout at rate 0.3 on 2 ranks against
+  med_tpu's ``sp_tecno_loss(..., dropout_rate=0.3)`` with the same global
+  Bernoulli(0.7) masks; both packages' ``make_sp_tecno_train_step`` refuse
+  that rate.
 """
 
 import functools
@@ -22,18 +26,22 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+import optax
+
+from med_tpu.parallel.seqpar import make_sp_tecno_train_step as jax_make_sp_tecno_train_step
 from med_tpu.parallel.seqpar import sp_tecno_loss as jax_sp_tecno_loss
 from med_tpu.parallel.sp_cog import sp_cog_loss as jax_sp_cog_loss
 from med_tpu.parallel.sp_tsvn import sp_tsvn_loss as jax_sp_tsvn_loss
 from med_tpu_torch.config import ExperimentConfig
 from med_tpu_torch.parallel import launch
-from med_tpu_torch.parallel.seqpar import sp_tecno_forward
+from med_tpu_torch.parallel.seqpar import make_sp_tecno_train_step, sp_tecno_forward
 from med_tpu_torch.train import losses
 from med_tpu_torch.train.engine import Experiment, cog_loss
 from med_tpu_torch.utils.jax_params import export_jax_params
 from torch_rank_bodies import seqpar_suite
 
 T = 128
+RATE = 0.3                  # TeCNo's SP dropout away from 0.5, on 2 ranks
 FIELDS = {
     "tecno": dict(model_name="TeCNo", dataset_type="frame", data_type="kinematics",
                   out_features=2, mstcn_stages=3, mstcn_layers=5, mstcn_f_maps=8),
@@ -129,13 +137,28 @@ def cases():
 
 
 @pytest.fixture(scope="module")
-def ranks(cases, tmp_path_factory):
+def rate_case(cases):
+    """TeCNo's case with global Bernoulli(1 - RATE) masks."""
+    fields, tree, x, labels, mask, _, frozen = cases["tecno"]
+    cfg = ExperimentConfig(**fields)
+    rng = np.random.default_rng(23)
+    masks = {f"stage{s}": (rng.random((cfg.mstcn_layers, T, cfg.mstcn_f_maps)) < 1 - RATE)
+             .astype(np.uint8) for s in range(cfg.mstcn_stages)}
+    return fields, tree, x, labels, mask, masks, frozen
+
+
+@pytest.fixture(scope="module")
+def ranks(cases, rate_case, tmp_path_factory):
     out = {}
     for n in (2, 4):
+        args = [(kind, *case) for kind, case in cases.items()]
+        if n == 2:
+            args.append(("tecno", *rate_case, RATE))
         res = launch.spawn(seqpar_suite, n, str(tmp_path_factory.mktemp(f"sp{n}")),
-                           args=([(kind, *case) for kind, case in cases.items()],),
-                           device="cpu")
+                           args=(args,), device="cpu")
         out[n] = {kind: [r[k] for r in res] for k, kind in enumerate(cases)}
+        if n == 2:
+            out[n]["tecno at RATE"] = [r[len(cases)] for r in res]
     return out
 
 
@@ -186,21 +209,49 @@ def test_sp_tecno_train_step_is_sgd_on_the_one_rank_gradient(cases, ranks, n):
 
 
 def test_sp_tecno_matches_med_tpu_on_its_mesh(cases, ranks):
-    fields, tree, x, labels, mask, masks, _ = cases["tecno"]
+    _check_sp_tecno(cases["tecno"], ranks[4]["tecno"][0], 4, 0.5)
+
+
+def test_sp_tecno_with_dropout_at_rate_0_3_matches_med_tpu_on_its_mesh(rate_case, ranks):
+    _check_sp_tecno(rate_case, ranks[2]["tecno at RATE"][0], 2, RATE)
+
+
+def _check_sp_tecno(case, r, n, rate):
+    """Rank 0's SP TeCNo loss and gradients ``r`` against med_tpu's
+    ``sp_tecno_loss`` at ``rate`` on an n-device mesh, the same masks."""
+    fields, tree, x, labels, mask, masks, _ = case
     cfg = ExperimentConfig(**fields)
     mk = np.stack([masks[f"stage{s}"] for s in range(cfg.mstcn_stages)])
-    mesh = Mesh(np.asarray(jax.devices()[:4]), ("data",))
+    mesh = Mesh(np.asarray(jax.devices()[:n]), ("data",))
     fn = functools.partial(jax_sp_tecno_loss, num_stages=cfg.mstcn_stages, axis_name="data",
-                           dropout_rate=0.5)
+                           dropout_rate=rate)
     loss, grads = jax.jit(jax.shard_map(
         lambda p, x, y, m, k: jax.value_and_grad(fn)(p, x, y, m, masks=k), mesh=mesh,
         in_specs=(P(), P("data"), P("data"), P("data"), P(None, None, "data")),
         out_specs=(P(), P())))(tree["params"]["model"], x, labels, mask, mk)
-    r = ranks[4]["tecno"][0]
     _close(r["loss"], loss, "loss")
     got = _grad_tree("tecno", fields, r["grads"])
     for path, w in _leaves(jax.device_get(grads)).items():
         _close(got[path], w, path, rtol=1e-4)
+
+
+def test_sp_tecno_train_step_refuses_the_rates_med_tpus_refuses(cases):
+    fields, tree, *_ = cases["tecno"]
+    cfg = ExperimentConfig(**fields)
+    exp = Experiment(cfg, device="cpu")
+    opt = torch.optim.SGD(exp.net.model.parameters(), lr=0.1)
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("data",))
+    for rate in (0.0, 0.5):
+        make_sp_tecno_train_step(exp.net.model, opt, None, dropout_rate=rate)
+        jax_make_sp_tecno_train_step(mesh, optax.sgd(0.1), num_stages=cfg.mstcn_stages,
+                                     num_layers=cfg.mstcn_layers,
+                                     channels=cfg.mstcn_f_maps, dropout_rate=rate)
+    with pytest.raises(NotImplementedError, match="0.3"):
+        make_sp_tecno_train_step(exp.net.model, opt, None, dropout_rate=RATE)
+    with pytest.raises(NotImplementedError, match="0.3"):
+        jax_make_sp_tecno_train_step(mesh, optax.sgd(0.1), num_stages=cfg.mstcn_stages,
+                                     num_layers=cfg.mstcn_layers, channels=cfg.mstcn_f_maps,
+                                     dropout_rate=RATE)
 
 
 def test_sp_cog_matches_med_tpu_on_its_mesh(cases, ranks):

@@ -154,10 +154,11 @@ def _sp_exp(fields, tree, frozen=None, dtype=None):
     return exp
 
 
-def sp_suite(kind, fields, tree, x, labels, mask, masks, frozen=None):
+def sp_suite(kind, fields, tree, x, labels, mask, masks, frozen=None, dropout_rate=0.5):
     """An SP forward and backward of TeCNo, COG or TransSVNet on this rank's
-    time block (the whole trial's dropout ``masks`` cut to it): the loss,
-    the all-reduced gradients, the final track's gathered logits."""
+    time block (the whole trial's dropout ``masks``, drawn at
+    ``dropout_rate``, cut to it): the loss, the all-reduced gradients, the
+    final track's gathered logits."""
     from med_tpu_torch.parallel.seqpar import shard_sequence, sp_tecno_forward, sp_tecno_loss
     from med_tpu_torch.parallel.sp_cog import sp_cog_forward, sp_cog_loss
     from med_tpu_torch.parallel.sp_tsvn import sp_tsvn_forward, sp_tsvn_loss
@@ -171,9 +172,9 @@ def sp_suite(kind, fields, tree, x, labels, mask, masks, frozen=None):
     if kind == "tecno":
         mk = None if masks is None else {k: shard_sequence(torch.as_tensor(v), g, axis=1)
                                          for k, v in masks.items()}
-        loss = sp_tecno_loss(model, xl, yl, ml, g, mk)
+        loss = sp_tecno_loss(model, xl, yl, ml, g, mk, dropout_rate)
         with torch.no_grad():
-            final = sp_tecno_forward(model, xl, g, mk)[-1]
+            final = sp_tecno_forward(model, xl, g, mk, dropout_rate)[-1]
     elif kind == "cog":
         mk = None
         if masks is not None:
@@ -192,7 +193,7 @@ def sp_suite(kind, fields, tree, x, labels, mask, masks, frozen=None):
     comm.all_reduce_grads(model.parameters(), g)
     out = {"loss": float(loss.detach()), "final": _np(comm.all_gather(final, g)),
            "grads": {k: _np(p.grad) for k, p in model.named_parameters()}}
-    if kind == "tecno":
+    if kind == "tecno" and dropout_rate == 0.5:
         # the SP train step of make_sp_tecno_train_step, SGD at lr 0.1 from
         # the same weights: its loss, and the weights it leaves
         from med_tpu_torch.parallel.seqpar import make_sp_tecno_train_step
@@ -263,9 +264,11 @@ def sp_train_suite(fold_args, masked_cases):
 
 
 # -------------------------------------------------------------- pipeline
-def pipeline_suite(fields, tree, x, labels, mask, masks, steps: int, lr: float):
+def pipeline_suite(fields, tree, x, labels, mask, masks, steps: int, lr: float,
+                   rate: float = 0.5):
     """``steps`` pipelined TeCNo train steps (rank d holds stage d + 1), SGD
-    at ``lr``: the losses and every stage's weights after them."""
+    at ``lr``, with dropout at ``rate`` by ``masks`` where there are masks:
+    the losses and every stage's weights after them."""
     from med_tpu_torch.parallel.pipeline import make_pp_tecno_train_step, pipeline_refine
 
     exp = Experiment(ExperimentConfig(**fields), device="cpu")
@@ -280,7 +283,7 @@ def pipeline_suite(fields, tree, x, labels, mask, masks, steps: int, lr: float):
     opt0 = torch.optim.SGD(stage0.parameters(), lr=lr)
     opt1 = torch.optim.SGD(stage.parameters(), lr=lr)
     step = make_pp_tecno_train_step(stage0, stage, opt0, opt1, g,
-                                    dropout_rate=0.5 if masks is not None else 0.0)
+                                    dropout_rate=rate if masks is not None else 0.0)
     mk = None if masks is None else {k: torch.as_tensor(v) for k, v in masks.items()}
     losses = [float(step(torch.as_tensor(x), torch.as_tensor(labels), torch.as_tensor(mask),
                          mk)) for _ in range(steps)]
