@@ -1,0 +1,13 @@
+"""Host milliseconds a served trial spends in ``med.serve.trunk``: each chunk's
+preprocessing and the trunk's launches. The phase's total over the calls of
+``med.serve.request`` (the program's spans,
+``med_tpu_torch/utils/profiling.py``).
+
+The host times come from the traced window, where the profiler slows the
+host: they compare a parent with its change, not with the untraced pace."""
+
+from core.program_spans import REQUEST, per_root_ms
+
+
+def read(run):
+    return per_root_ms("med.serve.trunk", REQUEST)

@@ -45,6 +45,7 @@ from ..train.checkpoint import save_checkpoint
 from ..train.losses import bce_with_logits
 from ..utils.device import resolve_device
 from ..utils.jax_params import export_jax_params, load_jax_params
+from ..utils.profiling import span
 from .common import add_mesh_flag, mesh_from_args
 
 
@@ -89,26 +90,35 @@ def train_step(model: ResNetClassifier, optimizer: torch.optim.Optimizer, imgs, 
     ``mesh`` this rank takes its rows of the batch (and of the draws) over
     ``data``; BatchNorm's and the ghost-batch statistics, the BCE mean and
     the gradients are the global batch's, as GSPMD makes them."""
-    dev = pixel_stats[0].device
-    group, rows = None, split_rows(len(imgs), mesh)
-    if rows is not None:
-        imgs, labels, mask = imgs[rows], labels[rows], mask[rows]
-        draws = None if draws is None else _rows(draws, rows)
-        group = mesh.group("data")
-    x = torch.as_tensor(imgs).to(dev, torch.float32)
-    if draws is not None:
-        pix = augment_batch(x, draws, normalize=pixel_stats)
-    else:
-        pix = preprocess(x, pixel_stats)
-    set_stats_group(model, group)
-    logits = model(pix, train=not freeze_bn)
-    loss = bce_with_logits(logits, torch.as_tensor(labels).to(dev),
-                           torch.as_tensor(mask).to(dev), group=group)
-    optimizer.zero_grad(set_to_none=False)
-    loss.backward()
-    comm.all_reduce_grads(model.parameters(), group)
-    optimizer.step()
-    return loss.detach()
+    with span("med.train.step", root=True):
+        dev = pixel_stats[0].device
+        group, rows = None, split_rows(len(imgs), mesh)
+        with span("med.train.inputs"):
+            if rows is not None:
+                imgs, labels, mask = imgs[rows], labels[rows], mask[rows]
+                draws = None if draws is None else _rows(draws, rows)
+                group = mesh.group("data")
+            x = torch.as_tensor(imgs).to(dev, torch.float32)
+            if draws is not None:
+                pix = augment_batch(x, draws, normalize=pixel_stats)
+            else:
+                pix = preprocess(x, pixel_stats)
+        set_stats_group(model, group)
+        with span("med.train.forward"):
+            logits = model(pix, train=not freeze_bn)
+        # after the forward: on the card this blocking copy waits for the
+        # forward's kernels, and the span counts that wait as input time
+        with span("med.train.inputs"):
+            labels, mask = torch.as_tensor(labels).to(dev), torch.as_tensor(mask).to(dev)
+        with span("med.train.loss"):
+            loss = bce_with_logits(logits, labels, mask, group=group)
+        with span("med.train.backward"):
+            optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+            comm.all_reduce_grads(model.parameters(), group)
+        with span("med.train.optimizer"):
+            optimizer.step()
+        return loss.detach()
 
 
 @torch.no_grad()

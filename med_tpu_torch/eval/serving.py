@@ -31,6 +31,7 @@ from ..train.checkpoint import load_best_checkpoint, load_checkpoint, load_check
 from ..train.engine import WINDOW_MODELS, Experiment
 from ..utils.device import resolve_device
 from ..utils.jax_params import load_jax_params
+from ..utils.profiling import span
 
 
 def _on_mesh(fn, mesh, *xs: torch.Tensor):
@@ -273,12 +274,16 @@ class PixelFrontEnd:
         bs = self.batch_size
         out = []
         for s in range(0, len(frames), bs):
-            chunk = frames[s:s + bs]
-            n = len(chunk)
-            if n < bs:
-                chunk = np.pad(chunk, ((0, bs - n),) + ((0, 0),) * 3)
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-            out.append(_on_mesh(self._features, self.mesh, x)[:n].cpu().numpy())
+            with span("med.serve.upload"):
+                chunk = frames[s:s + bs]
+                n = len(chunk)
+                if n < bs:
+                    chunk = np.pad(chunk, ((0, bs - n),) + ((0, 0),) * 3)
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+            with span("med.serve.trunk"):
+                f = _on_mesh(self._features, self.mesh, x)
+            with span("med.serve.to_host"):
+                out.append(f[:n].cpu().numpy())
         return np.concatenate(out, axis=0)
 
 
@@ -327,27 +332,32 @@ class FrameModelServer:
     def predict_trial_from_pixels(self, frontend: PixelFrontEnd, frames, kinematics):
         """Serving from raw frames: the trunk front-end makes the (T, F)
         features in-process, then :meth:`predict_trial` runs."""
-        return self.predict_trial(frontend.features(frames), kinematics)
+        with span("med.serve.request", root=True):
+            return self.predict_trial(frontend.features(frames), kinematics)
 
     def predict_trial(self, images, kinematics):
         """images (T, 2048), kinematics (T, 26) raw -> (preds (T,), probs (T,)
         or (T, classes)) as numpy arrays; a trial longer than
         ``cfg.max_frames`` is cut there."""
-        kin = kinematics
-        if self.stats is not None:
-            kin = (kinematics - self.stats["kinematics"]["mean"]) / (
-                self.stats["kinematics"]["std"]
-            )
-        T = len(kin)
-        trial = FrameTrial(
-            name="Needle_Passing_B000",
-            images=np.asarray(images, np.float32),
-            kinematics=np.asarray(kin, np.float32),
-            g_labels=np.ones(T, np.int64),
-            e_powerset=np.zeros((T, 7), np.int32),
-            skill=skill_one_hot("Needle_Passing_B000", T),
-        )
-        batch = frame_batch(trial, self.cfg)
-        # inputs only: with labels, eval_step would also compute the loss
-        m = self.exp.eval_step({k: batch[k] for k in ("images", "kinematics")})
-        return (m["preds"].cpu().numpy()[:T], m["probs"].cpu().numpy()[:T])
+        # the trial's root span, unless predict_trial_from_pixels opened it
+        with span("med.serve.request", root=True):
+            with span("med.serve.model"):
+                kin = kinematics
+                if self.stats is not None:
+                    kin = (kinematics - self.stats["kinematics"]["mean"]) / (
+                        self.stats["kinematics"]["std"]
+                    )
+                T = len(kin)
+                trial = FrameTrial(
+                    name="Needle_Passing_B000",
+                    images=np.asarray(images, np.float32),
+                    kinematics=np.asarray(kin, np.float32),
+                    g_labels=np.ones(T, np.int64),
+                    e_powerset=np.zeros((T, 7), np.int32),
+                    skill=skill_one_hot("Needle_Passing_B000", T),
+                )
+                batch = frame_batch(trial, self.cfg)
+                # inputs only: with labels, eval_step would also compute the loss
+                m = self.exp.eval_step({k: batch[k] for k in ("images", "kinematics")})
+            with span("med.serve.to_host"):
+                return (m["preds"].cpu().numpy()[:T], m["probs"].cpu().numpy()[:T])

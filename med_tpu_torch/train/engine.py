@@ -46,6 +46,7 @@ from ..parallel import comm
 from ..parallel.mesh import full_view, shard_state, split_rows, unshard_state
 from ..utils.device import resolve_device
 from ..utils.jax_params import export_jax_params, load_jax_params
+from ..utils.profiling import NO_SPAN, span
 from . import losses
 from .optim import make_optimizer
 
@@ -378,19 +379,28 @@ class Experiment:
         docstring) when ``trial_batch`` > 1. With a data-parallel ``group``
         the loss is the whole batch's or group's (the metrics this rank's)."""
         if self.cfg.trial_batch <= 1 or self.family in WINDOW_FAMILIES:
-            return self._loss(self._forward(data, train, masks), data, group)
+            with _phase("med.train.forward", train):
+                out = self._forward(data, train, masks)
+            with _phase("med.train.loss", train):
+                return self._loss(out, data, group)
         weight = data.pop("trial_weight", None)
         G = data["labels"].shape[0]
         trials = [{k: v[g] for k, v in data.items()} for g in range(G)]
         if self.family == "cog":
             # one batch of G trials: the attention folds them into its heads
-            out_list, _ = self.net.model(self._assemble(data)[:, 0], train=train,
-                                         masks=masks, generator=self.generator)
-            results = [self._loss([t[g:g + 1] for t in out_list], trials[g])
-                       for g in range(G)]
+            with _phase("med.train.forward", train):
+                out_list, _ = self.net.model(self._assemble(data)[:, 0], train=train,
+                                             masks=masks, generator=self.generator)
+            with _phase("med.train.loss", train):
+                results = [self._loss([t[g:g + 1] for t in out_list], trials[g])
+                           for g in range(G)]
         else:
-            results = [self._loss(self._forward(trial, train, _trial_masks(masks, g)), trial)
-                       for g, trial in enumerate(trials)]
+            results = []
+            for g, trial in enumerate(trials):
+                with _phase("med.train.forward", train):
+                    out = self._forward(trial, train, _trial_masks(masks, g))
+                with _phase("med.train.loss", train):
+                    results.append(self._loss(out, trial))
         if weight is None:
             weight = torch.ones(G, device=self.device)
         per_trial = torch.stack([loss for loss, _ in results])
@@ -414,12 +424,14 @@ class Experiment:
         when ``trial_batch`` > 1, or drawn from the experiment's generator;
         TransSVNet has no dropout), the loss, and its backward into every
         parameter's ``.grad``. Returns (loss, metrics)."""
-        data = self._tensors(batch)
-        data, masks, group = self._local_rows(data, masks, True)
-        self.optimizer.zero_grad(set_to_none=False)
+        with span("med.train.inputs"):
+            data = self._tensors(batch)
+            data, masks, group = self._local_rows(data, masks, True)
         loss, metrics = self._trial_loss(data, True, masks, group)
-        loss.backward()
-        comm.all_reduce_grads(self.net.parameters(), group)
+        with span("med.train.backward"):
+            self.optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+            comm.all_reduce_grads(self.net.parameters(), group)
         return loss.detach(), _whole_batch(metrics, group)
 
     def _local_rows(self, data, masks, train: bool):
@@ -460,8 +472,10 @@ class Experiment:
         """One window batch, trial or trial group: forward, loss, backward
         and one optimiser step. Returns the metrics ("loss", "cm", ...) as device
         tensors: nothing syncs the host."""
-        loss, metrics = self.compute_gradients(batch, masks)
-        self.optimizer.step()
+        with span("med.train.step", root=True):
+            loss, metrics = self.compute_gradients(batch, masks)
+            with span("med.train.optimizer"):
+                self.optimizer.step()
         metrics["loss"] = loss
         return metrics
 
@@ -492,6 +506,11 @@ class Experiment:
             n_classes, final = 2, out[-1] if self.family == "tecno" else out
         preds, probs = _predictions(final, n_classes)
         return {"preds": preds, "probs": probs}
+
+
+def _phase(name: str, train: bool):
+    """A train step's phase span; an eval step's forward and loss open none."""
+    return span(name) if train else NO_SPAN
 
 
 def _mask_rows(masks, rows: slice):

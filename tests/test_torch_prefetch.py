@@ -8,14 +8,14 @@ through unchanged; the pinned side-stream copy runs on the card
 import json
 
 import numpy as np
-import pytest
 import torch
 
 from med_tpu.data.preprocessing import decode_preprocess_batches as jax_decode
 from med_tpu_torch.data.preprocessing import decode_preprocess_batches
 from med_tpu_torch.parallel.mesh import make_mesh
+from med_tpu_torch.utils import profiling
 from med_tpu_torch.utils.prefetch import prefetch_to_device
-from med_tpu_torch.utils.profiling import StepTimer, device_trace, trace_device_span_s
+from med_tpu_torch.utils.profiling import device_trace, snapshot, span
 
 
 def test_prefetch_roundtrip(rng):
@@ -43,27 +43,19 @@ def test_decode_preprocess_batches_matches_med_tpu(rng):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
 
 
-def test_trace_device_span_reads_the_busiest_stream(tmp_path):
-    assert trace_device_span_s(str(tmp_path)) == -1.0
-    events = [{"cat": "kernel", "pid": 0, "tid": 7, "ts": 100.0, "dur": 50.0},
-              {"cat": "kernel", "pid": 0, "tid": 7, "ts": 400.0, "dur": 100.0},
-              {"cat": "kernel", "pid": 0, "tid": 8, "ts": 0.0, "dur": 20.0},
-              {"cat": "cpu_op", "pid": 1, "tid": 1, "ts": 0.0, "dur": 9000.0}]
-    (tmp_path / "sub").mkdir()
-    (tmp_path / "sub" / "trace.json").write_text(json.dumps({"traceEvents": events}))
-    assert trace_device_span_s(str(tmp_path)) == pytest.approx(400e-6)
-
-
 def test_device_trace_and_step_timer(tmp_path):
+    """``device_trace`` writes a chrome trace of its block and restarts the
+    span aggregates, so a snapshot after it covers that trace alone (the
+    step timer it once sat beside is gone: a root span times a step)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with span("med.test.before"):
+            pass
+    assert "med.test.before" in snapshot()
     with device_trace(str(tmp_path)):
-        torch.ones(8).sum()
-    assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    # a CPU trace holds no kernel
-    assert trace_device_span_s(str(tmp_path)) == -1.0
-    timer = StepTimer()
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.ones(4), units=2)
-    assert timer.units == 6 and timer.total > 0
-    assert timer.units_per_sec == pytest.approx(6 / timer.total)
-    assert timer.ms_per_unit == pytest.approx(timer.total / 6 * 1e3)
+        with span("med.test.step", root=True):
+            torch.ones(8).sum()
+    assert set(snapshot()) == {"med.test.step"}
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert [e["name"] for e in events if e.get("name", "").startswith("med.")] == [
+        "med.test.step"]
+    profiling.reset()
