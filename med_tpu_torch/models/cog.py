@@ -31,7 +31,7 @@ bias; the FPN shares one lateral conv; the refinement AvgPool is a no-op.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -151,17 +151,26 @@ class COGEncoderLayer(nn.Module):
     def forward(self, text, visual_seq):
         """text (B, d_model, N = T*M) feature-major; visual_seq (B, T +
         window - 1, d_model) with its left pad rows -> (B, d_model, N)."""
-        M = self.m_tokens
+        q_in, q, k, v = self.open(text, visual_seq)
+        return self.close(sliding_window_attention_packed(q, k, v, self.window,
+                                                          self.m_tokens), q_in)
+
+    def open(self, text, visual_seq):
+        """The layer up to its attention: (q_in, q, k, v), the packed q with
+        dummy queries for the pad frames in front."""
         q_in = self.norm1(text)
         q = self.W_Q(q_in)
         k = self.W_K(visual_seq)
         v = self.W_V(visual_seq)
-        pad = self.window - 1
-        B, T = visual_seq.shape[0], visual_seq.shape[1] - pad
-        # dummy queries for the pad frames, dropped after the attention
-        q = F.pad(q, (pad * M, 0))
-        ctx = sliding_window_attention_packed(q, k, v, self.window, M)[:, :, pad * M:]
-        ctx = ctx.reshape(B, self.n_heads * self.d_q, T * M)
+        q = F.pad(q, ((self.window - 1) * self.m_tokens, 0))
+        return q_in, q, k, v
+
+    def close(self, ctx, q_in):
+        """The layer after its attention: the pad frames' queries dropped,
+        residual, norms and FFN -> (B, d_model, N)."""
+        B, N = q_in.shape[0], q_in.shape[-1]
+        ctx = ctx[:, :, (self.window - 1) * self.m_tokens:]
+        ctx = ctx.reshape(B, self.n_heads * self.d_q, N)
         out = self.norm3(_ln0(ctx + q_in))
         return self.ffn(out)
 
@@ -189,17 +198,29 @@ class ChainOfGestureTransformer(nn.Module):
         M*d_model); one trial's (T, f_dim) -> (T, M*d_model)."""
         if long_feature.dim() == 2:
             return self(gest_embed, long_feature[None])[0]
+        visual, text0, text = self.embed(gest_embed, long_feature)
+        for i in range(self.n_layers):
+            text = getattr(self, f"layer{i}")(text, visual)
+        return self.close(text, text0)
+
+    def embed(self, gest_embed, long_feature):
+        """The block's inputs: visual (B, T + len_q - 1, d_model) with its
+        normed pad rows, the projected prompt rows text0 (M, d_model) and
+        the per-frame text tokens (B, d_model, T*M)."""
         visual = self.linear1(long_feature)
         text0 = self.linear2(gest_embed)
-        B, T, M = visual.shape[0], visual.shape[1], text0.shape[0]
+        B, T = visual.shape[0], visual.shape[1]
         # the reference norms its zero-padded windows, so pad rows become
         # enc_norm(0) = its bias: pad first, then norm
         visual = self.enc_norm(F.pad(visual, (0, 0, self.len_q - 1, 0)))
         text = text0.T.repeat(1, T).expand(B, -1, -1)  # token n = t*M + m
-        for i in range(self.n_layers):
-            text = getattr(self, f"layer{i}")(text, visual)
+        return visual, text0, text
+
+    def close(self, text, text0):
+        """The attention over the prompt rows -> (B, T, M*d_model)."""
         out = self.atten(text, text0)
-        return out.transpose(-1, -2).reshape(B, T, M * out.shape[1])
+        B, M = out.shape[0], text0.shape[0]
+        return out.transpose(-1, -2).reshape(B, out.shape[-1] // M, M * out.shape[1])
 
 
 class COGStage(nn.Module):
@@ -335,15 +356,36 @@ class COG(nn.Module):
             return f_list
         keep = masks["TCN"].get("channel") if train else None
         x0 = slow[0].pre(xx, train, keep)
+        return _stack_trials(self._slow_stacks(x0, masks if train else None))
+
+    def _slow_stacks(self, x0, masks=None):
+        """The multi-stage kernel over the slow stages, one launch a trial
+        of x0 (B, T, C), or of its B trials (T, C): each trial's (S, T, C)
+        stage outputs."""
+        slow = [getattr(self, n) for n in self.slow_names]
         per_trial = []
-        for b in range(x0.shape[0]):
-            stack_masks = ([masks[n]["stack"][:, b].contiguous() for n in self.slow_names]
-                           if train else None)
+        for b, xb in enumerate(x0):
+            stack_masks = (None if masks is None else
+                           [masks[n]["stack"][:, b].contiguous() for n in self.slow_names])
             per_trial.append(dilated_residual_multistack_stages(
-                x0[b], [s.stack.weights() for s in slow],
+                xb, [s.stack.weights() for s in slow],
                 self.num_layers_basic, self.num_layers_r, causal=self.causal,
                 masks=stack_masks))
-        return [torch.stack(hs) for hs in zip(*per_trial)]
+        return per_trial
+
+    def _fpn(self, f_list):
+        """FPN upsample-add over the slow stages' features with a single
+        shared lateral conv -> the 4 slow logit tracks."""
+        p = f_list[-1]
+        pyramid = [p]
+        for c in reversed(f_list[:-1]):
+            p = interp1d_linear(p, c.shape[1], axis=1) + self.latlayer1(c)
+            pyramid.insert(0, p)
+        return [self.conv_out(p).to(torch.float32) for p in pyramid]
+
+    def _fast_in(self, xx):
+        """The fast path's input: the chain's features average-pooled 16x."""
+        return F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
 
     def forward(self, x, train: bool = False, masks=None,
                 generator: Optional[torch.Generator] = None
@@ -362,18 +404,9 @@ class COG(nn.Module):
             xx = torch.cat([xx, self.cot_skill(self.skill_embed, x)], dim=-1)
 
         f_list = self._slow_path(xx, train, masks)
-        # FPN upsample-add with a single shared lateral conv
-        p = f_list[-1]
-        pyramid = [p]
-        for c in reversed(f_list[:-1]):
-            p = interp1d_linear(p, c.shape[1], axis=1) + self.latlayer1(c)
-            pyramid.insert(0, p)
-        out_list = [self.conv_out(p).to(torch.float32) for p in pyramid]
-
-        # fast path
-        fast = F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
+        out_list = self._fpn(f_list)
         fast_f, fast_out = self.fast_stage1(
-            fast, train, masks["fast_stage1"] if train else None)
+            self._fast_in(xx), train, masks["fast_stage1"] if train else None)
         f_list.append(fast_f)
         out_list.append(fast_out)
         for name in self.fast_names[1:]:
@@ -382,6 +415,119 @@ class COG(nn.Module):
             f_list.append(fast_f)
             out_list.append(fast_out)
         return out_list, f_list
+
+
+def _stack_trials(per_trial):
+    """Per-trial (S, T, C) stage outputs -> S stage features (B, T, C)."""
+    return [torch.stack(hs) for hs in zip(*per_trial)]
+
+
+class Segment(nn.Module):
+    """One stretch of COG's forward between two kernel calls: a pure tensor
+    function of its inputs and of the parameters of the submodules it
+    holds. Nothing in it launches a hand-written kernel, draws random
+    numbers or syncs the host, so a CUDA graph can hold it
+    (``train/graphs.py``)."""
+
+    def __init__(self, fn, *modules: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.uses = nn.ModuleList(modules)
+
+    def forward(self, *xs):
+        return self.fn(*xs)
+
+
+def segments(model: COG) -> Dict[str, Segment]:
+    """A float32 COG without SRM cut at its kernel calls, in the order
+    :func:`segmented_forward` runs them: "embed" (the chain's projections,
+    enc_norm, the text tokens and layer 0 up to K1), "layer<i>" (layer i-1
+    after its K1 and layer i up to its own), "slow" (the last layer's close,
+    the prompt attention, the TCN stage's input conv and channel dropout:
+    then K2a), "fpn" (the FPN's 4 slow tracks, the 16x pool and
+    fast_stage1's input conv and channel dropout: then its K2b), and one
+    for each fast stage (its class conv, then the next stage's input conv
+    on the softmax: then that stage's K2b; the last stage's class conv
+    alone)."""
+    if model.dtype is not None or model.cot_skill is not None:
+        raise ValueError("the segments cut a float32 COG without SRM")
+    cot = model.cot
+    layers = [getattr(cot, f"layer{i}") for i in range(cot.n_layers)]
+
+    def embed(x):
+        visual, text0, text = cot.embed(model.gest_embed, x)
+        return (text0, visual, *layers[0].open(text, visual))
+
+    def between(i):
+        return lambda ctx, q_in, visual: layers[i].open(layers[i - 1].close(ctx, q_in), visual)
+
+    # a segment hands a kernel's input on trial by trial: (T, C) each
+    def slow(ctx, q_in, text0, keep):
+        xx = cot.close(layers[-1].close(ctx, q_in), text0)
+        return xx, *model.TCN.pre(xx, keep is not None, keep).unbind(0)
+
+    def fpn(xx, keep, *per_trial):
+        tracks = model._fpn(_stack_trials(per_trial))
+        fast = model.fast_stage1.pre(model._fast_in(xx), keep is not None, keep)
+        return (*tracks, *fast.unbind(0))
+
+    def refine(stage, nxt):
+        def fn(*trials):
+            out = stage.conv_out(torch.stack(trials)).to(torch.float32)
+            return out, *nxt.pre(torch.softmax(out, dim=-1)).unbind(0)
+        return fn
+
+    def last(stage):
+        return lambda *trials: (stage.conv_out(torch.stack(trials)).to(torch.float32),)
+
+    def proj(layer):
+        return layer.norm1, layer.W_Q, layer.W_K, layer.W_V
+
+    def close(layer):
+        return layer.norm3, layer.ffn
+
+    out = {"embed": Segment(embed, cot.linear1, cot.linear2, cot.enc_norm, *proj(layers[0]))}
+    for i in range(1, len(layers)):
+        out[f"layer{i}"] = Segment(between(i), *close(layers[i - 1]), *proj(layers[i]))
+    out["slow"] = Segment(slow, *close(layers[-1]), cot.atten, model.TCN.conv_in)
+    out["fpn"] = Segment(fpn, model.latlayer1, model.conv_out, model.fast_stage1.conv_in)
+    fast = [getattr(model, n) for n in model.fast_names]
+    for name, stage, nxt in zip(model.fast_names, fast, fast[1:]):
+        out[name] = Segment(refine(stage, nxt), stage.conv_out, nxt.conv_in)
+    out[model.fast_names[-1]] = Segment(last(fast[-1]), fast[-1].conv_out)
+    return out
+
+
+def segmented_forward(model: COG, segs: Dict[str, Segment], x, masks=None, run=None):
+    """:meth:`COG.forward`'s out_list for a float32 COG without SRM, through
+    the :func:`segments` ``segs`` with the kernels launched between them:
+    K1 after "embed" and each "layer<i>", K2a after "slow", each fast
+    stage's K2b after the segment before it. ``masks`` as
+    :meth:`COG.dropout_masks` draws them (a training forward), or None (an
+    eval one). ``run(name, *inputs)`` runs a segment and returns its
+    outputs: by default the segment itself, eagerly, which computes what
+    :meth:`COG.forward` computes, op for op."""
+    if run is None:
+        def run(name, *xs):
+            return segs[name](*xs)
+
+    def mask(name, key):
+        return None if masks is None else masks[name][key]
+
+    layers = [getattr(model.cot, f"layer{i}") for i in range(model.cot.n_layers)]
+    text0, visual, q_in, q, k, v = run("embed", x)
+    for i, layer in enumerate(layers):
+        ctx = sliding_window_attention_packed(q, k, v, layer.window, layer.m_tokens)
+        if i + 1 < len(layers):
+            q_in, q, k, v = run(f"layer{i + 1}", ctx, q_in, visual)
+    xx, *x0 = run("slow", ctx, q_in, text0, mask("TCN", "channel"))
+    out = run("fpn", xx, mask("fast_stage1", "channel"), *model._slow_stacks(x0, masks))
+    n = len(model.slow_names)
+    out_list, fx = list(out[:n]), out[n:]
+    for name in model.fast_names:
+        fast_out, *fx = run(name, *getattr(model, name).stack.trials(fx, mask(name, "stack")))
+        out_list.append(fast_out)
+    return out_list
 
 
 def prompt_texts(use_all_gestures: bool = True, use_skill_prompt: bool = False,

@@ -259,14 +259,18 @@ class ResidualStack(nn.Module):
     def forward(self, x, mask=None, rate: Optional[float] = None):
         """x (B, T, C); ``mask`` the (L, B, T, C) keep-mask, or None (eval),
         drawn at ``rate`` (the stack's ``dropout_rate`` unless given)."""
-        scale = keep_scale(self.dropout_rate if rate is None else rate)
         if self.dtype is not None:
-            return self._layers_in(self.dtype, x, mask, scale)
-        return torch.stack([
-            dilated_residual_stack(xb, *self.weights(), causal=self.causal, scale=scale,
-                                   mask=None if mask is None else mask[:, b].contiguous())
-            for b, xb in enumerate(x)
-        ])
+            return self._layers_in(self.dtype, x, mask,
+                                   keep_scale(self.dropout_rate if rate is None else rate))
+        return torch.stack(self.trials(x, mask, rate))
+
+    def trials(self, x, mask=None, rate: Optional[float] = None):
+        """The float32 stack trial by trial, one kernel launch a trial of x
+        (B, T, C), or of its B trials (T, C): each trial's (T, C) output."""
+        scale = keep_scale(self.dropout_rate if rate is None else rate)
+        return [dilated_residual_stack(xb, *self.weights(), causal=self.causal, scale=scale,
+                                       mask=None if mask is None else mask[:, b].contiguous())
+                for b, xb in enumerate(x)]
 
     def _layers_in(self, dtype: torch.dtype, x, mask, scale: float):
         """med_tpu's unfused stack (layers.py ResidualStack.__call__), every

@@ -163,7 +163,9 @@ def shard_state(exp, mesh: Mesh) -> None:
     tensor-parallel FeatureExtractor parameters and their Adam moments
     (:func:`shard_params`); everything else replicated. Its steps then take
     this rank's rows of every batch over ``data``, and its BatchNorms take
-    their statistics over the ``data`` group (:func:`set_stats_group`)."""
+    their statistics over the ``data`` group (:func:`set_stats_group`).
+    The experiment's step graphs are dropped."""
+    exp.graphs.clear()
     placement = shard_params(exp.net, mesh)
     set_stats_group(exp.net, mesh.group("data"))
     params = dict(exp.net.named_parameters())
@@ -214,7 +216,9 @@ def full_view(exp):
 def unshard_state(exp) -> None:
     """Undo :func:`shard_state`'s tensor-parallel split for good (a gather
     over ``model``): the experiment holds its whole parameters and moments
-    again; its mesh stays for the data axis."""
+    again; its mesh stays for the data axis. The experiment's step graphs
+    are dropped."""
+    exp.graphs.clear()
     if not getattr(exp, "tp", None):
         return
     group = exp.mesh.group("model")

@@ -48,6 +48,7 @@ from ..utils.device import resolve_device
 from ..utils.jax_params import export_jax_params, load_jax_params
 from ..utils.profiling import NO_SPAN, span
 from . import losses
+from .graphs import StepGraphs
 from .optim import make_optimizer
 
 
@@ -264,6 +265,8 @@ class Experiment:
         # data/tensor parallelism (parallel/mesh.py::shard_state)
         self.mesh = None
         self.tp: Dict[str, int] = {}
+        # COG's train steps from CUDA graphs, where they engage (train/graphs.py)
+        self.graphs = StepGraphs(self)
 
     def load_frozen(self, frozen: Dict) -> None:
         """Give a TransSVNet experiment its frozen TeCNo, a TeCNo of the same
@@ -281,7 +284,9 @@ class Experiment:
     def load_params(self, checkpoint: Dict) -> None:
         """Take a ``med_tpu`` checkpoint tree's parameters, running
         statistics, class counts and frozen prompt tables
-        (``load_best_checkpoint`` of a run of either package)."""
+        (``load_best_checkpoint`` of a run of either package). The step
+        graphs are dropped."""
+        self.graphs.clear()
         consts = dict(checkpoint.get("constants", {}))
         counts = consts.pop("class_counts", None)
         self.class_counts = (None if counts is None else
@@ -299,7 +304,8 @@ class Experiment:
         CPU so the draw is the same on every device), reset the running
         statistics, restart the optimiser and the dropout stream from the
         config's seed, and take the train fold's ``class_counts`` (the
-        window families' loss weights, or None)."""
+        window families' loss weights, or None). The step graphs are
+        dropped (``unshard_state``)."""
         mesh = self.mesh
         unshard_state(self)         # drawn at their whole shapes, then placed
         init_weights(self.net, torch.Generator().manual_seed(seed))
@@ -423,16 +429,24 @@ class Experiment:
         ``dropout_masks`` layout, with the group's trials on its batch axis
         when ``trial_batch`` > 1, or drawn from the experiment's generator;
         TransSVNet has no dropout), the loss, and its backward into every
-        parameter's ``.grad``. Returns (loss, metrics)."""
+        parameter's ``.grad``. Returns (loss, metrics). Where the step
+        graphs engage (``train/graphs.py``), the forward, the loss and the
+        backward run from them, the kernels between them."""
         with span("med.train.inputs"):
             data = self._tensors(batch)
             data, masks, group = self._local_rows(data, masks, True)
-        loss, metrics = self._trial_loss(data, True, masks, group)
+        graphed = self.graphs.engages()
+        if graphed:
+            loss, metrics = self.graphs.loss(data, masks)
+        else:
+            loss, metrics = self._trial_loss(data, True, masks, group)
         with span("med.train.backward"):
             self.optimizer.zero_grad(set_to_none=False)
             loss.backward()
             comm.all_reduce_grads(self.net.parameters(), group)
-        return loss.detach(), _whole_batch(metrics, group)
+        # a graph's loss lies in its memory, which the next step overwrites
+        loss = loss.detach()
+        return (loss.clone() if graphed else loss), _whole_batch(metrics, group)
 
     def _local_rows(self, data, masks, train: bool):
         """This rank's rows of a window batch or trial group over the mesh's

@@ -34,8 +34,11 @@ def make_optimizer(cfg: ExperimentConfig,
     params = list(params)
     for p in params:
         p.grad = torch.zeros_like(p)
+    # on the card Adam takes its multi-tensor path either way; naming it
+    # makes zero_grad clear every gradient in one launch, not one a parameter
+    foreach = True if params and all(p.is_cuda for p in params) else None
     return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+                            weight_decay=cfg.weight_decay, foreach=foreach)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

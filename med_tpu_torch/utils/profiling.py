@@ -94,10 +94,19 @@ def span(name: str, root: bool = False):
     return _Span(name)
 
 
+def count(name: str) -> None:
+    """Add one to the counter ``name`` while a profiler records (a train
+    step's ``med.train.graph_capture`` and ``med.train.graph_step``,
+    ``train/graphs.py``); :func:`snapshot` gives it as a span of no time."""
+    if _recording():
+        with _lock:
+            _totals[name][0] += 1
+
+
 def snapshot() -> Dict[str, Dict[str, float]]:
-    """{name: {"calls", "total_ms", "self_ms"}} of the spans recorded since
-    the last :func:`reset`; self time is the duration less the time the
-    span's children (on its thread) cover."""
+    """{name: {"calls", "total_ms", "self_ms"}} of the spans and counters
+    recorded since the last :func:`reset`; self time is the duration less
+    the time the span's children (on its thread) cover."""
     with _lock:
         return {name: {"calls": c, "total_ms": total * 1e-6, "self_ms": own * 1e-6}
                 for name, (c, total, own) in _totals.items()}
