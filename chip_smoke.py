@@ -188,10 +188,23 @@ non-zero and the last line is not printed:
    fold epoch at T = 4096 with prefetch depth 2 against 0 and the
    host-to-device copy from pinned and pageable memory; K1 and K3 a launch
    at the SP shard's T = 2048; the SP step at one rank;
-14. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
+14. mimo (``[mimo]`` lines): the packed attention's sink instance
+   (``csrc/swa_sink_{fwd,bwd}.cu``) at MiMo-V2-Flash's windowed layers
+   (SINK: 8 KV heads, q and k of width 192, v of 128, 8 query heads a KV
+   head, a 128-frame window, the keys before frame 0 left out, a sink a
+   query slot) at T = 1,536 (the main path's bucket) and 4,096, against
+   its plain version on the card (out and stats; dq, dk, dv and the sinks'
+   gradient), with its time, the plain version's and the bound, by the
+   profiler the kernels a call runs (one forward, two backward) and two
+   backward runs equal bit for bit; then ``MiMoV2Flash`` at the published
+   cut (layers 0-6, experts 0-7, seeded weights) through one
+   ``Experiment.train_step`` and one ``eval_step`` on a 1,200-frame trial
+   in the 1,536 bucket, the sink kernels' launches counted from 0 on each;
+15. a ``kernels`` JSON line (the eleven TPU kernels' entries, then the
    int8 kernel's, on the int8 trunk's and FE's paths, the trunk's with the
    fine-tune export's launches too; K2b/K5 at KEEP_RATE's scale take the
-   rate-0.3 pipeline's launches), then ``{"ok": true, "device": ...}``
+   rate-0.3 pipeline's launches; then the sink instance's, with the MiMo
+   step's and request's launches), then ``{"ok": true, "device": ...}``
    last.
 A ``[time]`` line gives each phase's wall time.
 
@@ -243,6 +256,12 @@ TOL = {"swa_packed_fwd": (1e-4, 1e-5), "tcn_stack_fwd/multistack": (1e-4, 1e-4),
        "tcn_stack_fwd/tecno": (1e-4, 1e-4), "tcn_stack_bwd/tecno": (1e-4, 1e-5),
        **{f"swa_packed_{way}/{shape}": (1e-4, 1e-5) for way in ("fwd", "bwd")
           for shape in ("m45", "m8", "heads16")}}
+# MiMo-V2-Flash's windowed layers: the sink instance's one shape, timed at
+# the main path's 1,536-frame bucket and a long trial (the JSON line uses
+# the last); float32 summed in another order, as K1/K3's
+SINK = dict(H=8, dk=192, dv=128, m=8, W=128)
+SINK_FRAMES = (1536, 4096)
+TOL.update({"swa_sink_fwd": (1e-4, 1e-5), "swa_sink_bwd": (1e-4, 1e-5)})
 # a TeCNo stack in training at a dropout rate other than 0.5 (the keep scale
 # 1 / (1 - rate)): phase 3's K2b/K5 cases at the rate-0.5 cases' tolerance
 # and phase 13's second pipeline step
@@ -1131,6 +1150,205 @@ def phase_op_api():
     log(f"[ops] autograd through both ops equals the direct backward calls bit for bit; "
         f"use_pallas=True vs False: max abs diff {err:.3e}")
     return launches
+
+
+def _sink_inputs(T: int, gen: torch.Generator):
+    """q (H, dk, T*m), k (H, dk, T), v (H, dv, T), a cotangent (H, dv, T*m)
+    and sinks (H, m) at twice the scores' scale, so that they weigh in."""
+    H, dk, dv, m = SINK["H"], SINK["dk"], SINK["dv"], SINK["m"]
+    shapes = ((H, dk, T * m), (H, dk, T), (H, dv, T), (H, dv, T * m))
+    return ([torch.randn(sh, generator=gen).cuda() for sh in shapes]
+            + [(2.0 * torch.randn((H, m), generator=gen)).cuda()])
+
+
+def _sink_pairs(T: int) -> int:
+    """(query, key) pairs the sink instance scores: each of the H*m query
+    slots of frame t over min(t + 1, W) keys (those before frame 0 left
+    out)."""
+    W = SINK["W"]
+    return SINK["H"] * SINK["m"] * sum(min(t + 1, W) for t in range(T))
+
+
+def _kernels_a_call(fn, kernel: str, per_call: int, calls: int = 20) -> dict:
+    """Raise unless each of ``calls`` calls of ``fn`` ran exactly
+    ``per_call`` device kernels, all named ``kernel``, by the profiler: no
+    copy, fill or other pass beside them. Returns their summed device time a
+    call (median over the calls of each launch in turn)."""
+    for _ in range(3):
+        events = _device_events(fn, calls)
+        names = sorted({e.name for e in events})
+        if len(events) >= calls * per_call or any(kernel not in n for n in names):
+            break
+    if len(events) != calls * per_call or any(kernel not in n for n in names):
+        raise RuntimeError(f"{kernel}: {len(events)} device kernels in {calls} calls "
+                           f"({names}), expected {per_call} a call")
+    events = sorted(events, key=lambda e: e.time_range.start)
+    ms = sum(statistics.median(e.time_range.elapsed_us() for e in events[i::per_call])
+             for i in range(per_call)) / 1e3
+    return dict(device_ms=ms, phase_note=f"{per_call} launch(es) a call, device {ms:.4f} ms "
+                                         f"a call (profiler, median of {calls})")
+
+
+def _sink_case(T: int, gen: torch.Generator):
+    """The sink instance's forward against its plain version on the card."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed_plain, sliding_window_attention_sink)
+
+    H, dk, dv, m, W = (SINK[k] for k in ("H", "dk", "dv", "m", "W"))
+    q, k, v, _, b = _sink_inputs(T, gen)
+    N = q.shape[2]
+    run = lambda: sliding_window_attention_sink(q, k, v, b, W, m, True)  # noqa: E731
+    plain = lambda: sliding_window_attention_packed_plain(q, k, v, W, m, True, b)  # noqa: E731
+    tol = TOL["swa_sink_fwd"]
+    (out, stats), (p_out, p_stats) = run(), plain()
+    err = max(check_close(f"sink T={T} out", out, p_out, *tol),
+              check_close(f"sink T={T} stats", stats, p_stats, *tol))
+    # bytes: q read, out and stats written per query; k, v read per frame.
+    # Operations a scored pair: the score 2dk, the value 2dv, ~4 for the
+    # exp and the sums
+    nbytes = 4 * (H * (dk + dv + 2) * N + H * (dk + dv) * T)
+    flops = _sink_pairs(T) * (2 * dk + 2 * dv + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                **_kernels_a_call(run, "swa_sink_fwd", 1))
+
+
+def _sink_bwd_case(T: int, gen: torch.Generator):
+    """The sink instance's backward (dq, dk, dv and the sinks' gradient)
+    against its plain version on the card, from the kernel's own forward;
+    two runs equal bit for bit."""
+    from med_tpu_torch.ops.attention import (
+        sliding_window_attention_packed_bwd_plain, sliding_window_attention_sink,
+        sliding_window_attention_sink_bwd)
+
+    H, dk, dv, m, W = (SINK[k] for k in ("H", "dk", "dv", "m", "W"))
+    q, k, v, g, b = _sink_inputs(T, gen)
+    N = q.shape[2]
+    out, stats = sliding_window_attention_sink(q, k, v, b, W, m, True)
+    run = lambda: sliding_window_attention_sink_bwd(  # noqa: E731
+        q, k, v, g, out, stats, b, W, m, True)
+    plain = lambda: sliding_window_attention_packed_bwd_plain(  # noqa: E731
+        q, k, v, g, out, stats, W, m, True, b)
+    rtol, atol = TOL["swa_sink_bwd"]
+    err = max(check_grads(f"sink bwd T={T} {n}", [a], [c], rtol, atol)
+              for n, a, c in zip(("dq", "dk", "dv", "dsinks"), run(), plain()))
+    # bytes: q, g, out and the stats read, dq written (per query); k, v
+    # read, dk, dv written (per frame). Operations a pair: the score 2dk,
+    # g.v 2dv, dv 2dv, dq 2dk, dk 2dk, ~4 for the probability and dS
+    nbytes = 4 * (H * (2 * dk + 2 * dv + 2) * N + 2 * H * (dk + dv) * T)
+    flops = _sink_pairs(T) * (6 * dk + 4 * dv + 4)
+    b_ms, b_by = bound(nbytes, flops)
+    _same_bits(f"sink bwd T={T}", run)
+    device = _kernels_a_call(run, "swa_sink_bwd", 2)
+    device["phase_note"] += "; two runs equal bit for bit"
+    return dict(run=run, max_abs_err=err, ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, **device)
+
+
+SINK_CASES = (("swa_sink_fwd", _sink_case), ("swa_sink_bwd", _sink_bwd_case))
+
+
+def _sink_launches() -> dict:
+    from med_tpu_torch.ops import attention as att
+
+    return {"swa_sink_fwd": att.sliding_window_attention_sink.launches,
+            "swa_sink_bwd": att.sliding_window_attention_sink_bwd.launches}
+
+
+def _reset_sink_launches() -> None:
+    from med_tpu_torch.ops import attention as att
+
+    att.sliding_window_attention_sink.launches = 0
+    att.sliding_window_attention_sink_bwd.launches = 0
+
+
+def _mimo_launches(profile: bool) -> dict:
+    """MiMoV2Flash at the published cut, one train step and one served
+    pass on a 1,200-frame trial in the 1,536 bucket, the sink kernels'
+    launches counted from 0 before each: one forward a windowed layer, two
+    backward launches a windowed layer in the step."""
+    from med_tpu_torch.config import ExperimentConfig
+    from med_tpu_torch.data.datasets import FrameTrial, frame_batch
+    from med_tpu_torch.models.mimo import MiMoArch
+    from med_tpu_torch.train.engine import Experiment
+
+    cfg = ExperimentConfig(model_name="MiMoV2Flash", dataset_type="frame",
+                           data_type="multimodal", video_dims=2048, out_features=2,
+                           batch_size=1, lr=1e-5, weight_decay=0.0, lr_scheduler=False)
+    torch.cuda.reset_peak_memory_stats()
+    exp = Experiment(cfg, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.no_grad():                  # seeded weights drawn on the card
+        for name, p in exp.net.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            else:
+                bound_ = 1.0 / math.sqrt(p.shape[-1]) if p.dim() > 1 else 0.1
+                p.uniform_(-bound_, bound_, generator=gen)
+    rng = np.random.default_rng(SEED)
+    T = 1200
+    labels = (np.arange(T) // 40) % 2
+    trial = FrameTrial(name="Suturing_B001",
+                       images=rng.normal(size=(T, 2048)).astype(np.float32),
+                       kinematics=rng.normal(size=(T, 26)).astype(np.float32),
+                       g_labels=np.zeros(T, np.int64),
+                       e_powerset=np.concatenate([np.zeros((T, 6), np.int32),
+                                                  labels[:, None].astype(np.int32)], 1),
+                       skill=np.zeros((T, 3), np.float32))
+    batch = frame_batch(trial, cfg, bucket=1536)
+    windowed = MiMoArch().pattern.count("W")
+    exp.train_step(batch)                   # warm: cuBLAS's plans, the allocator
+    torch.cuda.synchronize()
+    _reset_sink_launches()
+    t0 = time.perf_counter()
+    m = exp.train_step(batch)
+    loss = float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step = _sink_launches()
+    _reset_sink_launches()
+    out = exp.eval_step({k: batch[k] for k in ("images", "kinematics")})
+    probs = out["probs"].cpu()
+    request = _sink_launches()
+    if profile:
+        _profile("MiMoV2Flash train step T=1536", lambda: exp.train_step(batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del exp, out
+    torch.cuda.empty_cache()
+    want_step = {"swa_sink_fwd": windowed, "swa_sink_bwd": 2 * windowed}
+    want_request = {"swa_sink_fwd": windowed, "swa_sink_bwd": 0}
+    log(f"[mimo] MiMoV2Flash at the published cut ({windowed} windowed layers): sink launches "
+        f"a train step {step} (expected {want_step}), a served pass {request} (expected "
+        f"{want_request}); loss {loss:.6f}, step {step_ms:.1f} ms (host clock, the step "
+        f"returns after its loss is read), peak {peak:.2f} GB")
+    if step != want_step or request != want_request:
+        raise RuntimeError(f"sink launches {step}, {request} != {want_step}, {want_request}")
+    if not (math.isfinite(loss) and torch.isfinite(probs).all()):
+        raise RuntimeError("non-finite MiMo loss or probabilities on the card")
+    return {"step": step, "request": request}
+
+
+def phase_mimo(profile: bool):
+    """MiMo-V2-Flash's sink instance and its launches (phase 14 of the
+    module docstring)."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    results = {}
+    for T in SINK_FRAMES:
+        for name, case in SINK_CASES:
+            r = case(T, gen)
+            if profile and T == SINK_FRAMES[-1]:
+                _profile(f"{name} T={T}", r.pop("run"))
+            r.pop("run", None)
+            phase_note = r.pop("phase_note")
+            results[name] = r
+            rtol, atol = TOL[name]
+            atol_txt = f"{atol} x max|want|" if "bwd" in name else f"{atol}"
+            log(f"[mimo] {name} at T={T}: max_abs_err {r['max_abs_err']:.3e} "
+                f"(tol rtol {rtol}, atol {atol_txt}), kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library null ms; {phase_note}")
+    torch.cuda.empty_cache()
+    return results, _mimo_launches(profile)
 
 
 def _serving_config(video_dims: int):
@@ -4744,6 +4962,7 @@ def main(argv) -> int:
         int8_entries["int8_conv/trunk"]["launches_finetune_export"] = timed(
             "finetune", phase_finetune, Path(tmp), profile)
         sp_launches, pp_launches = timed("parallel", phase_parallel, Path(tmp), splits)
+    sink_kernels, mimo_launches = timed("mimo", phase_mimo, profile)
 
     sources = {"swa_packed_fwd": ("med_tpu_torch/csrc/swa_packed_fwd.cu",
                                   "med_tpu/ops/attention.py:390",
@@ -4854,6 +5073,13 @@ def main(argv) -> int:
     # and counts apart from the eleven (ops.launch_counts); its launches are
     # the --int8-trunk pixel run's and the --int8-fe run's
     line += [{"name": name, **entry} for name, entry in int8_entries.items()]
+    # the sink instance is no TPU kernel either (MiMo-V2-Flash has no JAX
+    # counterpart): its launches are the MiMo train step's and served pass's
+    line += [{"name": name, "route": "cuda", "source": f"med_tpu_torch/csrc/{name}.cu",
+              "replaces": "none", "launches": mimo_launches["step"][name],
+              "launches_mimo_step": mimo_launches["step"][name],
+              "launches_mimo_request": mimo_launches["request"][name], **sink_kernels[name]}
+             for name in ("swa_sink_fwd", "swa_sink_bwd")]
     idle = [k["name"] for k in line if k["launches"] < 1]
     if idle:
         raise RuntimeError(f"kernels never launched on their path: {idle}")

@@ -8,6 +8,12 @@ counterpart of ``python -m med_tpu.cli.train_frame``:
         --model-name TransSVNet --run-id <the TeCNo run>
     python -m med_tpu_torch.cli.train_frame --model-name COG \\
         --data-type multimodal --data-root <folds>
+    python -m med_tpu_torch.cli.train_frame --model-name MiMoV2Flash \\
+        --data-type multimodal --data-root <folds> --lr 1e-5
+
+MiMoV2Flash (``models/mimo.py``) is built at the published widths with the
+7 layers and 8 experts one chip holds (``MiMoArch``'s defaults: ~2.1 B
+parameters, ~33 GB with Adam's state).
 
 It trains on the GPU and raises without one; ``--device cpu`` runs the
 kernels' plain PyTorch versions instead."""

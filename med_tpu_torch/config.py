@@ -46,7 +46,7 @@ LOSO_FOLDS = ("1Out", "2Out", "3Out", "4Out", "5Out")
 
 MODEL_NAMES = (
     "SimpleCNN", "SimpleLSTM", "Siamese_CNN", "Siamese_LSTM",
-    "TeCNo", "TransSVNet", "COG",
+    "TeCNo", "TransSVNet", "COG", "MiMoV2Flash",
 )
 
 

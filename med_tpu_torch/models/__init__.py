@@ -1,11 +1,14 @@
 """Model factory (port of ``med_tpu.models``): the frame families COG (with
 its observed-gesture, skill-prompt and SRM variants), TeCNo and
-TransSVNet, in float32 or with ``compute_dtype="bfloat16"``, and the window
+TransSVNet, in float32 or with ``compute_dtype="bfloat16"``, MiMo-V2-Flash's
+hybrid block over frames (float32; the port's own, with no JAX
+counterpart; its sizes a :class:`MiMoArch`), and the window
 families SimpleCNN, SimpleLSTM, Siamese_CNN and Siamese_LSTM (float32 alone:
 ``compute_dtype`` does not reach them, as in ``med_tpu``)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -15,6 +18,7 @@ from ..config import ExperimentConfig
 from .cog import COG
 from .feature_extractor import FeatureExtractor
 from .layers import init_weights  # noqa: F401
+from .mimo import MiMoArch, MiMoV2Flash
 from .tcn import TeCNo
 from .transsvnet import TransSVNet
 from .window_models import (  # noqa: F401
@@ -42,10 +46,16 @@ def build_tecno(cfg: ExperimentConfig, dtype: Optional[torch.dtype] = None) -> T
                  dtype=dtype)
 
 
-def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None) -> nn.Module:
+def build_model(cfg: ExperimentConfig, prompt_path: Optional[str] = None,
+                arch: Optional[MiMoArch] = None) -> nn.Module:
     """Construct the configured model, with zero weights (load or
-    :func:`init_weights` them)."""
+    :func:`init_weights` them). ``arch``: MiMoV2Flash's sizes (the published
+    widths and this chip's cut when None), its input width the config's."""
     name = cfg.model_name
+    if name == "MiMoV2Flash":
+        arch = arch or MiMoArch()
+        return MiMoV2Flash(dataclasses.replace(arch, in_dim=cfg.in_features(),
+                                               out_classes=cfg.out_features))
     window = window_model(name, cfg.in_features(), cfg.window_size, cfg.out_features,
                           cfg.hidden_size, cfg.num_layers)
     if window is not None:

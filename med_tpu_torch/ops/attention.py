@@ -30,6 +30,19 @@ Its tiles take fewer frames, then fewer query slots, where shared memory
 asks for it, and walk a window too large for any tile in chunks, so it
 takes any window.
 
+The packed op's sink instance takes what COG's windows do not: v narrower
+than q and k, the keys before frame 0 left out of the softmax
+(``exclude_start``) and a learnable logit a query slot in its denominator
+(``sinks``), with the sinks' gradient. MiMo-V2-Flash's windowed layers run
+it (8 KV heads, q and k of width 192, v of 128, 8 query heads a KV head as
+the layout's m = 8 slots, a 128-frame window):
+:func:`sliding_window_attention_sink` runs ``csrc/swa_sink_fwd.cu`` and
+:func:`sliding_window_attention_sink_bwd` ``csrc/swa_sink_bwd.cu``, CUDA-core
+products over a tile's band of 128 queries by 144 keys (the backward in two
+launches: the tiles, then their dk, dv and sink partials summed in a fixed
+order). Their plain versions are the packed plain functions with the two
+options.
+
 The head-major layout, q (H, T, M, dk), k (H, T, dk), v (H, T, dv) -> out
 (H, T, M, dv), is the public op :func:`sliding_window_attention`:
 :func:`sliding_window_attention_pallas` runs ``csrc/swa_headmajor_fwd.cu``,
@@ -97,21 +110,41 @@ def sliding_window_attention_xla(q, k, v, window: int) -> torch.Tensor:
     return torch.einsum("htmw,htwd->htmd", torch.softmax(scores, dim=-1), vwin)
 
 
-def sliding_window_attention_packed_plain(q, k, v, window: int, m: int):
-    """Plain PyTorch version of the kernel, packed layout -> (out, stats).
+def _start_mask(T: int, window: int, device) -> torch.Tensor:
+    """(T, window) True where slot w of frame t's window lies before frame 0
+    (slot w is frame t - window + 1 + w)."""
+    first = (torch.arange(T, device=device)[:, None]
+             + torch.arange(window, device=device)[None, :])
+    return first < window - 1
+
+
+def sliding_window_attention_packed_plain(q, k, v, window: int, m: int,
+                                          exclude_start: bool = False, sinks=None):
+    """Plain PyTorch version of the kernels, packed layout -> (out, stats).
 
     Same arithmetic as the TPU kernel: q pre-scaled by 1/sqrt(dk), the
     banded max, exp, sum; out scaled by the reciprocal sum; stats row 0 the
-    logsumexp, row 1 the reciprocal sum."""
+    logsumexp, row 1 the reciprocal sum. ``exclude_start`` leaves the slots
+    before frame 0 out of the softmax (without it they are zero keys, scored
+    0); ``sinks`` (H, m), one logit a query slot, joins the max and adds
+    exp(sink) to the sum (and to the logsumexp) and nothing to out."""
     H, dk, N = q.shape
     T = N // m
     q4 = (q * (1.0 / math.sqrt(dk))).permute(0, 2, 1).reshape(H, T, m, dk)
     kwin = torch.stack([sliding_windows(x, window) for x in k.transpose(1, 2)])
     vwin = torch.stack([sliding_windows(x, window) for x in v.transpose(1, 2)])
     scores = torch.einsum("htmd,htwd->htmw", q4, kwin)
+    if exclude_start:
+        scores = scores.masked_fill(_start_mask(T, window, q.device)[None, :, None, :],
+                                    float("-inf"))
     smax = scores.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sink = sinks.reshape(H, 1, m, 1).to(scores.dtype)
+        smax = torch.maximum(smax, sink)
     p = torch.exp(scores - smax)
     psum = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        psum = psum + torch.exp(sink - smax)
     rsum = 1.0 / psum
     out = torch.einsum("htmw,htwd->htmd", p, vwin) * rsum        # (H, T, m, dv)
     lse = smax + torch.log(psum)
@@ -176,7 +209,8 @@ class _PackedAttention(torch.autograd.Function):
 
 
 def sliding_window_attention_packed(q, k, v, window: int, m: int,
-                                    return_stats: bool = False):
+                                    return_stats: bool = False,
+                                    exclude_start: bool = False, sinks=None):
     """Banded local attention in the packed layout (module docstring).
 
     A CUDA tensor goes to the CUDA kernel, one launch (replacing
@@ -184,7 +218,21 @@ def sliding_window_attention_packed(q, k, v, window: int, m: int,
     the plain version; any other device raises. ``return_stats`` also
     returns the (H, 2, N) per-query (logsumexp, 1/sum). When autograd needs
     a gradient of q, k or v, the call saves what the backward reads; under
-    ``no_grad`` it saves nothing."""
+    ``no_grad`` it saves nothing.
+
+    ``exclude_start`` leaves the keys before frame 0 out of the softmax
+    (COG's windows score them as zero keys); ``sinks`` (H, m) gives each
+    query slot a learnable logit in its softmax's denominator; v may be
+    narrower than q and k. Any of these takes the sink instance
+    (:func:`sliding_window_attention_sink`, ``csrc/swa_sink_{fwd,bwd}.cu``),
+    whose backward also gives the sinks' gradient."""
+    if exclude_start or sinks is not None or v.shape[1] != q.shape[1]:
+        grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, sinks))
+        if not return_stats and grad:
+            return _SinkAttention.apply(q, k, v, sinks, window, m, exclude_start)
+        out, stats = sliding_window_attention_sink(q, k, v, sinks, window, m, exclude_start)
+        return (out, stats) if return_stats else out
     if (not return_stats and torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return _PackedAttention.apply(q, k, v, window, m)
@@ -196,12 +244,17 @@ sliding_window_attention_packed.launches = 0
 
 
 def sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
-                                              window: int, m: int):
-    """Plain PyTorch version of the backward kernel -> (dq, dk, dv), same
-    shapes as (q, k, v). The arithmetic of the TPU kernel: q pre-scaled by
-    1/sqrt(dk), a = exp(scores - lse) from the saved stats, delta = out.g
-    (the flash-attention identity), ds = a * (g.v - delta); the keys'
-    gradients scatter back from the windows, and the zero halo's drop."""
+                                              window: int, m: int,
+                                              exclude_start: bool = False, sinks=None):
+    """Plain PyTorch version of the backward kernels -> (dq, dk, dv), same
+    shapes as (q, k, v), and with ``sinks`` their (H, m) gradient as a
+    fourth. The arithmetic of the TPU kernel: q pre-scaled by 1/sqrt(dk),
+    a = exp(scores - lse) from the saved stats, delta = out.g (the
+    flash-attention identity), ds = a * (g.v - delta); the keys' gradients
+    scatter back from the windows, and the zero halo's drop. With
+    ``exclude_start`` the slots before frame 0 take no share; a sink's
+    gradient is -sum over its slot's queries of exp(sink - lse) * delta (its
+    value is zero)."""
     H, dk, N = q.shape
     T = N // m
     W = window
@@ -213,6 +266,8 @@ def sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
     kwin = torch.stack([sliding_windows(x, W) for x in k.transpose(1, 2)])
     vwin = torch.stack([sliding_windows(x, W) for x in v.transpose(1, 2)])
     a = torch.exp(torch.einsum("htmd,htwd->htmw", q4, kwin) - lse)
+    if exclude_start:
+        a = a.masked_fill(_start_mask(T, W, q.device)[None, :, None, :], 0.0)
     ds = a * (torch.einsum("htmd,htwd->htmw", g4, vwin) - delta)
     dq = torch.einsum("htmw,htwd->htmd", ds, kwin) * scale
     dkwin = torch.einsum("htmw,htmd->htwd", ds, q4)
@@ -223,8 +278,12 @@ def sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats,
     for w in range(W):
         dk_p[:, w:w + T] += dkwin[:, :, w]
         dv_p[:, w:w + T] += dvwin[:, :, w]
-    return (dq.reshape(H, N, dk).permute(0, 2, 1),
-            dk_p[:, W - 1:].transpose(1, 2), dv_p[:, W - 1:].transpose(1, 2))
+    grads = (dq.reshape(H, N, dk).permute(0, 2, 1),
+             dk_p[:, W - 1:].transpose(1, 2), dv_p[:, W - 1:].transpose(1, 2))
+    if sinks is None:
+        return grads
+    p_sink = torch.exp(sinks.reshape(H, 1, m).to(lse.dtype) - lse[..., 0])
+    return grads + (-(p_sink * delta[..., 0]).sum(dim=1),)
 
 
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -288,6 +347,133 @@ def sliding_window_attention_packed_bwd(q, k, v, g, out, stats, window: int,
 
 
 sliding_window_attention_packed_bwd.launches = 0
+
+
+# --- the sink instance: wide heads, a start mask, sinks -------------------
+
+# (dk, dv, m, window) of the sink instance's kernels: MiMo-V2-Flash's
+# windowed layers (64 query heads of width 192 over 8 KV heads, values of
+# width 128, a 128-frame window)
+SINK_INSTANCES = ((192, 128, 8, 128),)
+_SINK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SINK_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SINK_SCRATCH_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _check_sink(q, k, v, sinks, window: int, m: int, more=()) -> None:
+    """Raise unless the operands have a sink instance's shapes, type and
+    layout: the kernels read them where they lie."""
+    H, dk, N = q.shape
+    T = k.shape[2]
+    dv = v.shape[1]
+    if N != T * m or k.shape != (H, dk, T) or v.shape != (H, dv, T):
+        raise ValueError(f"packed attention shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} with m={m}: the kernel takes q (H, dk, T*m), "
+                         f"k (H, dk, T) and v (H, dv, T)")
+    if (dk, dv, m, window) not in SINK_INSTANCES:
+        raise ValueError(f"the sink instance's CUDA kernels take (dk, dv, m, window) in "
+                         f"{SINK_INSTANCES}; got {(dk, dv, m, window)}")
+    if sinks is not None and tuple(sinks.shape) != (H, m):
+        raise ValueError(f"sinks {tuple(sinks.shape)} must be (H, m) = {(H, m)}")
+    named = [("q", q), ("k", k), ("v", v)] + list(more)
+    if sinks is not None:
+        named.append(("sinks", sinks))
+    for name, t in named:
+        cuda_build.check_operand(name, t, q.device, torch.float32)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def sliding_window_attention_sink(q, k, v, sinks, window: int, m: int,
+                                  exclude_start: bool = True):
+    """The sink instance's forward, no gradient -> (out (H, dv, N), stats
+    (H, 2, N)): q (H, dk, T*m), k (H, dk, T), v (H, dv, T), ``sinks`` (H, m)
+    or None. A CUDA tensor runs ``csrc/swa_sink_fwd.cu``, one launch; a CPU
+    tensor :func:`sliding_window_attention_packed_plain`; any other device
+    raises."""
+    if q.device.type == "cpu":
+        return sliding_window_attention_packed_plain(q, k, v, window, m, exclude_start, sinks)
+    if not q.is_cuda:
+        raise ValueError(f"no packed attention for device {q.device}")
+    _check_sink(q, k, v, sinks, window, m)
+    H, dk, N = q.shape
+    T, dv = k.shape[2], v.shape[1]
+    out = torch.empty((H, dv, N), dtype=torch.float32, device=q.device)
+    stats = torch.empty((H, 2, N), dtype=torch.float32, device=q.device)
+    fn = cuda_build.kernel_function("swa_sink_fwd", "swa_sink_fwd", _SINK_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(sinks), out.data_ptr(),
+              stats.data_ptr(), H, dk, dv, T, m, window, int(exclude_start),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch("swa_sink_fwd", "swa_sink_fwd", code)
+    sliding_window_attention_sink.launches += 1
+    return out, stats
+
+
+sliding_window_attention_sink.launches = 0
+
+
+def sliding_window_attention_sink_bwd(q, k, v, g, out, stats, sinks, window: int,
+                                      m: int, exclude_start: bool = True):
+    """Backward of :func:`sliding_window_attention_sink` -> (dq, dk, dv,
+    dsinks), dsinks None without sinks. A CUDA tensor runs
+    ``csrc/swa_sink_bwd.cu``: two launches, the tiles' products with their
+    dk/dv and sink partials in a scratch buffer allocated here, then their
+    sums in a fixed order (the same bits every run); a CPU tensor
+    :func:`sliding_window_attention_packed_bwd_plain`; any other device
+    raises."""
+    if q.device.type == "cpu":
+        grads = sliding_window_attention_packed_bwd_plain(q, k, v, g, out, stats, window, m,
+                                                          exclude_start, sinks)
+        return grads if sinks is not None else grads + (None,)
+    if not q.is_cuda:
+        raise ValueError(f"no packed attention backward for device {q.device}")
+    _check_sink(q, k, v, sinks, window, m, (("g", g), ("out", out), ("stats", stats)))
+    H, dk, N = q.shape
+    T, dv = k.shape[2], v.shape[1]
+    if g.shape != out.shape or out.shape != (H, dv, N) or stats.shape != (H, 2, N):
+        raise ValueError(f"g {tuple(g.shape)}, out {tuple(out.shape)} and stats "
+                         f"{tuple(stats.shape)} do not match q {tuple(q.shape)}, v "
+                         f"{tuple(v.shape)}")
+    floats = ctypes.c_longlong(0)
+    plan = cuda_build.kernel_function("swa_sink_bwd", "swa_sink_bwd_scratch",
+                                      _SINK_SCRATCH_ARGTYPES)
+    if plan(H, dk, dv, T, m, window, ctypes.addressof(floats)) != 0:
+        raise ValueError(f"no sink instance for H={H}, T={T}, {(dk, dv, m, window)}")
+    scratch = torch.empty(floats.value, dtype=torch.float32, device=q.device)
+    dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsinks = None if sinks is None else torch.empty_like(sinks)
+    fn = cuda_build.kernel_function("swa_sink_bwd", "swa_sink_bwd", _SINK_BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
+              stats.data_ptr(), _ptr(sinks), dq.data_ptr(), dkk.data_ptr(), dvv.data_ptr(),
+              _ptr(dsinks), scratch.data_ptr(), H, dk, dv, T, m, window, int(exclude_start),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch("swa_sink_bwd", "swa_sink_bwd", code)
+    sliding_window_attention_sink_bwd.launches += 2
+    return dq, dkk, dvv, dsinks
+
+
+sliding_window_attention_sink_bwd.launches = 0
+
+
+class _SinkAttention(torch.autograd.Function):
+    """The sink instance's forward saving (q, k, v, sinks, out, stats), its
+    backward giving the sinks' gradient too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sinks, window: int, m: int, exclude_start: bool):
+        out, stats = sliding_window_attention_sink(q, k, v, sinks, window, m, exclude_start)
+        ctx.save_for_backward(q, k, v, sinks, out, stats)
+        ctx.window, ctx.m, ctx.exclude_start = window, m, exclude_start
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, sinks, out, stats = ctx.saved_tensors
+        dq, dk, dv, dsinks = sliding_window_attention_sink_bwd(
+            q, k, v, g.contiguous(), out, stats, sinks, ctx.window, ctx.m, ctx.exclude_start)
+        return dq, dk, dv, dsinks, None, None, None
 
 
 # --- head-major layout ---------------------------------------------------

@@ -16,6 +16,8 @@ cog        COG: multi-track CE + smoothing (train_..._COG), for the
 tecno      TeCNo: soft CE averaged over the stages (compute_loss)
 tsvn       a frozen TeCNo, then TransSVNet on its last stage's logits:
            soft CE (train_..._TSVN)
+mimo       MiMoV2Flash (models/mimo.py, the port's own): its (B, T, 2)
+           logits, TransSVNet's soft CE
 =========  ===========================================================
 
 With ``trial_batch`` = G > 1 a step takes a group of G trials stacked on a
@@ -230,7 +232,7 @@ def _predictions(final: torch.Tensor, n_classes: int):
     return preds, probs.reshape(-1, n_classes)
 
 
-_FAMILIES = {"COG": "cog", "TeCNo": "tecno", "TransSVNet": "tsvn",
+_FAMILIES = {"COG": "cog", "TeCNo": "tecno", "TransSVNet": "tsvn", "MiMoV2Flash": "mimo",
              "SimpleCNN": "window", "SimpleLSTM": "window",
              "Siamese_CNN": "siamese", "Siamese_LSTM": "siamese"}
 WINDOW_FAMILIES = ("window", "siamese")
@@ -242,10 +244,12 @@ class Experiment:
     device (CUDA unless the caller passes ``device="cpu"``). Parameters start
     at zero (serving loads them); :meth:`init_weights` draws them from a
     seed. Matmuls and cuDNN compute in full fp32, as the JAX package's do:
-    constructing an Experiment switches TF32 off for both."""
+    constructing an Experiment switches TF32 off for both. ``arch``:
+    MiMoV2Flash's sizes (``models.mimo.MiMoArch``; the published widths and
+    this chip's cut when None)."""
 
     def __init__(self, cfg: ExperimentConfig, device=None,
-                 prompt_path: Optional[str] = None):
+                 prompt_path: Optional[str] = None, arch=None):
         # PyTorch leaves cuDNN's TF32 on by default, and the window models'
         # convs and LSTMs run on cuDNN
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -254,7 +258,7 @@ class Experiment:
         self.device = resolve_device(device)
         self.family = _FAMILIES[cfg.model_name]
         container = WindowNet if self.family in WINDOW_FAMILIES else FrameNet
-        net = container(build_model(cfg, prompt_path), build_feature_extractor(cfg))
+        net = container(build_model(cfg, prompt_path, arch), build_feature_extractor(cfg))
         self.net = net.to(self.device).eval()
         self.optimizer = make_optimizer(cfg, self.net.parameters())
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -354,7 +358,8 @@ class Experiment:
 
     def _forward(self, data: Dict[str, torch.Tensor], train: bool, masks=None):
         """The model's output for the family's loss: COG's track list,
-        TeCNo's (S, 1, T, 2) stage logits, TransSVNet's (1, T, 2). The frozen
+        TeCNo's (S, 1, T, 2) stage logits, TransSVNet's and MiMoV2Flash's
+        (1, T, 2) (MiMo has no dropout). The frozen
         TeCNo runs under no_grad, so it saves nothing for a backward."""
         x = self._assemble(data)
         model = self.net.model
@@ -369,6 +374,8 @@ class Experiment:
             return model(tecno_logits, x)
         if self.family == "tecno":
             return model(x, train=train, masks=masks, generator=self.generator)
+        if self.family == "mimo":
+            return model(x)
         out_list, _ = model(x, train=train, masks=masks, generator=self.generator)
         return out_list
 

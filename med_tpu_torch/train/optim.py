@@ -30,8 +30,10 @@ def make_optimizer(cfg: ExperimentConfig,
     """Adam with coupled L2. Every parameter starts with a zero gradient, so
     a parameter the loss does not reach still takes its weight decay each
     step, as it does under optax (torch skips parameters whose grad is
-    None); clear gradients with ``zero_grad(set_to_none=False)``."""
-    params = list(params)
+    None); clear gradients with ``zero_grad(set_to_none=False)``. A
+    parameter that takes no gradient (``requires_grad=False``: MiMo's fixed
+    routing bias) is left out."""
+    params = [p for p in params if p.requires_grad]
     for p in params:
         p.grad = torch.zeros_like(p)
     # on the card Adam takes its multi-tensor path either way; naming it

@@ -94,13 +94,15 @@ def span(name: str, root: bool = False):
     return _Span(name)
 
 
-def count(name: str) -> None:
-    """Add one to the counter ``name`` while a profiler records (a train
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records (a train
     step's ``med.train.graph_capture`` and ``med.train.graph_step``,
-    ``train/graphs.py``); :func:`snapshot` gives it as a span of no time."""
+    ``train/graphs.py``; a MiMo MoE layer's ``med.moe.assignments`` and
+    ``med.moe.held``, ``models/mimo.py``); :func:`snapshot` gives it as a
+    span of no time, its count under "calls"."""
     if _recording():
         with _lock:
-            _totals[name][0] += 1
+            _totals[name][0] += int(n)
 
 
 def snapshot() -> Dict[str, Dict[str, float]]:
