@@ -34,10 +34,20 @@ over all 256 and adds what its own experts give, dropping no token and
 with no capacity limit. Gathering a held expert's frames needs their
 count on the host: one sync a layer.
 
+The held experts that got frames run as one autograd node
+(``_HeldExperts``): its backward writes each expert's weight gradients once
+into its slices of the three stacked gradients and zeroes the slices of a
+held expert given no frames, so no expert makes a zero-filled gradient the
+size of the whole stack (slicing the stack under autograd would, one for
+each slice, and add them all up).
+
 Spans (``utils/profiling.py``, recorded only under a profiler):
 ``med.model.window_attn``, ``med.model.full_attn``, ``med.model.moe``;
-counters ``med.moe.assignments`` (every top-k assignment) and
-``med.moe.held`` (those this layer computed)."""
+counters ``med.moe.assignments`` (every top-k assignment),
+``med.moe.held`` (those this layer computed), ``med.moe.grad_slices``
+(held experts whose gradient slices a backward wrote from their products)
+and ``med.moe.grad_zeroed`` (held experts without frames, their slices
+zeroed)."""
 
 from __future__ import annotations
 
@@ -266,35 +276,62 @@ class Experts(nn.Module):
 
 def expert_swiglu(x, w1, w3, w2):
     """One held expert's SwiGLU on the frames routed to it: x (n, hidden),
-    w1 and w3 (width, hidden), w2 (hidden, width) -> (n, hidden). Its
-    backward is :func:`expert_swiglu_bwd`, from the two (n, width) products
-    the forward saves."""
-    return _ExpertSwiGLU.apply(x, w1, w3, w2)
+    w1 and w3 (width, hidden), w2 (hidden, width) -> the output (n, hidden)
+    and the two (n, width) products its backward,
+    :func:`expert_swiglu_bwd`, reads: h1 = x w1ᵀ, h3 = x w3ᵀ."""
+    h1, h3 = x @ w1.T, x @ w3.T
+    return (F.silu(h1) * h3) @ w2.T, h1, h3
 
 
-def expert_swiglu_bwd(g, x, w1, w3, w2, h1, h3):
-    """(dx, dw1, dw3, dw2) of :func:`expert_swiglu` from the output's
-    gradient g and the saved h1 = x w1ᵀ, h3 = x w3ᵀ."""
+def expert_swiglu_bwd(g, x, w1, w3, w2, h1, h3, *, out):
+    """dx of :func:`expert_swiglu` from the output's gradient g and the
+    saved h1 and h3; the weights' gradients are written into ``out`` (dw1,
+    dw3, dw2)."""
+    dw1, dw3, dw2 = out
     s = torch.sigmoid(h1)
     act = h1 * s                                   # silu(h1)
     da = g @ w2                                    # (n, width)
-    dw2 = g.T @ (act * h3)
+    torch.mm(g.T, act * h3, out=dw2)
     dh3 = da * act
     dh1 = da * h3 * (s * (1.0 + h1 * (1.0 - s)))   # silu'(h1)
-    dx = dh1 @ w1 + dh3 @ w3
-    return dx, dh1.T @ x, dh3.T @ x, dw2
+    torch.mm(dh1.T, x, out=dw1)
+    torch.mm(dh3.T, x, out=dw3)
+    return dh1 @ w1 + dh3 @ w3
 
 
-class _ExpertSwiGLU(torch.autograd.Function):
+class _HeldExperts(torch.autograd.Function):
+    """The held experts ``experts`` (indices into the stacks w1, w3, w2) on
+    their gathered frames xs, one output each. The backward makes each
+    stacked gradient once and writes every expert's slices from its
+    products; the slices of a held expert not in ``experts`` are zeroed."""
+
     @staticmethod
-    def forward(ctx, x, w1, w3, w2):
-        h1, h3 = x @ w1.T, x @ w3.T
-        ctx.save_for_backward(x, w1, w3, w2, h1, h3)
-        return (F.silu(h1) * h3) @ w2.T
+    def forward(ctx, experts, w1, w3, w2, *xs):
+        ys, hs = [], []
+        for e, x in zip(experts, xs):
+            y, h1, h3 = expert_swiglu(x, w1[e], w3[e], w2[e])
+            ys.append(y)
+            hs += [h1, h3]
+        ctx.experts = experts
+        ctx.save_for_backward(w1, w3, w2, *xs, *hs)
+        return tuple(ys)
 
     @staticmethod
-    def backward(ctx, g):
-        return expert_swiglu_bwd(g.contiguous(), *ctx.saved_tensors)
+    def backward(ctx, *gs):
+        experts = ctx.experts
+        w1, w3, w2, *rest = ctx.saved_tensors
+        xs, hs = rest[:len(experts)], rest[len(experts):]
+        dw = [torch.empty_like(w) for w in (w1, w3, w2)]
+        dxs = [expert_swiglu_bwd(gs[i].contiguous(), xs[i], w1[e], w3[e], w2[e],
+                                 hs[2 * i], hs[2 * i + 1], out=[d[e] for d in dw])
+               for i, e in enumerate(experts)]
+        idle = sorted(set(range(w1.shape[0])) - set(experts))
+        for e in idle:
+            for d in dw:
+                d[e].zero_()
+        count("med.moe.grad_slices", len(experts))
+        count("med.moe.grad_zeroed", len(idle))
+        return (None, *dw, *dxs)
 
 
 class MiMoMoE(nn.Module):
@@ -332,14 +369,13 @@ class MiMoMoE(nn.Module):
             count("med.moe.held", len(pairs))
             rows = pairs[:, 1].to(u.device)
             out = torch.zeros_like(x)         # each call's rows distinct: no two adds meet
-            e1, e3, e2 = self.experts.w1, self.experts.w3, self.experts.w2
-            at = 0
-            for e, n in enumerate(counts):
-                if n == 0:
-                    continue
-                idx = rows[at:at + n]
-                at += n
-                ye = expert_swiglu(x.index_select(0, idx), e1[e], e3[e], e2[e])
+            held = [e for e, n in enumerate(counts) if n]
+            if not held:                      # no gradient reaches the experts
+                return out.reshape(shape)
+            idxs = rows.split([counts[e] for e in held])
+            ys = _HeldExperts.apply(tuple(held), self.experts.w1, self.experts.w3,
+                                    self.experts.w2, *(x.index_select(0, i) for i in idxs))
+            for e, idx, ye in zip(held, idxs, ys):
                 out.index_add_(0, idx, ye * w_held.index_select(0, idx)[:, e:e + 1])
             return out.reshape(shape)
 

@@ -98,8 +98,9 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` while a profiler records (a train
     step's ``med.train.graph_capture`` and ``med.train.graph_step``,
     ``train/graphs.py``; a MiMo MoE layer's ``med.moe.assignments`` and
-    ``med.moe.held``, ``models/mimo.py``); :func:`snapshot` gives it as a
-    span of no time, its count under "calls"."""
+    ``med.moe.held``, and its backward's ``med.moe.grad_slices`` and
+    ``med.moe.grad_zeroed``, ``models/mimo.py``); :func:`snapshot` gives it
+    as a span of no time, its count under "calls"."""
     if _recording():
         with _lock:
             _totals[name][0] += int(n)

@@ -17,7 +17,12 @@ runs), at a small size on the CPU: hidden 64, 8 query heads over 2 KV heads
 - COG's zero-padded plain path giving the bits it gave before;
 - the frame CLI with ``--model-name MiMoV2Flash`` and
   ``FrameModelServer`` on its checkpoint (``MiMoArch``'s published cut
-  swapped for the small size where ``build_model`` takes it).
+  swapped for the small size where ``build_model`` takes it);
+- one MoE layer, a held expert given no frames, against the per-slice path
+  it replaced (each expert's weights sliced from the stacks under
+  autograd): the output and every gradient equal bit for bit in float32
+  and float64, no ``SelectBackward0`` on a stack in the backward graph,
+  and the gradient-slice counters covering every held expert.
 
 Tolerances: float64 rtol 1e-9 (the two sides order their sums differently;
 float64 rounding is ~1e-16 a step, so 1e-9 is far above it and far below any
@@ -340,3 +345,156 @@ def test_windowed_layers_hand_the_kernels_contiguous_operands(monkeypatch):
     model = model_of(cfg, seeded(cfg), torch.float32)
     model(trial(dtype=torch.float32)[0][None])
     assert seen and all(seen)
+
+
+class _SliceSwiGLU(torch.autograd.Function):
+    """One held expert's SwiGLU on its weights' slices, as the layer ran it
+    before its held experts became one node: autograd makes each slice's
+    gradient a zero-filled tensor the size of the stack and adds them up."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2):
+        h1, h3 = x @ w1.T, x @ w3.T
+        ctx.save_for_backward(x, w1, w3, w2, h1, h3)
+        return (torch.nn.functional.silu(h1) * h3) @ w2.T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, w3, w2, h1, h3 = ctx.saved_tensors
+        g = g.contiguous()
+        s = torch.sigmoid(h1)
+        act = h1 * s
+        da = g @ w2
+        dw2 = g.T @ (act * h3)
+        dh3 = da * act
+        dh1 = da * h3 * (s * (1.0 + h1 * (1.0 - s)))
+        return dh1 @ w1 + dh3 @ w3, dh1.T @ x, dh3.T @ x, dw2
+
+
+def per_slice_moe(layer, u):
+    """``MiMoMoE.forward`` with each held expert's weights sliced from the
+    stacks under autograd (``e1[e]``), one node an expert."""
+    x = u.reshape(-1, u.shape[-1])
+    scores = torch.sigmoid(x @ layer.gate.weight.T)
+    chosen = layer.select(scores.detach())
+    picked = torch.gather(scores, 1, chosen)
+    weights = picked / picked.sum(dim=-1, keepdim=True)
+    n_held = layer.experts.w1.shape[0]
+    ids = torch.arange(layer.first, layer.first + n_held, device=u.device)
+    hit = chosen[:, :, None] == ids
+    w_held = (weights[:, :, None] * hit).sum(dim=1)
+    pairs = hit.any(dim=1).T.nonzero().cpu()
+    counts = torch.bincount(pairs[:, 0], minlength=n_held).tolist()
+    rows = pairs[:, 1].to(u.device)
+    out = torch.zeros_like(x)
+    e1, e3, e2 = layer.experts.w1, layer.experts.w3, layer.experts.w2
+    at = 0
+    for e, n in enumerate(counts):
+        if n == 0:
+            continue
+        idx = rows[at:at + n]
+        at += n
+        ye = _SliceSwiGLU.apply(x.index_select(0, idx), e1[e], e3[e], e2[e])
+        out.index_add_(0, idx, ye * w_held.index_select(0, idx)[:, e:e + 1])
+    return out.reshape(u.shape)
+
+
+def moe_layer(dtype, starved=(1,), frames=40, seed=11, arch=None, device="cpu"):
+    """One MoE layer (the small size's experts 4-7 of 16, top 4 unless
+    ``arch`` is given) with seeded weights, the held experts ``starved``
+    biased out of every top k, and (1, frames, hidden) inputs."""
+    from med_tpu_torch.models.layers import _uniform_
+
+    arch = arch or MiMoArch.from_dict(ref.arch(small_config()))
+    layer = MiMoMoE(arch)
+    g = torch.Generator().manual_seed(seed)
+    layer.experts.reset_parameters(g)
+    _uniform_(layer.gate.weight, arch.hidden, g)
+    with torch.no_grad():
+        for e in starved:
+            layer.gate.e_score_correction_bias[layer.first + e] = -1e3
+    u = torch.randn((1, frames, arch.hidden), generator=g, dtype=dtype)
+    return layer.to(device=device, dtype=dtype), u.to(device)
+
+
+def moe_grads(layer, u, forward):
+    """The layer's output and the gradients of a seeded projection of it
+    with respect to the input, the router and the three stacks."""
+    u = u.detach().requires_grad_(True)
+    out = forward(u)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2),
+                       dtype=u.dtype).to(u.device)
+    leaves = [u, layer.gate.weight, layer.experts.w1, layer.experts.w3, layer.experts.w2]
+    return out, torch.autograd.grad(out, leaves, gout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_held_experts_keep_the_per_slice_paths_bits(dtype):
+    """The layer against the per-slice path it replaced, one held expert
+    given no frames: the output and the three stacked gradients equal, the
+    starved expert's slices zero, the input's and the router's gradients
+    equal bit for bit."""
+    layer, u = moe_layer(dtype)
+    out, got = moe_grads(layer, u, layer)
+    want_out, want = moe_grads(layer, u, lambda v: per_slice_moe(layer, v))
+    assert torch.equal(out, want_out)
+    for name, a, b in zip(("input", "router", "w1", "w3", "w2"), got, want):
+        assert torch.equal(a, b), name
+    for d in got[2:]:
+        assert torch.count_nonzero(d[1]) == 0
+        assert all(torch.count_nonzero(d[e]) > 0 for e in (0, 2, 3))
+
+
+def _selects_of_stacks(out, stacks):
+    """The backward graph's ``SelectBackward0`` nodes that feed a stack."""
+    found, seen, todo = [], set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        nexts = [n for n, _ in node.next_functions]
+        if type(node).__name__ == "SelectBackward0" and any(
+                getattr(n, "variable", None) is s for n in nexts for s in stacks):
+            found.append(node)
+        todo += nexts
+    return found
+
+
+def test_backward_graph_slices_no_stacked_expert_weight():
+    layer, u = moe_layer(torch.float64)
+    u.requires_grad_(True)
+    stacks = (layer.experts.w1, layer.experts.w3, layer.experts.w2)
+    assert _selects_of_stacks(layer(u), stacks) == []
+    # the walk finds the per-slice path's three a fed expert
+    assert len(_selects_of_stacks(per_slice_moe(layer, u), stacks)) == 9
+
+
+def test_gradient_slice_counters_cover_every_held_expert():
+    from med_tpu_torch.utils import profiling
+
+    layer, u = moe_layer(torch.float32)
+    u.requires_grad_(True)
+    calls = 3
+    with torch.autograd.profiler.profile(use_kineto=False):
+        profiling.reset()
+        for _ in range(calls):
+            layer(u).square().sum().backward()
+        snap = profiling.snapshot()
+    profiling.reset()
+    slices, zeroed = snap["med.moe.grad_slices"]["calls"], snap["med.moe.grad_zeroed"]["calls"]
+    assert slices + zeroed == layer.experts.w1.shape[0] * calls
+    assert zeroed == calls                         # the starved expert, each backward
+
+
+def test_a_layer_feeding_no_held_expert_runs_no_expert(monkeypatch):
+    """Every held expert biased out: no expert runs, and the layer's zero
+    output carries no gradient to the stacks."""
+    import med_tpu_torch.models.mimo as mimo
+
+    calls = []
+    monkeypatch.setattr(mimo, "expert_swiglu", lambda *a: calls.append(a))
+    layer, u = moe_layer(torch.float64, starved=(0, 1, 2, 3))
+    out = layer(u.requires_grad_(True))
+    assert calls == [] and torch.count_nonzero(out) == 0
+    assert not out.requires_grad

@@ -5,9 +5,11 @@ head, a 128-frame window) at T = 1,024 and 4,096 and at a ragged 1,000,
 with and without sinks and the start mask, its backward's sink gradient
 and two backward runs equal bit for bit; COG's K1/K3 giving the bits they
 gave before the sink instance came (a digest of their outputs on seeded
-inputs); and a MiMo train step at the cut's widths (two layers, one of
-each kind) on the card against the plain reference
-(``benchmark/reference/mimo_v2_flash.py``). They need an NVIDIA GPU and
+inputs); a MiMo train step at the cut's widths (two layers, one of each
+kind) on the card against the plain reference
+(``benchmark/reference/mimo_v2_flash.py``); and one MoE layer at the
+published widths giving the stacked expert gradients the per-slice path
+gives (``test_torch_mimo.py::per_slice_moe``) bit for bit. They need an NVIDIA GPU and
 skip without one; this file imports no JAX:
 
     python -m pytest tests/test_torch_mimo_cuda.py --noconftest -q
@@ -223,3 +225,25 @@ def test_train_step_at_the_published_widths_matches_the_reference(cuda_device):
         h1 = ref.attention_part(leaves, 1, h, a)
         u = ref._rms(h1, leaves["model.layers.1.ffn_norm.weight"], a["eps"])
         assert ref.pick_gap(leaves, "model.layers.1.", u, a, picked[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("starved", [(), (3,)])
+def test_held_experts_gradients_keep_the_per_slice_bits(cuda_device, starved):
+    """One MoE layer at the published widths (hidden 4,096, experts 0-7 of
+    256 of width 2,048, top 8) on 1,536 frames, ~48 an expert (one held
+    expert biased out in the second case): the output and the three stacked
+    gradients equal the per-slice path's bit for bit."""
+    from med_tpu_torch.models.mimo import MiMoArch
+
+    path = Path(__file__).resolve().parent / "test_torch_mimo.py"
+    spec = importlib.util.spec_from_file_location("mimo_cpu_tests_on_card", path)
+    cpu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cpu)
+    layer, u = cpu.moe_layer(torch.float32, starved=starved, frames=1536, arch=MiMoArch(),
+                             device=cuda_device)
+    out, got = cpu.moe_grads(layer, u, layer)
+    want_out, want = cpu.moe_grads(layer, u, lambda v: cpu.per_slice_moe(layer, v))
+    assert torch.equal(out, want_out)
+    for name, a, b in zip(("w1", "w3", "w2"), got[2:], want[2:]):
+        assert torch.equal(a, b), name
+        assert all((torch.count_nonzero(a[e]) == 0) == (e in starved) for e in range(8)), name
