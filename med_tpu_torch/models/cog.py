@@ -30,6 +30,7 @@ bias; the FPN shares one lateral conv; the refinement AvgPool is a no-op.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -199,9 +200,12 @@ class ChainOfGestureTransformer(nn.Module):
         if long_feature.dim() == 2:
             return self(gest_embed, long_feature[None])[0]
         visual, text0, text = self.embed(gest_embed, long_feature)
-        for i in range(self.n_layers):
-            text = getattr(self, f"layer{i}")(text, visual)
+        for layer in self.layers():
+            text = layer(text, visual)
         return self.close(text, text0)
+
+    def layers(self) -> List[COGEncoderLayer]:
+        return [getattr(self, f"layer{i}") for i in range(self.n_layers)]
 
     def embed(self, gest_embed, long_feature):
         """The block's inputs: visual (B, T + len_q - 1, d_model) with its
@@ -259,13 +263,9 @@ class COGStage(nn.Module):
             out = out * keep.to(out.dtype) * 2.0
         return out
 
-    def features(self, x, train: bool = False, masks=None):
-        if train:
-            return self.stack(self.pre(x, True, masks.get("channel")), masks["stack"])
-        return self.stack(self.pre(x))
-
     def forward(self, x, train: bool = False, masks=None):
-        out = self.features(x, train, masks)
+        out = (self.stack(self.pre(x, True, masks.get("channel")), masks["stack"]) if train
+               else self.stack(self.pre(x)))
         return out, self.conv_out(out).to(torch.float32)
 
 
@@ -342,27 +342,98 @@ class COG(nn.Module):
                     B, T if name in self.slow_names else Tf, generator)
                 for name in self.slow_names + self.fast_names}
 
-    def _slow_path(self, xx, train: bool, masks):
-        """The slow stages' features, each (B, T, C). In float32 all stages
-        of a trial run back to back through the multi-stage kernel, one
-        launch a trial (the stages' own class convs are dead here, as in the
-        JAX package); in another dtype stage by stage."""
-        slow = [getattr(self, n) for n in self.slow_names]
-        if self.dtype is not None:
-            f, f_list = xx, []
-            for name, stage in zip(self.slow_names, slow):
-                f = stage.features(f, train, masks[name] if train else None)
-                f_list.append(f)
-            return f_list
-        keep = masks["TCN"].get("channel") if train else None
-        x0 = slow[0].pre(xx, train, keep)
-        return _stack_trials(self._slow_stacks(x0, masks if train else None))
+    def forward(self, x, train: bool = False, masks=None,
+                generator: Optional[torch.Generator] = None, run=None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """x (B, T, f_dim), B trials of one length (one, outside a trial
+        group) -> (out_list, f_list): 4 slow FPN logit tracks at T and 1 +
+        num_r fast tracks at T // fast_pool, each (B, T_i, out_classes), and
+        the stages' features, detached (nothing differentiates them).
+        ``train`` applies dropout with ``masks`` (:meth:`dropout_masks`'
+        layout), or with masks drawn from ``generator`` when none are given.
+
+        The kernels run here, the rest in the stretches between them
+        (:meth:`stretch`): K1 after "embed" and each "layer<i>", K2a (the
+        slow stages) after "slow", each fast stage's K2b after the stretch
+        before it. ``run(name, *inputs)`` runs a stretch and returns its
+        outputs: by default the stretch itself; the train step's graphs
+        pass their replay of it (``train/graphs.py``). SRM's skill chain
+        runs whole before "slow", which concatenates it."""
+        if not train:
+            masks = None
+        elif masks is None:
+            if generator is None:
+                raise ValueError("a training forward needs masks or a generator")
+            masks = self.dropout_masks(x.shape[1], generator, x.shape[0])
+        if run is None:
+            def run(name, *xs):
+                return self.stretch(name)(*xs)
+
+        def mask(name, key):
+            return None if masks is None else masks[name].get(key)
+
+        layers = self.cot.layers()
+        text0, visual, q_in, q, k, v = run("embed", x)
+        for i, layer in enumerate(layers):
+            ctx = sliding_window_attention_packed(q, k, v, layer.window, layer.m_tokens)
+            if i + 1 < len(layers):
+                q_in, q, k, v = run(f"layer{i + 1}", ctx, q_in, visual)
+        skill = [] if self.cot_skill is None else [self.cot_skill(self.skill_embed, x)]
+        xx, *x0 = run("slow", ctx, q_in, text0, mask("TCN", "channel"), *skill)
+        out = run("fpn", xx, mask("fast_stage1", "channel"), *self._slow_stacks(x0, masks))
+        n = len(self.slow_names)
+        out_list, f_list, fx = list(out[:n]), list(out[n:2 * n]), out[2 * n:]
+        for name in self.fast_names:
+            fast_out, f, *fx = run(name, *getattr(self, name).stack.trials(fx, mask(name, "stack")))
+            out_list.append(fast_out)
+            f_list.append(f)
+        return out_list, f_list
+
+    def stretch(self, name: str):
+        """The stretch of :meth:`forward` called ``name``: a pure tensor
+        function of its inputs and of its submodules' parameters. Nothing in
+        it launches a hand-written kernel, draws random numbers or syncs the
+        host, so a CUDA graph can hold it. It hands a kernel its input trial
+        by trial, (T, C) each."""
+        if name.startswith("layer"):
+            return functools.partial(self._layer, int(name[len("layer"):]))
+        if name in self.fast_names:
+            return functools.partial(self._fast, self.fast_names.index(name))
+        return {"embed": self._embed, "slow": self._slow, "fpn": self._fpn}[name]
+
+    def _embed(self, x):
+        """"embed": the chain's projections, enc_norm, the text tokens and
+        layer 0 up to its K1 -> (text0, visual, q_in, q, k, v)."""
+        visual, text0, text = self.cot.embed(self.gest_embed, x)
+        return (text0, visual, *self.cot.layer0.open(text, visual))
+
+    def _layer(self, i, ctx, q_in, visual):
+        """"layer<i>": layer i-1 after its K1 and layer i up to its own."""
+        layers = self.cot.layers()
+        return layers[i].open(layers[i - 1].close(ctx, q_in), visual)
+
+    def _slow(self, ctx, q_in, text0, keep, *skill):
+        """"slow": the last layer after its K1, the prompt attention (SRM's
+        skill chain concatenated), the TCN stage's input conv and channel
+        dropout -> (xx, the TCN stage's input trials)."""
+        xx = self.cot.close(self.cot.layers()[-1].close(ctx, q_in), text0)
+        if skill:
+            xx = torch.cat([xx, *skill], dim=-1)
+        return xx, *self.TCN.pre(xx, keep is not None, keep).unbind(0)
 
     def _slow_stacks(self, x0, masks=None):
-        """The multi-stage kernel over the slow stages, one launch a trial
-        of x0 (B, T, C), or of its B trials (T, C): each trial's (S, T, C)
-        stage outputs."""
+        """K2a: the slow stages' stacks over x0's trials -> each trial's S
+        stage outputs. In float32 all stages of a trial run back to back
+        through the multi-stage kernel, one launch a trial (the stages' own
+        class convs are dead here, as in the JAX package); in another dtype
+        stage by stage."""
         slow = [getattr(self, n) for n in self.slow_names]
+        if self.dtype is not None:
+            per_stage = []
+            for name, stage in zip(self.slow_names, slow):
+                x0 = stage.stack.trials(x0, None if masks is None else masks[name]["stack"])
+                per_stage.append(x0)
+            return list(zip(*per_stage))
         per_trial = []
         for b, xb in enumerate(x0):
             stack_masks = (None if masks is None else
@@ -373,61 +444,39 @@ class COG(nn.Module):
                 masks=stack_masks))
         return per_trial
 
-    def _fpn(self, f_list):
-        """FPN upsample-add over the slow stages' features with a single
-        shared lateral conv -> the 4 slow logit tracks."""
+    def _fpn(self, xx, keep, *per_trial):
+        """"fpn": the FPN's upsample-adds over the slow stages' features
+        with its one shared lateral conv, the 16x pool and fast_stage1's
+        input conv and channel dropout -> (the 4 slow tracks, the slow
+        features, fast_stage1's input trials)."""
+        f_list = [torch.stack(hs) for hs in zip(*per_trial)]
         p = f_list[-1]
         pyramid = [p]
         for c in reversed(f_list[:-1]):
             p = interp1d_linear(p, c.shape[1], axis=1) + self.latlayer1(c)
             pyramid.insert(0, p)
-        return [self.conv_out(p).to(torch.float32) for p in pyramid]
+        tracks = [self.conv_out(p).to(torch.float32) for p in pyramid]
+        fast = F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
+        fast = self.fast_stage1.pre(fast, keep is not None, keep)
+        return (*tracks, *(f.detach() for f in f_list), *fast.unbind(0))
 
-    def _fast_in(self, xx):
-        """The fast path's input: the chain's features average-pooled 16x."""
-        return F.avg_pool1d(xx.transpose(1, 2), self.fast_pool).transpose(1, 2)
-
-    def forward(self, x, train: bool = False, masks=None,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """x (B, T, f_dim), B trials of one length (one, outside a trial
-        group) -> (out_list, f_list): 4 slow FPN logit tracks at T and 1 +
-        num_r fast tracks at T // fast_pool, each (B, T_i, out_classes).
-        ``train`` applies dropout with ``masks`` (:meth:`dropout_masks`'
-        layout), or with masks drawn from ``generator`` when none are given."""
-        if train and masks is None:
-            if generator is None:
-                raise ValueError("a training forward needs masks or a generator")
-            masks = self.dropout_masks(x.shape[1], generator, x.shape[0])
-        xx = self.cot(self.gest_embed, x)             # (B, T, M*d_model)
-        if self.cot_skill is not None:
-            xx = torch.cat([xx, self.cot_skill(self.skill_embed, x)], dim=-1)
-
-        f_list = self._slow_path(xx, train, masks)
-        out_list = self._fpn(f_list)
-        fast_f, fast_out = self.fast_stage1(
-            self._fast_in(xx), train, masks["fast_stage1"] if train else None)
-        f_list.append(fast_f)
-        out_list.append(fast_out)
-        for name in self.fast_names[1:]:
-            fast_f, fast_out = getattr(self, name)(
-                torch.softmax(fast_out, dim=-1), train, masks[name] if train else None)
-            f_list.append(fast_f)
-            out_list.append(fast_out)
-        return out_list, f_list
-
-
-def _stack_trials(per_trial):
-    """Per-trial (S, T, C) stage outputs -> S stage features (B, T, C)."""
-    return [torch.stack(hs) for hs in zip(*per_trial)]
+    def _fast(self, i, *trials):
+        """Fast stage i after its K2b: its class conv, then the next stage's
+        input conv on the softmax -> (its track, its features, the next
+        stage's input trials); the last stage's class conv alone."""
+        names = self.fast_names
+        f = torch.stack(trials)
+        out = getattr(self, names[i]).conv_out(f).to(torch.float32)
+        if i + 1 == len(names):
+            return out, f.detach()
+        nxt = getattr(self, names[i + 1])
+        return out, f.detach(), *nxt.pre(torch.softmax(out, dim=-1)).unbind(0)
 
 
 class Segment(nn.Module):
-    """One stretch of COG's forward between two kernel calls: a pure tensor
-    function of its inputs and of the parameters of the submodules it
-    holds. Nothing in it launches a hand-written kernel, draws random
-    numbers or syncs the host, so a CUDA graph can hold it
-    (``train/graphs.py``)."""
+    """A stretch of :meth:`COG.forward` (:meth:`COG.stretch`) holding the
+    submodules whose parameters it uses: a CUDA graph of it differentiates
+    those (``train/graphs.py``)."""
 
     def __init__(self, fn, *modules: nn.Module):
         super().__init__()
@@ -439,46 +488,11 @@ class Segment(nn.Module):
 
 
 def segments(model: COG) -> Dict[str, Segment]:
-    """A float32 COG without SRM cut at its kernel calls, in the order
-    :func:`segmented_forward` runs them: "embed" (the chain's projections,
-    enc_norm, the text tokens and layer 0 up to K1), "layer<i>" (layer i-1
-    after its K1 and layer i up to its own), "slow" (the last layer's close,
-    the prompt attention, the TCN stage's input conv and channel dropout:
-    then K2a), "fpn" (the FPN's 4 slow tracks, the 16x pool and
-    fast_stage1's input conv and channel dropout: then its K2b), and one
-    for each fast stage (its class conv, then the next stage's input conv
-    on the softmax: then that stage's K2b; the last stage's class conv
-    alone)."""
+    """The stretches of a float32 COG without SRM as :class:`Segment`
+    modules, in the order :meth:`COG.forward` runs them."""
     if model.dtype is not None or model.cot_skill is not None:
         raise ValueError("the segments cut a float32 COG without SRM")
-    cot = model.cot
-    layers = [getattr(cot, f"layer{i}") for i in range(cot.n_layers)]
-
-    def embed(x):
-        visual, text0, text = cot.embed(model.gest_embed, x)
-        return (text0, visual, *layers[0].open(text, visual))
-
-    def between(i):
-        return lambda ctx, q_in, visual: layers[i].open(layers[i - 1].close(ctx, q_in), visual)
-
-    # a segment hands a kernel's input on trial by trial: (T, C) each
-    def slow(ctx, q_in, text0, keep):
-        xx = cot.close(layers[-1].close(ctx, q_in), text0)
-        return xx, *model.TCN.pre(xx, keep is not None, keep).unbind(0)
-
-    def fpn(xx, keep, *per_trial):
-        tracks = model._fpn(_stack_trials(per_trial))
-        fast = model.fast_stage1.pre(model._fast_in(xx), keep is not None, keep)
-        return (*tracks, *fast.unbind(0))
-
-    def refine(stage, nxt):
-        def fn(*trials):
-            out = stage.conv_out(torch.stack(trials)).to(torch.float32)
-            return out, *nxt.pre(torch.softmax(out, dim=-1)).unbind(0)
-        return fn
-
-    def last(stage):
-        return lambda *trials: (stage.conv_out(torch.stack(trials)).to(torch.float32),)
+    layers = model.cot.layers()
 
     def proj(layer):
         return layer.norm1, layer.W_Q, layer.W_K, layer.W_V
@@ -486,48 +500,16 @@ def segments(model: COG) -> Dict[str, Segment]:
     def close(layer):
         return layer.norm3, layer.ffn
 
-    out = {"embed": Segment(embed, cot.linear1, cot.linear2, cot.enc_norm, *proj(layers[0]))}
+    uses = {"embed": (model.cot.linear1, model.cot.linear2, model.cot.enc_norm,
+                      *proj(layers[0]))}
     for i in range(1, len(layers)):
-        out[f"layer{i}"] = Segment(between(i), *close(layers[i - 1]), *proj(layers[i]))
-    out["slow"] = Segment(slow, *close(layers[-1]), cot.atten, model.TCN.conv_in)
-    out["fpn"] = Segment(fpn, model.latlayer1, model.conv_out, model.fast_stage1.conv_in)
+        uses[f"layer{i}"] = (*close(layers[i - 1]), *proj(layers[i]))
+    uses["slow"] = (*close(layers[-1]), model.cot.atten, model.TCN.conv_in)
+    uses["fpn"] = (model.latlayer1, model.conv_out, model.fast_stage1.conv_in)
     fast = [getattr(model, n) for n in model.fast_names]
-    for name, stage, nxt in zip(model.fast_names, fast, fast[1:]):
-        out[name] = Segment(refine(stage, nxt), stage.conv_out, nxt.conv_in)
-    out[model.fast_names[-1]] = Segment(last(fast[-1]), fast[-1].conv_out)
-    return out
-
-
-def segmented_forward(model: COG, segs: Dict[str, Segment], x, masks=None, run=None):
-    """:meth:`COG.forward`'s out_list for a float32 COG without SRM, through
-    the :func:`segments` ``segs`` with the kernels launched between them:
-    K1 after "embed" and each "layer<i>", K2a after "slow", each fast
-    stage's K2b after the segment before it. ``masks`` as
-    :meth:`COG.dropout_masks` draws them (a training forward), or None (an
-    eval one). ``run(name, *inputs)`` runs a segment and returns its
-    outputs: by default the segment itself, eagerly, which computes what
-    :meth:`COG.forward` computes, op for op."""
-    if run is None:
-        def run(name, *xs):
-            return segs[name](*xs)
-
-    def mask(name, key):
-        return None if masks is None else masks[name][key]
-
-    layers = [getattr(model.cot, f"layer{i}") for i in range(model.cot.n_layers)]
-    text0, visual, q_in, q, k, v = run("embed", x)
-    for i, layer in enumerate(layers):
-        ctx = sliding_window_attention_packed(q, k, v, layer.window, layer.m_tokens)
-        if i + 1 < len(layers):
-            q_in, q, k, v = run(f"layer{i + 1}", ctx, q_in, visual)
-    xx, *x0 = run("slow", ctx, q_in, text0, mask("TCN", "channel"))
-    out = run("fpn", xx, mask("fast_stage1", "channel"), *model._slow_stacks(x0, masks))
-    n = len(model.slow_names)
-    out_list, fx = list(out[:n]), out[n:]
-    for name in model.fast_names:
-        fast_out, *fx = run(name, *getattr(model, name).stack.trials(fx, mask(name, "stack")))
-        out_list.append(fast_out)
-    return out_list
+    for name, stage, nxt in zip(model.fast_names, fast, fast[1:] + [None]):
+        uses[name] = (stage.conv_out,) + (() if nxt is None else (nxt.conv_in,))
+    return {name: Segment(model.stretch(name), *mods) for name, mods in uses.items()}
 
 
 def prompt_texts(use_all_gestures: bool = True, use_skill_prompt: bool = False,

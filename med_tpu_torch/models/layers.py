@@ -265,8 +265,11 @@ class ResidualStack(nn.Module):
         return torch.stack(self.trials(x, mask, rate))
 
     def trials(self, x, mask=None, rate: Optional[float] = None):
-        """The float32 stack trial by trial, one kernel launch a trial of x
-        (B, T, C), or of its B trials (T, C): each trial's (T, C) output."""
+        """The stack over x (B, T, C), or over its B trials (T, C): each
+        trial's (T, C) output. In float32 one kernel launch a trial; with a
+        ``dtype`` the layer loop over the batch."""
+        if self.dtype is not None:
+            return list(self(torch.stack(list(x)), mask, rate).unbind(0))
         scale = keep_scale(self.dropout_rate if rate is None else rate)
         return [dilated_residual_stack(xb, *self.weights(), causal=self.causal, scale=scale,
                                        mask=None if mask is None else mask[:, b].contiguous())

@@ -2,17 +2,17 @@
 
 A COG train step runs ~1,400 device operations, all but 14 of them small
 PyTorch ops that the host launches one by one: the forward, the 8 tracks'
-loss and autograd's backward. Here each stretch between two kernel calls
-(``models/cog.py::segments``) and the loss run from CUDA graphs. The first
-call of a stretch at a batch's shapes warms it up on a side stream and
-captures its forward and its backward (``torch.autograd.grad`` into every
-input and parameter that needs a gradient, as
-``torch.cuda.make_graphed_callables`` does) into a memory pool of its own;
-every call then copies its inputs into the graph's own (an input that is
-another graph's output is read where it lies) and replays. A replay is one
-node of autograd (:class:`_Replay`), so ``loss.backward()`` replays the
-backward graphs in reverse; they add the parameters' gradients into their
-``.grad`` themselves, as autograd would.
+loss and autograd's backward. Here the step runs ``COG.forward`` itself,
+whose stretches between two kernel calls (``models/cog.py::segments``) and
+the loss run from CUDA graphs. The first call of a stretch at a batch's
+shapes warms it up on a side stream and captures its forward and its
+backward (``torch.autograd.grad`` into every input and parameter that
+needs a gradient, as ``torch.cuda.make_graphed_callables`` does) into a
+memory pool of its own; every call then copies its inputs into the graph's
+own (an input that is another graph's output is read where it lies) and
+replays. A replay is one node of autograd (:class:`_Replay`), so
+``loss.backward()`` replays the backward graphs in reverse; they add the
+parameters' gradients into their ``.grad`` themselves, as autograd would.
 
 The kernels (K1, K2a, K2b forward; K3, K4, K5 backward) keep their
 ordinary launches between the replays: every call of their wrappers and
@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Set
 
 import torch
 
-from ..models.cog import segmented_forward, segments
+from ..models.cog import segments
 from ..utils.profiling import count, span
 
 # warm-up runs of a stretch (forward and backward) on a side stream before
@@ -217,17 +217,14 @@ class StepGraphs:
     def loss(self, data: Dict[str, torch.Tensor], masks=None):
         """The step's forward and loss from the graphs: (loss, metrics), the
         loss ready for ``backward()``, the metrics fresh tensors. ``masks``
-        as ``COG.dropout_masks`` draws them, or None: drawn here from the
-        experiment's generator."""
+        as ``COG.dropout_masks`` draws them, or None: ``COG.forward`` draws
+        them from the experiment's generator."""
         exp = self.exp
         graphs = self._graphs(data)
         count("med.train.graph_step")
-        model = exp.net.model
         with span("med.train.forward"):
-            x = exp._assemble(data)
-            if masks is None:
-                masks = model.dropout_masks(x.shape[1], exp.generator, x.shape[0])
-            out_list = segmented_forward(model, graphs.segs, x, masks, graphs.run)
+            out_list, _ = exp.net.model(exp._assemble(data), True, masks, exp.generator,
+                                        run=graphs.run)
         with span("med.train.loss"):
             loss_seg = graphs.segs["loss"]
             loss, *values = graphs.run("loss", *out_list, *(data[k] for k in loss_seg.keys))

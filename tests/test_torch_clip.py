@@ -32,15 +32,6 @@ from med_tpu_torch.models.prompts import (GESTURES, SKILL_STATEMENTS, encode_pro
 TOL = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    # the suite runs several workers at once: torch on all cores in each
-    # oversubscribes the machine
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
 
 class _QuickGELU(nn.Module):
     def forward(self, x):

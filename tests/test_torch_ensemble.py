@@ -38,13 +38,6 @@ from med_tpu_torch.parallel.mesh import make_mesh
 PROB_TOL = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
 
 # ----------------------------------------------------------- numpy functions
 def _nd_raw(rng, n):

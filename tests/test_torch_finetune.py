@@ -63,15 +63,6 @@ SMALL = dict(stage_sizes=(1, 1, 1, 1), width=8)
 LR = 1e-3
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    # the suite runs several workers at once: torch on all cores in each
-    # oversubscribes the machine
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
 
 def _leaves(tree):
     return {k: np.asarray(v) for k, v in flatten_tree(jax.device_get(tree)).items()}

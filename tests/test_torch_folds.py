@@ -61,13 +61,6 @@ FRAME = (*SMALL_FLAGS, "--data-type", "kinematics", "--model-name", "TeCNo",
          "--no-fused-epoch", "--no-fused-run", "--n-epochs", "2", "--folds", "1Out")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 def _folds(rng):
     """Two folds of different sizes (3 and 2 steps an epoch)."""

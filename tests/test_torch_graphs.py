@@ -1,6 +1,7 @@
-"""COG cut at its kernel calls (``models/cog.py::segments``,
-``segmented_forward``), run eagerly on the CPU, against ``COG.forward``:
-the tracks, the loss, the metrics and every gradient equal bit for bit in
+"""COG's forward cut at its kernel calls (``models/cog.py``: ``COG.forward``
+run through ``segments``), each stretch one node of autograd as a replayed
+graph is, run eagerly on the CPU against the uncut ``COG.forward``: the
+tracks, the loss, the metrics and every gradient equal bit for bit in
 training (the masks given) and the tracks in eval, for the 'global' and
 'all_errors' regimes; each segment holds exactly the parameters its
 outputs reach. And the rule of the step graphs (``train/graphs.py``): on
@@ -15,7 +16,7 @@ import torch
 from med_tpu_torch.config import ExperimentConfig
 from med_tpu_torch.data.datasets import FrameTrial, frame_batch
 from med_tpu_torch.data.labels import skill_one_hot
-from med_tpu_torch.models.cog import segmented_forward, segments
+from med_tpu_torch.models.cog import segments
 from med_tpu_torch.parallel.mesh import make_mesh, shard_state, unshard_state
 from med_tpu_torch.train.engine import Experiment, cog_loss
 from med_tpu_torch.train.graphs import _Loss
@@ -36,7 +37,6 @@ def _trial(rng, T, name="Needle_Passing_B001"):
 
 
 def _cog(error_type):
-    torch.set_num_threads(1)
     out_features = 2 if error_type == "global" else 6
     exp = Experiment(ExperimentConfig(**SMALL, error_type=error_type,
                                       out_features=out_features), device="cpu")
@@ -46,6 +46,42 @@ def _cog(error_type):
 
 def _grads(loss, params):
     return torch.autograd.grad(loss, params, allow_unused=True)
+
+
+class _Cut(torch.autograd.Function):
+    """A segment as one node of autograd, as ``train/graphs.py::_Replay``
+    replays one: its forward on its inputs detached and re-attached, its
+    backward by ``torch.autograd.grad`` into those inputs and the segment's
+    parameters (which ride along as inputs of the node)."""
+
+    @staticmethod
+    def forward(ctx, segment, n, *args):
+        inputs = [None if a is None else a.detach().requires_grad_(a.requires_grad)
+                  for a in args[:n]]
+        with torch.enable_grad():
+            outs = segment(*inputs)
+        ctx.cut = (inputs, args[n:], outs)
+        ctx.set_materialize_grads(False)
+        got = [o.detach() for o in outs]
+        ctx.mark_non_differentiable(*[g for g, o in zip(got, outs) if not o.requires_grad])
+        return tuple(got)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs, params, outs = ctx.cut
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad and g is not None]
+        wrt = [a for a in inputs if a is not None and a.requires_grad] + list(params)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True) if pairs else [None] * len(wrt))
+        into = [next(got) if a is not None and a.requires_grad else None for a in inputs]
+        return (None, None, *into, *got)
+
+
+def _cut_run(segs):
+    def run(name, *xs):
+        params = [p for p in segs[name].parameters() if p.requires_grad]
+        return _Cut.apply(segs[name], len(xs), *xs, *params)
+    return run
 
 
 @pytest.mark.parametrize("error_type", ["global", "all_errors"])
@@ -58,16 +94,18 @@ def test_segmented_cog_equals_cog_forward_bit_for_bit(error_type, train):
     masks = model.dropout_masks(x.shape[1], torch.Generator().manual_seed(1)) if train else None
     params = list(exp.net.parameters())
     with torch.set_grad_enabled(train):
-        want, _ = model(x, train=train, masks=masks)
-        got = segmented_forward(model, segments(model), x, masks)
+        want, want_f = model(x, train=train, masks=masks)
+        got, got_f = model(x, train=train, masks=masks, run=_cut_run(segments(model)))
     assert len(got) == len(want) == 2 * (cfg.num_R + 1)
-    for g, w in zip(got, want):
+    assert len(got_f) == len(want_f) == 2 * (cfg.num_R + 1)
+    for g, w in zip(got + got_f, want + want_f):
         assert torch.equal(g, w)
     if not train:
         return
     loss_w, metrics_w = cog_loss(cfg, want, data)
     keys = sorted(k for k in data if k not in ("images", "kinematics"))
-    loss_g, *values = _Loss(exp._loss, len(got), keys)(*got, *(data[k] for k in keys))
+    loss_g, *values = _Cut.apply(_Loss(exp._loss, len(got), keys), len(got) + len(keys),
+                                 *got, *(data[k] for k in keys))
     assert torch.equal(loss_g, loss_w)
     assert list(metrics_w) == (["cm", "preds", "probs"]
                                + (["cm_binary"] if error_type == "all_errors" else []))
@@ -101,7 +139,7 @@ def test_each_segment_holds_the_parameters_its_outputs_reach():
         reached[name] = {names[p] for p, g in zip(model.parameters(), grads) if g is not None}
         return outs
 
-    segmented_forward(model, segs, x, masks, run)
+    model(x, True, masks, run=run)
     held = {name: {names[p] for p in s.parameters()} for name, s in segs.items()}
     assert list(reached) == list(segs)
     assert reached == held
@@ -137,7 +175,6 @@ def test_a_cpu_train_step_builds_no_graph_and_keeps_its_own_loss(case):
                                hidden_size=16, lr_scheduler=False)
     else:
         cfg = ExperimentConfig(**SMALL, out_features=2)
-    torch.set_num_threads(1)
     exp = Experiment(cfg, device="cpu")
     exp.init_weights(7)
     if case == "cog_mesh":

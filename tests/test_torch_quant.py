@@ -30,13 +30,6 @@ from med_tpu_torch.utils.jax_params import load_jax_quant_fe, load_jax_quant_tru
 FLIP_FRAC = 1e-4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))

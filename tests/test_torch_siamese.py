@@ -39,16 +39,6 @@ SMALL = ("--device", "cpu", "--video-dims", "8", "--hidden-size", "16", "--batch
          "--n-epochs", "2", "--folds", "1Out")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs six
-    workers on the machine's cores, where each test's own thread pool only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 def _windows(rng, n=60):
     """A split's gesture, error and subject columns: gesture runs within

@@ -38,6 +38,11 @@ JAX_NOISE = 0.15
 
 @pytest.fixture(autouse=True, scope="module")
 def _few_torch_threads():
+    """Two intra-op threads, whatever the suite's rule gives: the first
+    fold's 1e-5 was measured at two. The thread count sets the float32
+    fold's summation order, and with it how far the first epoch's train
+    loss lands from the float64 fold: 7.1e-6 at two threads, 1.8e-5 at
+    one."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

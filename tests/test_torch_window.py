@@ -41,16 +41,6 @@ from med_tpu_torch.utils.jax_params import export_jax_params, load_jax_params
 B = 16
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the suite runs six
-    workers on the machine's cores, where each test's own thread pool only
-    oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 def leaves(tree, prefix=""):
     out = {}

@@ -7,6 +7,8 @@ directory). A rank imports only torch, numpy and the port: never JAX nor
 process, against the port on one rank and against ``med_tpu``.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -304,7 +306,6 @@ def cli_suite(runs):
     directory."""
     import importlib
 
-    torch.set_num_threads(1)
     out = []
     for module, argv in runs:
         results, tracker = importlib.import_module(module).main(argv)
@@ -326,3 +327,10 @@ def serve_suite(fields, tree, images, kinematics):
 def folds_suite(runs, serve_args):
     """The CLIs of :func:`cli_suite`, then :func:`serve_suite`, in one group."""
     return cli_suite(runs), serve_suite(*serve_args)
+
+
+# --------------------------------------------------------------- threads
+def thread_suite():
+    """This rank's torch intra-op count and the OMP_NUM_THREADS it was
+    started with."""
+    return torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
